@@ -1,0 +1,40 @@
+// Shared 5-point stencil apply at one grid point, used by the stencil5 and
+// bicgstab kernels.
+//
+// Layout is the JAX package's: an (n0, n1) row-major plane, axis 0 = i (x),
+// axis 1 = j (y, contiguous).  Zero inflow: a neighbour outside the plane
+// reads as 0, exactly the shift semantics of na_dd_tpu/ops/shifts.py.
+//
+//   out[i,j] = c0*u[i,j] + cxm*u[i-1,j] + cxp*u[i+1,j] + cym*u[i,j-1]
+//              + cyp*u[i,j+1]            (summed left to right)
+#pragma once
+
+#include <cuda_runtime.h>
+
+// Loads of the operand u.  kCoherent selects __ldcg (L2 only, no L1): the
+// solve kernel reads neighbours that other blocks wrote in the same launch,
+// which a stale L1 line must never shadow.  The stand-alone apply reads u
+// through the read-only path.
+template <typename T, bool kCoherent>
+__device__ __forceinline__ T load_u(const T* u, int k) {
+  if (kCoherent) return __ldcg(u + k);
+  return __ldg(u + k);
+}
+
+template <typename T, bool kCoherent>
+__device__ __forceinline__ T stencil5_at(const T* u, const T* __restrict__ c0,
+                                         const T* __restrict__ cxm,
+                                         const T* __restrict__ cxp,
+                                         const T* __restrict__ cym,
+                                         const T* __restrict__ cyp, int i,
+                                         int j, int n0, int n1) {
+  const int k = i * n1 + j;
+  const T zero = T(0);
+  const T u0 = load_u<T, kCoherent>(u, k);
+  const T uxm = i > 0 ? load_u<T, kCoherent>(u, k - n1) : zero;
+  const T uxp = i < n0 - 1 ? load_u<T, kCoherent>(u, k + n1) : zero;
+  const T uym = j > 0 ? load_u<T, kCoherent>(u, k - 1) : zero;
+  const T uyp = j < n1 - 1 ? load_u<T, kCoherent>(u, k + 1) : zero;
+  return __ldg(c0 + k) * u0 + __ldg(cxm + k) * uxm + __ldg(cxp + k) * uxp +
+         __ldg(cym + k) * uym + __ldg(cyp + k) * uyp;
+}

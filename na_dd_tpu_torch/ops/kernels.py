@@ -1,0 +1,270 @@
+"""The main path's hand-written Hopper kernels, each beside its plain PyTorch
+twin.
+
+==========================  ===================================================
+wrapper                     replaces (na_dd_tpu/ops/pallas_kernels.py)
+==========================  ===================================================
+:func:`stencil5_apply`      ``stencil5_apply_pallas`` (:523) — K2
+:func:`bicgstab_solve`      ``bicgstab_solve_pallas`` (:342) — K1
+==========================  ===================================================
+
+Dispatch is by the tensor's device and nothing else: a CPU tensor takes the
+plain version; a CUDA tensor is checked (device, dtype, shape, contiguity)
+and launches the kernel, or the wrapper raises.  There is no fallback from a
+refused or failed launch to the plain version.  Each launch adds one to its
+wrapper's count in :data:`LAUNCHES`.
+
+The CUDA sources (``csrc/*.cu``) are compiled at first use with ``nvcc`` for
+``sm_90a`` into plain-C shared libraries under ``build/kernels/`` at the
+repository root, one ``nvcc`` per source, all started together, and loaded
+with ``ctypes``.  Nothing here imports or builds anything when the module is
+imported, so the module loads on a machine with no ``nvcc`` and no card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+from na_dd_tpu_torch.ops.linsolve import Stencil5, bicgstab_unrolled
+from na_dd_tpu_torch.ops.shifts import LOCAL_OPS
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+SOURCES = {"stencil5": "stencil5.cu", "bicgstab": "bicgstab.cu"}
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+#: launches of each kernel since the last :func:`reset_launch_counts`
+LAUNCHES = {"stencil5_apply": 0, "bicgstab_solve": 0}
+
+#: per-source build record of the last :func:`build_kernels` in this process:
+#: {"seconds", "cached", "ptxas"} (ptxas = nvcc's register/spill report)
+BUILD_INFO: dict = {}
+
+_LIBS: dict = {}
+_LOCK = threading.Lock()
+_BLOCKS: dict = {}
+
+
+def reset_launch_counts() -> None:
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch twins (the CPU path; also the yardstick on the card)
+# ---------------------------------------------------------------------------
+def stencil5_apply_plain(stencil: Stencil5, u):
+    """out = c0·u + cxm·u[i-1,j] + cxp·u[i+1,j] + cym·u[i,j-1] + cyp·u[i,j+1],
+    zero inflow."""
+    return stencil.apply(LOCAL_OPS, u)
+
+
+def _residual_info(apply, stencil, b, x, iters, tol):
+    """True-residual diagnostics, as bicgstab_solve_pallas computes them
+    outside its kernel (pallas_kernels.py:385-392)."""
+    r = b - apply(stencil, x)
+    rsq = torch.sum(r * r)
+    tol_sq = tol * tol * torch.sum(b * b)
+    return {"iters": iters, "resnorm_sq": rsq, "converged": rsq <= tol_sq}
+
+
+def bicgstab_solve_plain(stencil: Stencil5, b, inv_diag, mask, *, tol: float, iters: int):
+    """Plain twin of K1: :func:`bicgstab_unrolled` from x0 = 0 with the
+    Jacobi preconditioner, then ``x * mask`` and the true-residual info."""
+    x, info = bicgstab_unrolled(
+        lambda w: stencil5_apply_plain(stencil, w),
+        b,
+        torch.zeros_like(b),
+        dot=lambda u, v: torch.sum(u * v),
+        minv=lambda r: r * inv_diag,
+        tol=tol,
+        iters=iters,
+    )
+    x = x * mask
+    return x, _residual_info(stencil5_apply_plain, stencil, b, x, info["iters"], tol)
+
+
+# ---------------------------------------------------------------------------
+# build and load
+# ---------------------------------------------------------------------------
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the CUDA toolkit")
+
+
+def _digest(source: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC_DIR.glob("*.cuh")) + [CSRC_DIR / source]:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _declare(name: str, lib) -> None:
+    vp, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    lib.error_string.argtypes = [i32]
+    lib.error_string.restype = ctypes.c_char_p
+    if name == "stencil5":
+        for fn in (lib.stencil5_apply_f64, lib.stencil5_apply_f32):
+            fn.argtypes = [vp] * 7 + [i32, i32, vp]
+            fn.restype = i32
+    else:
+        for fn in (lib.bicgstab_blocks_f64, lib.bicgstab_blocks_f32):
+            fn.argtypes = [i32, ctypes.POINTER(i32)]
+            fn.restype = i32
+        for fn in (lib.bicgstab_solve_f64, lib.bicgstab_solve_f32):
+            fn.argtypes = [vp] * 12 + [i32, i32, i32, f64, i32, vp]
+            fn.restype = i32
+        lib.bicgstab_num_slots.restype = i32
+        lib.bicgstab_work_planes.restype = i32
+
+
+def build_kernels() -> dict:
+    """Compile (where not already built) and load every kernel library.
+
+    One ``nvcc`` process per source, all started together.  A library is
+    named by the digest of its sources and flags, so an unchanged source is
+    not compiled twice.  Returns {name: ctypes library}.
+    """
+    with _LOCK:
+        if len(_LIBS) == len(SOURCES):
+            return dict(_LIBS)
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        jobs = {}
+        for name, source in SOURCES.items():
+            target = BUILD_DIR / f"lib{name}_{_digest(source)}.so"
+            if target.exists():
+                BUILD_INFO[name] = {"seconds": 0.0, "cached": True, "ptxas": ""}
+                continue
+            tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)]
+            proc = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )
+            jobs[name] = (proc, tmp, target, time.perf_counter())
+        outputs = {}
+        for name, (proc, _tmp, _target, t0) in jobs.items():  # wait for every nvcc
+            outputs[name] = (proc.communicate()[0], time.perf_counter() - t0)
+        for name, (proc, tmp, target, _t0) in jobs.items():
+            out, seconds = outputs[name]
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {SOURCES[name]}:\n{out}")
+            tmp.replace(target)
+            BUILD_INFO[name] = {"seconds": seconds, "cached": False, "ptxas": out}
+        for name, source in SOURCES.items():
+            lib = ctypes.CDLL(str(BUILD_DIR / f"lib{name}_{_digest(source)}.so"))
+            _declare(name, lib)
+            _LIBS[name] = lib
+        return dict(_LIBS)
+
+
+def _lib(name: str):
+    if name not in _LIBS:
+        build_kernels()
+    return _LIBS[name]
+
+
+def _check_launch(lib, code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA error {code} ({lib.error_string(code).decode()})")
+
+
+def _check_operands(what: str, ref: torch.Tensor, *others: torch.Tensor) -> None:
+    if ref.device.type != "cuda":
+        raise ValueError(f"{what}: tensors must lie on the CPU or a CUDA device; got {ref.device}")
+    if ref.dtype not in (torch.float64, torch.float32):
+        raise TypeError(f"{what}: dtype must be float64 or float32; got {ref.dtype}")
+    if ref.dim() != 2:
+        raise ValueError(f"{what}: operands must be 2-D planes; got shape {tuple(ref.shape)}")
+    for t in (ref, *others):
+        if t.device != ref.device or t.dtype != ref.dtype or t.shape != ref.shape:
+            raise ValueError(
+                f"{what}: every operand must match {ref.dtype} {tuple(ref.shape)} on "
+                f"{ref.device}; got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: operands must be contiguous")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+def stencil5_apply(stencil: Stencil5, u):
+    """K2.  CPU tensor → :func:`stencil5_apply_plain`; CUDA tensor → kernel."""
+    if u.device.type == "cpu":
+        return stencil5_apply_plain(stencil, u)
+    _check_operands("stencil5_apply", u, *stencil)
+    lib = _lib("stencil5")
+    fn = lib.stencil5_apply_f64 if u.dtype == torch.float64 else lib.stencil5_apply_f32
+    out = torch.empty_like(u)
+    n0, n1 = u.shape
+    code = fn(
+        u.data_ptr(), *(c.data_ptr() for c in stencil), out.data_ptr(),
+        n0, n1, _stream(u),
+    )
+    _check_launch(lib, code, "stencil5_apply")
+    LAUNCHES["stencil5_apply"] += 1
+    return out
+
+
+def _bicgstab_blocks(lib, dtype, n: int) -> int:
+    key = (dtype, n)
+    if key not in _BLOCKS:
+        fn = lib.bicgstab_blocks_f64 if dtype == torch.float64 else lib.bicgstab_blocks_f32
+        blocks = ctypes.c_int(0)
+        _check_launch(lib, fn(n, ctypes.byref(blocks)), "bicgstab_solve occupancy")
+        _BLOCKS[key] = blocks.value
+    return _BLOCKS[key]
+
+
+def bicgstab_solve(stencil: Stencil5, b, inv_diag, mask, *, tol: float, iters: int):
+    """K1: whole Jacobi-BiCGStab solve (x0 = 0, ``iters`` masked-early-exit
+    iterations) of ``stencil · x = b``.
+
+    Returns ``(x, info)`` with ``info = {"iters", "resnorm_sq", "converged"}``:
+    the in-kernel iteration count and the true residual ``b − A·x`` through
+    :func:`stencil5_apply`, as ``bicgstab_solve_pallas`` reports them.  CPU
+    tensors take :func:`bicgstab_solve_plain`.  The solve never synchronises
+    with the host.
+    """
+    if b.device.type == "cpu":
+        return bicgstab_solve_plain(stencil, b, inv_diag, mask, tol=tol, iters=iters)
+    _check_operands("bicgstab_solve", b, *stencil, inv_diag, mask)
+    lib = _lib("bicgstab")
+    n0, n1 = b.shape
+    blocks = _bicgstab_blocks(lib, b.dtype, n0 * n1)
+    x = torch.empty_like(b)
+    iters_out = torch.empty(1, dtype=torch.int32, device=b.device)
+    work = torch.empty((lib.bicgstab_work_planes(), n0, n1), dtype=b.dtype, device=b.device)
+    partials = torch.empty(lib.bicgstab_num_slots() * blocks, dtype=b.dtype, device=b.device)
+    fn = lib.bicgstab_solve_f64 if b.dtype == torch.float64 else lib.bicgstab_solve_f32
+    code = fn(
+        b.data_ptr(), *(c.data_ptr() for c in stencil), inv_diag.data_ptr(),
+        mask.data_ptr(), x.data_ptr(), iters_out.data_ptr(), work.data_ptr(),
+        partials.data_ptr(), n0, n1, int(iters), float(tol) * float(tol), blocks,
+        _stream(b),
+    )
+    _check_launch(lib, code, "bicgstab_solve")
+    LAUNCHES["bicgstab_solve"] += 1
+    return x, _residual_info(stencil5_apply, stencil, b, x, iters_out[0], tol)

@@ -1,0 +1,63 @@
+"""Zero-inflow axis shifts and global reductions (counterpart of
+:mod:`na_dd_tpu.ops.shifts`).
+
+    shift_xm(u)[i, j] = u[i-1, j]     (row 0 of the result is 0)
+    shift_xp(u)[i, j] = u[i+1, j]     (row N of the result is 0)
+    shift_ym(u)[i, j] = u[i, j-1]     (col 0 of the result is 0)
+    shift_yp(u)[i, j] = u[i, j+1]     (col M of the result is 0)
+    asum(u), amax(u)  = sum / max over the whole array
+
+Every discrete operator of the port is written through these, so a sharded
+provider can later take the place of :class:`LocalOps`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+class Ops:
+    """Protocol for shift/reduction providers (duck-typed)."""
+
+    def shift_xm(self, u):  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def shift_xp(self, u):  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def shift_ym(self, u):  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def shift_yp(self, u):  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def asum(self, u):  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def amax(self, u):  # pragma: no cover - interface
+        raise NotImplementedError
+
+
+class LocalOps(Ops):
+    """Single-device shifts: slice + concatenate of a zero edge line."""
+
+    def shift_xm(self, u):
+        return torch.cat([torch.zeros_like(u[:1, :]), u[:-1, :]], dim=0)
+
+    def shift_xp(self, u):
+        return torch.cat([u[1:, :], torch.zeros_like(u[:1, :])], dim=0)
+
+    def shift_ym(self, u):
+        return torch.cat([torch.zeros_like(u[:, :1]), u[:, :-1]], dim=1)
+
+    def shift_yp(self, u):
+        return torch.cat([u[:, 1:], torch.zeros_like(u[:, :1])], dim=1)
+
+    def asum(self, u):
+        return torch.sum(u)
+
+    def amax(self, u):
+        return torch.amax(u)
+
+
+LOCAL_OPS = LocalOps()

@@ -1,0 +1,92 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions on a
+card.  Every test here is marked ``gpu`` and skips where
+``torch.cuda.is_available()`` is false; the file imports nothing of JAX, so
+on a machine with a card and no JAX it runs alone:
+
+    python -m pytest --noconftest tests/test_torch_gpu.py -q
+
+Tolerances, relative to the plain version's max-norm: 1e-12 in float64 and
+1e-5 in float32 (the kernels sum in another order and contract to FMA)."""
+
+import numpy as np
+import pytest
+import torch
+
+from na_dd_tpu_torch.convert import stencil5_from_numpy, tensor_from_numpy
+from na_dd_tpu_torch.ops import kernels
+
+pytestmark = pytest.mark.gpu
+
+TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+KRYLOV_TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
+DTYPES = [torch.float64, torch.float32]
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return "cuda"
+
+
+def assert_close(port, ref, rtol):
+    port = port.detach().double().cpu()
+    ref = ref.detach().double().cpu()
+    assert port.shape == ref.shape
+    assert float((port - ref).abs().max()) <= rtol * max(float(ref.abs().max()), 1e-300)
+
+
+def _system(seed, shape, dtype, device):
+    """A diagonally dominant Stencil5 system with zero boundary rows."""
+    rng = np.random.default_rng(seed)
+    mask = np.zeros(shape)
+    mask[1:-1, 1:-1] = 1.0
+    c0 = (4.5 + rng.random(shape)) * mask
+    planes = [c0] + [-rng.random(shape) * mask for _ in range(4)]
+    b = rng.standard_normal(shape) * mask
+    inv = np.where(mask > 0, 1.0 / np.where(c0 == 0, 1.0, c0), 0.0)
+    st = stencil5_from_numpy(planes, dtype, device)
+    return st, *(tensor_from_numpy(a, dtype, device) for a in (b, inv, mask))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(257, 257), (257, 130), (5, 3)])
+def test_stencil5_apply_kernel_vs_plain(card, dtype, shape):
+    rng = np.random.default_rng(31)
+    st = stencil5_from_numpy([rng.standard_normal(shape) for _ in range(5)], dtype, card)
+    u = tensor_from_numpy(rng.standard_normal(shape), dtype, card)
+    kernels.reset_launch_counts()
+    out = kernels.stencil5_apply(st, u)
+    assert kernels.LAUNCHES["stencil5_apply"] == 1
+    assert out.device.type == "cuda" and out.dtype == dtype
+    assert_close(out, kernels.stencil5_apply_plain(st, u), TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(257, 257), (129, 70)])
+def test_bicgstab_solve_kernel_vs_plain(card, dtype, shape):
+    st, b, inv, mask = _system(32, shape, dtype, card)
+    kernels.reset_launch_counts()
+    xk, ik = kernels.bicgstab_solve(st, b, inv, mask, tol=KRYLOV_TOL[dtype], iters=40)
+    assert kernels.LAUNCHES == {"stencil5_apply": 1, "bicgstab_solve": 1}
+    xp, ip = kernels.bicgstab_solve_plain(st, b, inv, mask, tol=KRYLOV_TOL[dtype], iters=40)
+    assert int(ik["iters"]) == int(ip["iters"]) > 0
+    assert bool(ik["converged"]) and bool(ip["converged"])
+    assert_close(xk, xp, TOL[dtype])
+
+
+@pytest.mark.parametrize("iters", [0, 1, 2])
+def test_bicgstab_solve_kernel_budget_cut(card, iters):
+    st, b, inv, mask = _system(33, (65, 65), torch.float64, card)
+    xk, ik = kernels.bicgstab_solve(st, b, inv, mask, tol=1e-13, iters=iters)
+    xp, ip = kernels.bicgstab_solve_plain(st, b, inv, mask, tol=1e-13, iters=iters)
+    assert int(ik["iters"]) == int(ip["iters"]) == iters
+    assert_close(xk, xp, 1e-12)
+
+
+def test_kernel_refuses_non_contiguous_operands(card):
+    st, b, inv, mask = _system(34, (17, 17), torch.float64, card)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.stencil5_apply(st, b.t())
+    with pytest.raises(ValueError, match="must match"):
+        kernels.bicgstab_solve(st, b.float(), inv, mask, tol=1e-13, iters=4)

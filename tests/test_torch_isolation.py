@@ -1,0 +1,73 @@
+"""The port stands alone: no module of ``na_dd_tpu_torch`` and not
+``chip_smoke.py`` imports JAX or anything of the JAX package (checked on the
+AST of every file), and the entry points never fall back to the CPU on their
+own — without a card and without an explicit device they raise."""
+
+import ast
+import pathlib
+
+import pytest
+import torch
+
+from na_dd_tpu_torch import config
+from na_dd_tpu_torch.convert import grid_from_nodes, state_from_numpy, tensor_from_numpy
+from na_dd_tpu_torch.ops.grid import make_grid, make_uniform_grid
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "na_dd_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "na_dd_tpu")
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+        elif isinstance(node, ast.Call) and getattr(node.func, "id", None) == "__import__":
+            if node.args and isinstance(node.args[0], ast.Constant):
+                yield str(node.args[0].value)
+
+
+def test_port_files_were_found():
+    assert len(PORT_FILES) >= 20
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_import(path):
+    for module in _imported_modules(path):
+        root = module.split(".")[0]
+        assert root not in FORBIDDEN, f"{path.name} imports {module}"
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize(
+    "entry",
+    [
+        lambda: config.resolve_device(None),
+        lambda: make_uniform_grid(4, 4),
+        lambda: make_grid([0.0, 0.5, 1.0], [0.0, 0.5, 1.0]),
+        lambda: grid_from_nodes([0.0, 0.5, 1.0], [0.0, 0.5, 1.0]),
+        lambda: tensor_from_numpy([1.0, 2.0]),
+        lambda: state_from_numpy([[[0.0]]] * 5),
+    ],
+)
+def test_entry_points_without_a_card_raise(no_card, entry):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry()
+
+
+def test_explicit_cpu_device_runs_in_float64_by_default(no_card):
+    g = make_uniform_grid(4, 4, device="cpu")
+    assert g.device.type == "cpu" and g.dtype == torch.float64
+
+
+def test_dtype_is_checked():
+    with pytest.raises(ValueError, match="float64 or torch.float32"):
+        config.resolve_dtype(torch.float16)

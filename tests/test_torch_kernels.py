@@ -1,0 +1,167 @@
+"""The port's kernel wrappers (ops/kernels.py) on the CPU, where they run
+their plain PyTorch twins, against the JAX package's Pallas kernels in
+interpret mode: ``stencil5_apply`` vs ``stencil5_apply_pallas`` and
+``bicgstab_solve`` vs ``bicgstab_solve_pallas``, float64 and float32, with
+identical iteration counts.  Tolerances, relative to the reference's
+max-norm: 1e-12 in float64 and 1e-5 in float32 (the reductions are summed in
+another order).  The CUDA kernels themselves are held against the plain
+versions in tests/test_torch_gpu.py, which needs a card."""
+
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from na_dd_tpu.ops import linsolve as j_ls
+from na_dd_tpu.ops.pallas_kernels import bicgstab_solve_pallas, stencil5_apply_pallas
+from na_dd_tpu.ops.shifts import LOCAL_OPS as J_OPS
+from na_dd_tpu_torch.convert import stencil5_from_numpy, tensor_from_numpy
+from na_dd_tpu_torch.ops import kernels
+from na_dd_tpu_torch.ops import linsolve as t_ls
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+NP_DTYPE = {torch.float64: np.float64, torch.float32: np.float32}
+DTYPES = [torch.float64, torch.float32]
+
+
+def assert_close(port, ref, rtol):
+    port = np.asarray(port.detach().cpu(), dtype=np.float64)
+    ref = np.asarray(ref, dtype=np.float64)
+    assert port.shape == ref.shape
+    scale = max(float(np.max(np.abs(ref))), 1e-300)
+    assert float(np.max(np.abs(port - ref))) <= rtol * scale
+
+
+def _system(seed, shape, dtype):
+    """A diagonally dominant Stencil5 system with zero boundary rows, the
+    shape of a Newton system: planes, rhs, Jacobi inverse diagonal, mask."""
+    rng = np.random.default_rng(seed)
+    mask = np.zeros(shape)
+    mask[1:-1, 1:-1] = 1.0
+    c0 = (4.5 + rng.random(shape)) * mask
+    planes = [c0] + [-rng.random(shape) * mask for _ in range(4)]
+    b = rng.standard_normal(shape) * mask
+    inv = np.where(mask > 0, 1.0 / np.where(c0 == 0, 1.0, c0), 0.0)
+    npd = NP_DTYPE[dtype]
+    return [p.astype(npd) for p in planes], b.astype(npd), inv.astype(npd), mask.astype(npd)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(9, 9), (11, 6)])
+def test_stencil5_apply_plain_vs_pallas(dtype, shape):
+    rng = np.random.default_rng(21)
+    npd = NP_DTYPE[dtype]
+    planes = [rng.standard_normal(shape).astype(npd) for _ in range(5)]
+    u = rng.standard_normal(shape).astype(npd)
+    port = kernels.stencil5_apply(stencil5_from_numpy(planes, dtype, "cpu"), tensor_from_numpy(u, dtype, "cpu"))
+    ref = stencil5_apply_pallas(j_ls.Stencil5(*map(jnp.asarray, planes)), jnp.asarray(u), interpret=True)
+    assert port.dtype == dtype
+    assert_close(port, ref, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_bicgstab_solve_plain_vs_pallas(dtype):
+    planes, b, inv, mask = _system(22, (9, 8), dtype)
+    tol = 1e-13 if dtype == torch.float64 else 1e-5
+    port_x, port_info = kernels.bicgstab_solve(
+        stencil5_from_numpy(planes, dtype, "cpu"),
+        *(tensor_from_numpy(a, dtype, "cpu") for a in (b, inv, mask)),
+        tol=tol, iters=12,
+    )
+    ref_x, ref_info = bicgstab_solve_pallas(
+        j_ls.Stencil5(*map(jnp.asarray, planes)), *map(jnp.asarray, (b, inv, mask)),
+        tol=tol, iters=12, interpret=True,
+    )
+    assert int(port_info["iters"]) == int(ref_info["iters"]) > 0
+    assert bool(port_info["converged"]) == bool(ref_info["converged"]) is True
+    assert_close(port_x, ref_x, TOL[dtype])
+    assert float(port_info["resnorm_sq"]) <= tol * tol * float(np.sum(b.astype(np.float64) ** 2))
+
+
+@pytest.mark.parametrize("iters", [1, 3])
+def test_bicgstab_solve_budget_cut_matches_pallas(iters):
+    """A budget that ends before convergence: same iterate, same count, both
+    report not converged."""
+    planes, b, inv, mask = _system(23, (9, 8), torch.float64)
+    port_x, port_info = kernels.bicgstab_solve(
+        stencil5_from_numpy(planes, device="cpu"),
+        *(tensor_from_numpy(a, device="cpu") for a in (b, inv, mask)),
+        tol=1e-13, iters=iters,
+    )
+    ref_x, ref_info = bicgstab_solve_pallas(
+        j_ls.Stencil5(*map(jnp.asarray, planes)), *map(jnp.asarray, (b, inv, mask)),
+        tol=1e-13, iters=iters, interpret=True,
+    )
+    assert int(port_info["iters"]) == int(ref_info["iters"]) == iters
+    assert not bool(port_info["converged"]) and not bool(ref_info["converged"])
+    assert_close(port_x, ref_x, 1e-12)
+
+
+def test_bicgstab_unrolled_matches_jax():
+    planes, b, inv, _mask = _system(24, (8, 7), torch.float64)
+    t_st = stencil5_from_numpy(planes, device="cpu")
+    j_st = j_ls.Stencil5(*map(jnp.asarray, planes))
+    tb, tinv = tensor_from_numpy(b, device="cpu"), tensor_from_numpy(inv, device="cpu")
+    port_x, port_info = t_ls.bicgstab_unrolled(
+        lambda w: t_st.apply(kernels.LOCAL_OPS, w), tb, torch.zeros_like(tb),
+        dot=lambda u, v: torch.sum(u * v), minv=lambda r: r * tinv, tol=1e-13, iters=10,
+    )
+    ref_x, ref_info = j_ls.bicgstab_unrolled(
+        lambda w: j_st.apply(J_OPS, w), jnp.asarray(b), jnp.zeros_like(jnp.asarray(b)),
+        dot=lambda u, v: jnp.sum(u * v), minv=lambda r: r * jnp.asarray(inv), tol=1e-13, iters=10,
+    )
+    assert int(port_info["iters"]) == int(ref_info["iters"])
+    assert_close(port_x, ref_x, 1e-12)
+
+
+def test_zero_rhs_takes_no_iteration():
+    planes, b, inv, mask = _system(25, (6, 6), torch.float64)
+    x, info = kernels.bicgstab_solve(
+        stencil5_from_numpy(planes, device="cpu"),
+        *(tensor_from_numpy(a, device="cpu") for a in (np.zeros_like(b), inv, mask)),
+        tol=1e-13, iters=5,
+    )
+    assert int(info["iters"]) == 0 and bool(info["converged"])
+    assert float(x.abs().max()) == 0.0
+
+
+def test_cpu_tensors_take_the_plain_version(monkeypatch):
+    """No build, no launch and no count for CPU tensors."""
+
+    def refuse(name):
+        raise AssertionError(f"kernel library {name} requested for a CPU tensor")
+
+    monkeypatch.setattr(kernels, "_lib", refuse)
+    kernels.reset_launch_counts()
+    planes, b, inv, mask = _system(26, (7, 7), torch.float64)
+    st = stencil5_from_numpy(planes, device="cpu")
+    tb, tinv, tmask = (tensor_from_numpy(a, device="cpu") for a in (b, inv, mask))
+    assert torch.equal(kernels.stencil5_apply(st, tb), kernels.stencil5_apply_plain(st, tb))
+    xk, ik = kernels.bicgstab_solve(st, tb, tinv, tmask, tol=1e-13, iters=8)
+    xp, ip = kernels.bicgstab_solve_plain(st, tb, tinv, tmask, tol=1e-13, iters=8)
+    assert torch.equal(xk, xp) and int(ik["iters"]) == int(ip["iters"])
+    assert kernels.LAUNCHES == {"stencil5_apply": 0, "bicgstab_solve": 0}
+
+
+def test_non_cpu_non_cuda_tensor_is_refused():
+    planes, b, _inv, _mask = _system(27, (5, 5), torch.float64)
+    st = t_ls.Stencil5(*(torch.as_tensor(p, device="meta") for p in planes))
+    with pytest.raises(ValueError, match="CPU or a CUDA device"):
+        kernels.stencil5_apply(st, torch.as_tensor(b, device="meta"))
+
+
+def test_kernels_module_imports_without_nvcc_or_triton():
+    code = (
+        "import sys, shutil\n"
+        "import na_dd_tpu_torch.ops.kernels as k\n"
+        "assert shutil.which('nvcc') is None\n"
+        "assert 'triton' not in sys.modules\n"
+        "assert k._LIBS == {} and k.BUILD_INFO == {}\n"
+    )
+    env = dict(os.environ, PATH=os.path.dirname(sys.executable))
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True, timeout=120)
