@@ -1,0 +1,110 @@
+// K5: a whole Jacobi-preconditioned BiCGStab solve of a Stencil7 system in
+// one persistent cooperative kernel, for Hopper (sm_90a).
+//
+// Replaces: bicgstab_solve3_pallas, na_dd_tpu/ops/pallas_kernels.py:702
+// (body _make_bicgstab3_kernel :661, an in-kernel fori_loop over
+// _bicgstab_inline :83).  The solve body, its contract and its design are in
+// bicgstab.cuh, shared with K1; this file gives it the 7-point operator.  The
+// TPU kernel's single-VMEM-block limit (fused_solve3_fits :688, N <= 31) is a
+// Mosaic budget: this kernel solves at every N.
+//
+// Bound on the card: bytes, and at small N latency.  One iteration makes
+// about 39 volume passes (two applies reading u and seven coefficient
+// volumes each, the p, s, x, r updates and six dot products) at roughly one
+// operation per byte.  Two regimes:
+//   N=64 (65^3, 2.2 MB a volume in f64): the ~16 working volumes (~35 MB)
+//     fit the 50 MB L2, so an iteration is served mostly from L2 and the five
+//     grid-wide barriers weigh as much as the streaming;
+//   N=128 (129^3, 17.2 MB a volume): they do not (~275 MB), so each
+//     iteration streams its volume passes from HBM (~670 MB, ~200 us at
+//     3.35 TB/s).
+// Each input must come from device memory once per solve: 11 volumes (b,
+// seven coefficients, inv_diag, mask, and x written), 24.2 MB at N=64 and
+// 188.9 MB at N=128.
+#include <cuda_runtime.h>
+
+#include "bicgstab.cuh"
+#include "stencil7.cuh"
+
+namespace {
+
+// The 7-point operator on an (n0, n1, n2) volume, flat index
+// k = (i * n1 + j) * n2 + l.
+template <typename T>
+struct Stencil7Op {
+  const T* c0;
+  const T* cxm;
+  const T* cxp;
+  const T* cym;
+  const T* cyp;
+  const T* czm;
+  const T* czp;
+  int n0;
+  int n1;
+  int n2;
+
+  __host__ __device__ int size() const { return n0 * n1 * n2; }
+
+  __device__ __forceinline__ T apply(const T* u, int k) const {
+    return stencil7_at<T, true>(u, c0, cxm, cxp, cym, cyp, czm, czp, k, n0, n1,
+                                n2);
+  }
+};
+
+template <typename T>
+int solve(const T* b, const T* c0, const T* cxm, const T* cxp, const T* cym,
+          const T* cyp, const T* czm, const T* czp, const T* inv_diag,
+          const T* mask, T* x, int* iters_out, T* work, T* partials, int n0,
+          int n1, int n2, int iters, double tol_sq_coef, int blocks,
+          void* stream) {
+  const Stencil7Op<T> A{c0, cxm, cxp, cym, cyp, czm, czp, n0, n1, n2};
+  return bicgstab::launch<T>(A, b, inv_diag, mask, x, iters_out, work,
+                             partials, iters, tol_sq_coef, blocks, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+int bicgstab3_num_slots() { return bicgstab::kNumSlots; }
+
+int bicgstab3_work_volumes() { return bicgstab::kWorkArrays; }
+
+int bicgstab3_blocks_f64(int n, int* blocks) {
+  return bicgstab::grid_blocks<double, Stencil7Op<double>>(n, blocks);
+}
+
+int bicgstab3_blocks_f32(int n, int* blocks) {
+  return bicgstab::grid_blocks<float, Stencil7Op<float>>(n, blocks);
+}
+
+int bicgstab3_solve_f64(const double* b, const double* c0, const double* cxm,
+                        const double* cxp, const double* cym,
+                        const double* cyp, const double* czm,
+                        const double* czp, const double* inv_diag,
+                        const double* mask, double* x, int* iters_out,
+                        double* work, double* partials, int n0, int n1, int n2,
+                        int iters, double tol_sq_coef, int blocks,
+                        void* stream) {
+  return solve<double>(b, c0, cxm, cxp, cym, cyp, czm, czp, inv_diag, mask, x,
+                       iters_out, work, partials, n0, n1, n2, iters,
+                       tol_sq_coef, blocks, stream);
+}
+
+int bicgstab3_solve_f32(const float* b, const float* c0, const float* cxm,
+                        const float* cxp, const float* cym, const float* cyp,
+                        const float* czm, const float* czp,
+                        const float* inv_diag, const float* mask, float* x,
+                        int* iters_out, float* work, float* partials, int n0,
+                        int n1, int n2, int iters, double tol_sq_coef,
+                        int blocks, void* stream) {
+  return solve<float>(b, c0, cxm, cxp, cym, cyp, czm, czp, inv_diag, mask, x,
+                      iters_out, work, partials, n0, n1, n2, iters,
+                      tol_sq_coef, blocks, stream);
+}
+
+const char* error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -13,9 +13,13 @@ Per step:
    Newton iteration.
 
 The linear solves go through one solver-backend object
-(:class:`KrylovBackend`): the hand-written BiCGStab kernel on CUDA tensors,
-its plain twin on CPU tensors.  Later precisions and solvers plug in as
-other backends.  Boundary semantics are the reference's: T's boundary is
+(:class:`KrylovBackend`): the hand-written BiCGStab kernel of the stencil's
+dimension on CUDA tensors, its plain twin on CPU tensors.  Later precisions
+and solvers plug in as other backends.  The step is dimension-agnostic: the
+3-D integrators (:mod:`na_dd_tpu_torch.three_d.integrator`) override only
+:meth:`PCTrapezoidalBase._newton_planes`.
+
+Boundary semantics are the reference's: T's boundary is
 re-zeroed by each sweep, cl and cd keep theirs, the correctors zero cp and
 cs on the boundary.
 """
@@ -30,6 +34,7 @@ from na_dd_tpu_torch.core.state import State, heaviside_regularized
 from na_dd_tpu_torch.ops import kernels, linsolve
 from na_dd_tpu_torch.ops.grid import Grid
 from na_dd_tpu_torch.ops.shifts import Ops
+from na_dd_tpu_torch.three_d.diffusion import Stencil7
 
 
 class HCsCorrectorPositivityError(ValueError):
@@ -57,23 +62,27 @@ class KrylovBackend:
     early-exit iterations from x0 = 0, to the dtype's
     :func:`default_krylov_tol`.
 
-    :func:`kernels.bicgstab_solve` launches the Hopper kernel for CUDA
-    tensors and runs its plain twin for CPU tensors; the diagonal of the
-    planes (``c0``) is exact, so the Jacobi preconditioner is ``1/c0`` on the
-    interior and 0 elsewhere.
+    The solve is picked by the stencil's type: :func:`kernels.bicgstab_solve`
+    for a :class:`~na_dd_tpu_torch.ops.linsolve.Stencil5`,
+    :func:`kernels.bicgstab_solve3` for a
+    :class:`~na_dd_tpu_torch.three_d.diffusion.Stencil7`.  Each launches its
+    Hopper kernel for CUDA tensors and runs its plain twin for CPU tensors;
+    the diagonal of the planes (``c0``) is exact, so the Jacobi
+    preconditioner is ``1/c0`` on the interior and 0 elsewhere.
     """
 
     def __init__(self, *, iters: int):
         self.iters = int(iters)
 
-    def solve(self, st: linsolve.Stencil5, rhs, mask):
+    def solve(self, st, rhs, mask):
         tol = default_krylov_tol(rhs.dtype)
         inv_diag = torch.where(
             mask > 0,
             1.0 / torch.where(st.c0 == 0, torch.ones_like(st.c0), st.c0),
             torch.zeros_like(st.c0),
         )
-        x, info = kernels.bicgstab_solve(
+        bicgstab = kernels.bicgstab_solve3 if isinstance(st, Stencil7) else kernels.bicgstab_solve
+        x, info = bicgstab(
             st, rhs * mask, inv_diag, mask, tol=tol, iters=self.iters
         )
         return x * mask, info
@@ -135,6 +144,12 @@ class PCTrapezoidalBase:
     def corrector_cs_step(self, g, ops, T1, cl1, cd1, *, at_t0, t0, dt):  # pragma: no cover
         raise NotImplementedError
 
+    def _newton_planes(self, g, ops, L, dt):
+        """Planes of the interior Newton operator 2·I − dt·L for a
+        self-Jacobian stencil ``L``: the one dimension-specific hook of the
+        step (the 3-D integrators build Stencil7 planes)."""
+        return linsolve.newton_planes(g, ops, L, dt)
+
     # Newton sweep over the triangular (T, cl, cd) block
     def _newton_sweep(self, g, ops, s: State, t1, dt, Y):
         """One Gauss–Seidel Newton sweep linearized at ``s``."""
@@ -145,7 +160,7 @@ class PCTrapezoidalBase:
 
         # T: FT is linear in T — closed-form planes and a direct primal
         fT0 = field.FT(g, ops, s, t1)
-        J_T = linsolve.newton_planes(g, ops, field.stencil_dFT_dT(g, ops, s), dt)
+        J_T = self._newton_planes(g, ops, field.stencil_dFT_dT(g, ops, s), dt)
         rhs_T = YT0 - (2.0 * s.T - dt * fT0)
         dT, info_T = solve(J_T, rhs_T, mask)
         T1 = s.T * mask + dT  # boundary re-zeroed, as in the reference
@@ -155,7 +170,7 @@ class PCTrapezoidalBase:
         fcl0, jvp_cl_T = torch.func.jvp(
             lambda T: field.Fcl(g, ops, s._replace(T=T), t1), (s.T,), (wT,)
         )
-        J_cl = linsolve.newton_planes(g, ops, field.stencil_dFcl_dcl(g, ops, s), dt)
+        J_cl = self._newton_planes(g, ops, field.stencil_dFcl_dcl(g, ops, s), dt)
         rhs_cl = Ycl0 - 2.0 * s.cl + dt * fcl0 + dt * jvp_cl_T
         dcl, info_cl = solve(J_cl, rhs_cl, mask)
         cl1 = s.cl + dcl  # boundary kept, as in the reference
@@ -167,7 +182,7 @@ class PCTrapezoidalBase:
             (s.T, s.cl),
             (wT, wcl),
         )
-        J_cd = linsolve.newton_planes(g, ops, field.stencil_dFcd_dcd(g, ops, s), dt)
+        J_cd = self._newton_planes(g, ops, field.stencil_dFcd_dcd(g, ops, s), dt)
         rhs_cd = Ycd0 - 2.0 * s.cd + dt * fcd0 + dt * jvp_cd_Tcl
         dcd, info_cd = solve(J_cd, rhs_cd, mask)
         cd1 = s.cd + dcd

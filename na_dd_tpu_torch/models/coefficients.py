@@ -1,4 +1,4 @@
-"""Nonlinear coefficients Dl, V1, V2, Dd and their derivatives (counterpart of
+"""Nonlinear coefficients Dl, V1, V2, V3, Dd and their derivatives (counterpart of
 :mod:`na_dd_tpu.models.coefficients`).
 
 Dual dispatch as in the JAX package: SymPy expressions go to the symbolic
@@ -17,7 +17,7 @@ from na_dd_tpu_torch.models.consts import ModelConsts
 
 
 class Model01:
-    """Dl(cp) = Dl_max e^{-φ_l cp}, V = (γ_T T, 0),
+    """Dl(cp) = Dl_max e^{-φ_l cp}, V = (γ_T T, 0) (and V3 = 0 in 3-D),
     Dd(cp, T) = Dd_max e^{-φ_d cp} e^{-φ_T/T}."""
 
     def __init__(self, mc: ModelConsts):
@@ -42,6 +42,13 @@ class Model01:
 
     def V2(self, T, *, d: int = 0):
         """V2 = 0."""
+        if isinstance(T, sympy.Expr):
+            return sympy.S(0)
+        return torch.zeros_like(T)
+
+    def V3(self, T, *, d: int = 0):
+        """V3 = 0: the z component of the velocity in 3-D (the model's
+        velocity is along x only)."""
         if isinstance(T, sympy.Expr):
             return sympy.S(0)
         return torch.zeros_like(T)

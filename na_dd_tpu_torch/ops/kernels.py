@@ -1,4 +1,4 @@
-"""The main path's hand-written Hopper kernels, each beside its plain PyTorch
+"""The port's hand-written Hopper kernels, each beside its plain PyTorch
 twin.
 
 ==========================  ===================================================
@@ -6,6 +6,9 @@ wrapper                     replaces (na_dd_tpu/ops/pallas_kernels.py)
 ==========================  ===================================================
 :func:`stencil5_apply`      ``stencil5_apply_pallas`` (:523) — K2
 :func:`bicgstab_solve`      ``bicgstab_solve_pallas`` (:342) — K1
+:func:`stencil7_apply`      ``stencil7_apply_pallas`` (:615) — K6, and
+                            ``stencil7_apply_tiled`` (:834) — K7
+:func:`bicgstab_solve3`     ``bicgstab_solve3_pallas`` (:702) — K5
 ==========================  ===================================================
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor takes the
@@ -36,17 +39,24 @@ import torch
 
 from na_dd_tpu_torch.ops.linsolve import Stencil5, bicgstab_unrolled
 from na_dd_tpu_torch.ops.shifts import LOCAL_OPS
+from na_dd_tpu_torch.three_d.diffusion import Stencil7
+from na_dd_tpu_torch.three_d.shifts import LOCAL_OPS3
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = {"stencil5": "stencil5.cu", "bicgstab": "bicgstab.cu"}
+SOURCES = {
+    "stencil5": "stencil5.cu",
+    "bicgstab": "bicgstab.cu",
+    "stencil7": "stencil7.cu",
+    "bicgstab3": "bicgstab3.cu",
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 #: launches of each kernel since the last :func:`reset_launch_counts`
-LAUNCHES = {"stencil5_apply": 0, "bicgstab_solve": 0}
+LAUNCHES = {"stencil5_apply": 0, "bicgstab_solve": 0, "stencil7_apply": 0, "bicgstab_solve3": 0}
 
 #: per-source build record of the last :func:`build_kernels` in this process:
 #: {"seconds", "cached", "ptxas"} (ptxas = nvcc's register/spill report)
@@ -80,11 +90,11 @@ def _residual_info(apply, stencil, b, x, iters, tol):
     return {"iters": iters, "resnorm_sq": rsq, "converged": rsq <= tol_sq}
 
 
-def bicgstab_solve_plain(stencil: Stencil5, b, inv_diag, mask, *, tol: float, iters: int):
-    """Plain twin of K1: :func:`bicgstab_unrolled` from x0 = 0 with the
-    Jacobi preconditioner, then ``x * mask`` and the true-residual info."""
+def _bicgstab_plain(apply, stencil, b, inv_diag, mask, tol, iters):
+    """:func:`bicgstab_unrolled` from x0 = 0 with the Jacobi preconditioner,
+    then ``x * mask`` and the true-residual info."""
     x, info = bicgstab_unrolled(
-        lambda w: stencil5_apply_plain(stencil, w),
+        lambda w: apply(stencil, w),
         b,
         torch.zeros_like(b),
         dot=lambda u, v: torch.sum(u * v),
@@ -93,7 +103,23 @@ def bicgstab_solve_plain(stencil: Stencil5, b, inv_diag, mask, *, tol: float, it
         iters=iters,
     )
     x = x * mask
-    return x, _residual_info(stencil5_apply_plain, stencil, b, x, info["iters"], tol)
+    return x, _residual_info(apply, stencil, b, x, info["iters"], tol)
+
+
+def bicgstab_solve_plain(stencil: Stencil5, b, inv_diag, mask, *, tol: float, iters: int):
+    """Plain twin of K1."""
+    return _bicgstab_plain(stencil5_apply_plain, stencil, b, inv_diag, mask, tol, iters)
+
+
+def stencil7_apply_plain(stencil: Stencil7, u):
+    """out = c0·u + cxm·u[i-1,j,k] + cxp·u[i+1,j,k] + cym·u[i,j-1,k]
+    + cyp·u[i,j+1,k] + czm·u[i,j,k-1] + czp·u[i,j,k+1], zero inflow."""
+    return stencil.apply(LOCAL_OPS3, u)
+
+
+def bicgstab_solve3_plain(stencil: Stencil7, b, inv_diag, mask, *, tol: float, iters: int):
+    """Plain twin of K5."""
+    return _bicgstab_plain(stencil7_apply_plain, stencil, b, inv_diag, mask, tol, iters)
 
 
 # ---------------------------------------------------------------------------
@@ -125,7 +151,11 @@ def _declare(name: str, lib) -> None:
         for fn in (lib.stencil5_apply_f64, lib.stencil5_apply_f32):
             fn.argtypes = [vp] * 7 + [i32, i32, vp]
             fn.restype = i32
-    else:
+    elif name == "stencil7":
+        for fn in (lib.stencil7_apply_f64, lib.stencil7_apply_f32):
+            fn.argtypes = [vp] * 9 + [i32, i32, i32, vp]
+            fn.restype = i32
+    elif name == "bicgstab":
         for fn in (lib.bicgstab_blocks_f64, lib.bicgstab_blocks_f32):
             fn.argtypes = [i32, ctypes.POINTER(i32)]
             fn.restype = i32
@@ -134,6 +164,15 @@ def _declare(name: str, lib) -> None:
             fn.restype = i32
         lib.bicgstab_num_slots.restype = i32
         lib.bicgstab_work_planes.restype = i32
+    else:
+        for fn in (lib.bicgstab3_blocks_f64, lib.bicgstab3_blocks_f32):
+            fn.argtypes = [i32, ctypes.POINTER(i32)]
+            fn.restype = i32
+        for fn in (lib.bicgstab3_solve_f64, lib.bicgstab3_solve_f32):
+            fn.argtypes = [vp] * 14 + [i32, i32, i32, i32, f64, i32, vp]
+            fn.restype = i32
+        lib.bicgstab3_num_slots.restype = i32
+        lib.bicgstab3_work_volumes.restype = i32
 
 
 def build_kernels() -> dict:
@@ -186,13 +225,19 @@ def _check_launch(lib, code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} ({lib.error_string(code).decode()})")
 
 
-def _check_operands(what: str, ref: torch.Tensor, *others: torch.Tensor) -> None:
+def _check_operands(what: str, ndim: int, ref: torch.Tensor, *others: torch.Tensor) -> None:
+    """Device, dtype, rank (2 for planes, 3 for volumes), shape and
+    contiguity of every operand; raises on anything the kernel does not
+    take."""
     if ref.device.type != "cuda":
         raise ValueError(f"{what}: tensors must lie on the CPU or a CUDA device; got {ref.device}")
     if ref.dtype not in (torch.float64, torch.float32):
         raise TypeError(f"{what}: dtype must be float64 or float32; got {ref.dtype}")
-    if ref.dim() != 2:
-        raise ValueError(f"{what}: operands must be 2-D planes; got shape {tuple(ref.shape)}")
+    if ref.dim() != ndim:
+        kind = "2-D planes" if ndim == 2 else "3-D volumes"
+        raise ValueError(f"{what}: operands must be {kind}; got shape {tuple(ref.shape)}")
+    if ref.numel() >= 2**31:
+        raise ValueError(f"{what}: the kernels index with 32-bit ints; got {ref.numel()} points")
     for t in (ref, *others):
         if t.device != ref.device or t.dtype != ref.dtype or t.shape != ref.shape:
             raise ValueError(
@@ -214,7 +259,7 @@ def stencil5_apply(stencil: Stencil5, u):
     """K2.  CPU tensor → :func:`stencil5_apply_plain`; CUDA tensor → kernel."""
     if u.device.type == "cpu":
         return stencil5_apply_plain(stencil, u)
-    _check_operands("stencil5_apply", u, *stencil)
+    _check_operands("stencil5_apply", 2, u, *stencil)
     lib = _lib("stencil5")
     fn = lib.stencil5_apply_f64 if u.dtype == torch.float64 else lib.stencil5_apply_f32
     out = torch.empty_like(u)
@@ -228,12 +273,15 @@ def stencil5_apply(stencil: Stencil5, u):
     return out
 
 
-def _bicgstab_blocks(lib, dtype, n: int) -> int:
-    key = (dtype, n)
+def _bicgstab_blocks(lib, prefix: str, dtype, n: int) -> int:
+    """The cooperative grid of a BiCGStab kernel (``prefix`` "bicgstab" or
+    "bicgstab3") for n points, as its library reports it."""
+    key = (prefix, dtype, n)
     if key not in _BLOCKS:
-        fn = lib.bicgstab_blocks_f64 if dtype == torch.float64 else lib.bicgstab_blocks_f32
+        suffix = "f64" if dtype == torch.float64 else "f32"
+        fn = getattr(lib, f"{prefix}_blocks_{suffix}")
         blocks = ctypes.c_int(0)
-        _check_launch(lib, fn(n, ctypes.byref(blocks)), "bicgstab_solve occupancy")
+        _check_launch(lib, fn(n, ctypes.byref(blocks)), f"{prefix} occupancy")
         _BLOCKS[key] = blocks.value
     return _BLOCKS[key]
 
@@ -250,10 +298,10 @@ def bicgstab_solve(stencil: Stencil5, b, inv_diag, mask, *, tol: float, iters: i
     """
     if b.device.type == "cpu":
         return bicgstab_solve_plain(stencil, b, inv_diag, mask, tol=tol, iters=iters)
-    _check_operands("bicgstab_solve", b, *stencil, inv_diag, mask)
+    _check_operands("bicgstab_solve", 2, b, *stencil, inv_diag, mask)
     lib = _lib("bicgstab")
     n0, n1 = b.shape
-    blocks = _bicgstab_blocks(lib, b.dtype, n0 * n1)
+    blocks = _bicgstab_blocks(lib, "bicgstab", b.dtype, n0 * n1)
     x = torch.empty_like(b)
     iters_out = torch.empty(1, dtype=torch.int32, device=b.device)
     work = torch.empty((lib.bicgstab_work_planes(), n0, n1), dtype=b.dtype, device=b.device)
@@ -268,3 +316,53 @@ def bicgstab_solve(stencil: Stencil5, b, inv_diag, mask, *, tol: float, iters: i
     _check_launch(lib, code, "bicgstab_solve")
     LAUNCHES["bicgstab_solve"] += 1
     return x, _residual_info(stencil5_apply, stencil, b, x, iters_out[0], tol)
+
+
+def stencil7_apply(stencil: Stencil7, u):
+    """K6/K7.  CPU tensor → :func:`stencil7_apply_plain`; CUDA tensor →
+    kernel."""
+    if u.device.type == "cpu":
+        return stencil7_apply_plain(stencil, u)
+    _check_operands("stencil7_apply", 3, u, *stencil)
+    lib = _lib("stencil7")
+    fn = lib.stencil7_apply_f64 if u.dtype == torch.float64 else lib.stencil7_apply_f32
+    out = torch.empty_like(u)
+    n0, n1, n2 = u.shape
+    code = fn(
+        u.data_ptr(), *(c.data_ptr() for c in stencil), out.data_ptr(),
+        n0, n1, n2, _stream(u),
+    )
+    _check_launch(lib, code, "stencil7_apply")
+    LAUNCHES["stencil7_apply"] += 1
+    return out
+
+
+def bicgstab_solve3(stencil: Stencil7, b, inv_diag, mask, *, tol: float, iters: int):
+    """K5: whole Jacobi-BiCGStab solve (x0 = 0, ``iters`` masked-early-exit
+    iterations) of ``stencil · x = b`` on a volume.
+
+    Returns ``(x, info)`` as :func:`bicgstab_solve` does, the true residual
+    through :func:`stencil7_apply`.  CPU tensors take
+    :func:`bicgstab_solve3_plain`.  The solve never synchronises with the
+    host.
+    """
+    if b.device.type == "cpu":
+        return bicgstab_solve3_plain(stencil, b, inv_diag, mask, tol=tol, iters=iters)
+    _check_operands("bicgstab_solve3", 3, b, *stencil, inv_diag, mask)
+    lib = _lib("bicgstab3")
+    n0, n1, n2 = b.shape
+    blocks = _bicgstab_blocks(lib, "bicgstab3", b.dtype, b.numel())
+    x = torch.empty_like(b)
+    iters_out = torch.empty(1, dtype=torch.int32, device=b.device)
+    work = torch.empty((lib.bicgstab3_work_volumes(), *b.shape), dtype=b.dtype, device=b.device)
+    partials = torch.empty(lib.bicgstab3_num_slots() * blocks, dtype=b.dtype, device=b.device)
+    fn = lib.bicgstab3_solve_f64 if b.dtype == torch.float64 else lib.bicgstab3_solve_f32
+    code = fn(
+        b.data_ptr(), *(c.data_ptr() for c in stencil), inv_diag.data_ptr(),
+        mask.data_ptr(), x.data_ptr(), iters_out.data_ptr(), work.data_ptr(),
+        partials.data_ptr(), n0, n1, n2, int(iters), float(tol) * float(tol), blocks,
+        _stream(b),
+    )
+    _check_launch(lib, code, "bicgstab_solve3")
+    LAUNCHES["bicgstab_solve3"] += 1
+    return x, _residual_info(stencil7_apply, stencil, b, x, iters_out[0], tol)

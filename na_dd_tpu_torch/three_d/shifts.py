@@ -1,0 +1,75 @@
+"""Zero-inflow axis shifts and global reductions on (N+1, M+1, P+1) volumes
+(counterpart of :mod:`na_dd_tpu.three_d.shifts`).
+
+    shift_xm(u)[i,j,k] = u[i-1,j,k]       shift_xp(u)[i,j,k] = u[i+1,j,k]
+    shift_ym(u)[i,j,k] = u[i,j-1,k]       shift_yp(u)[i,j,k] = u[i,j+1,k]
+    shift_zm(u)[i,j,k] = u[i,j,k-1]       shift_zp(u)[i,j,k] = u[i,j,k+1]
+    asum(u), amax(u)   = sum / max over the whole array
+
+Out-of-range entries are 0.  Every 3-D operator of the port is written
+through these, so a sharded provider can later take the place of
+:class:`LocalOps3`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+class Ops3:
+    """Protocol for 3-D shift/reduction providers (duck-typed)."""
+
+    def shift_xm(self, u):  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def shift_xp(self, u):  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def shift_ym(self, u):  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def shift_yp(self, u):  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def shift_zm(self, u):  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def shift_zp(self, u):  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def asum(self, u):  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def amax(self, u):  # pragma: no cover - interface
+        raise NotImplementedError
+
+
+class LocalOps3(Ops3):
+    """Single-device shifts: slice + concatenate of a zero edge plane."""
+
+    def shift_xm(self, u):
+        return torch.cat([torch.zeros_like(u[:1]), u[:-1]], dim=0)
+
+    def shift_xp(self, u):
+        return torch.cat([u[1:], torch.zeros_like(u[:1])], dim=0)
+
+    def shift_ym(self, u):
+        return torch.cat([torch.zeros_like(u[:, :1]), u[:, :-1]], dim=1)
+
+    def shift_yp(self, u):
+        return torch.cat([u[:, 1:], torch.zeros_like(u[:, :1])], dim=1)
+
+    def shift_zm(self, u):
+        return torch.cat([torch.zeros_like(u[:, :, :1]), u[:, :, :-1]], dim=2)
+
+    def shift_zp(self, u):
+        return torch.cat([u[:, :, 1:], torch.zeros_like(u[:, :, :1])], dim=2)
+
+    def asum(self, u):
+        return torch.sum(u)
+
+    def amax(self, u):
+        return torch.amax(u)
+
+
+LOCAL_OPS3 = LocalOps3()

@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels against their plain PyTorch versions on a
-card.  Every test here is marked ``gpu`` and skips where
+"""The hand-written CUDA kernels (K1, K2 on planes; K5, K6/K7 on volumes)
+against their plain PyTorch versions on a card.  Every test here is marked ``gpu`` and skips where
 ``torch.cuda.is_available()`` is false; the file imports nothing of JAX, so
 on a machine with a card and no JAX it runs alone:
 
@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from na_dd_tpu_torch.convert import stencil5_from_numpy, tensor_from_numpy
+from na_dd_tpu_torch.convert import stencil5_from_numpy, stencil7_from_numpy, tensor_from_numpy
 from na_dd_tpu_torch.ops import kernels
 
 pytestmark = pytest.mark.gpu
@@ -37,15 +37,17 @@ def assert_close(port, ref, rtol):
 
 
 def _system(seed, shape, dtype, device):
-    """A diagonally dominant Stencil5 system with zero boundary rows."""
+    """A diagonally dominant Stencil5 (2-D shape) or Stencil7 (3-D shape)
+    system with a zero boundary."""
     rng = np.random.default_rng(seed)
     mask = np.zeros(shape)
-    mask[1:-1, 1:-1] = 1.0
-    c0 = (4.5 + rng.random(shape)) * mask
-    planes = [c0] + [-rng.random(shape) * mask for _ in range(4)]
+    mask[(slice(1, -1),) * len(shape)] = 1.0
+    c0 = (4.5 + 2.0 * (len(shape) - 2) + rng.random(shape)) * mask
+    planes = [c0] + [-rng.random(shape) * mask for _ in range(2 * len(shape))]
     b = rng.standard_normal(shape) * mask
     inv = np.where(mask > 0, 1.0 / np.where(c0 == 0, 1.0, c0), 0.0)
-    st = stencil5_from_numpy(planes, dtype, device)
+    to_stencil = stencil5_from_numpy if len(shape) == 2 else stencil7_from_numpy
+    st = to_stencil(planes, dtype, device)
     return st, *(tensor_from_numpy(a, dtype, device) for a in (b, inv, mask))
 
 
@@ -68,7 +70,9 @@ def test_bicgstab_solve_kernel_vs_plain(card, dtype, shape):
     st, b, inv, mask = _system(32, shape, dtype, card)
     kernels.reset_launch_counts()
     xk, ik = kernels.bicgstab_solve(st, b, inv, mask, tol=KRYLOV_TOL[dtype], iters=40)
-    assert kernels.LAUNCHES == {"stencil5_apply": 1, "bicgstab_solve": 1}
+    assert kernels.LAUNCHES == {
+        "stencil5_apply": 1, "bicgstab_solve": 1, "stencil7_apply": 0, "bicgstab_solve3": 0,
+    }
     xp, ip = kernels.bicgstab_solve_plain(st, b, inv, mask, tol=KRYLOV_TOL[dtype], iters=40)
     assert int(ik["iters"]) == int(ip["iters"]) > 0
     assert bool(ik["converged"]) and bool(ip["converged"])
@@ -90,3 +94,48 @@ def test_kernel_refuses_non_contiguous_operands(card):
         kernels.stencil5_apply(st, b.t())
     with pytest.raises(ValueError, match="must match"):
         kernels.bicgstab_solve(st, b.float(), inv, mask, tol=1e-13, iters=4)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(33, 33, 33), (65, 65, 65), (129, 129, 129), (50, 65, 33), (3, 4, 5)])
+def test_stencil7_apply_kernel_vs_plain(card, dtype, shape):
+    rng = np.random.default_rng(35)
+    st = stencil7_from_numpy([rng.standard_normal(shape) for _ in range(7)], dtype, card)
+    u = tensor_from_numpy(rng.standard_normal(shape), dtype, card)
+    kernels.reset_launch_counts()
+    out = kernels.stencil7_apply(st, u)
+    assert kernels.LAUNCHES["stencil7_apply"] == 1
+    assert out.device.type == "cuda" and out.dtype == dtype
+    assert_close(out, kernels.stencil7_apply_plain(st, u), TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(65, 65, 65), (33, 20, 41)])
+def test_bicgstab_solve3_kernel_vs_plain(card, dtype, shape):
+    st, b, inv, mask = _system(36, shape, dtype, card)
+    kernels.reset_launch_counts()
+    xk, ik = kernels.bicgstab_solve3(st, b, inv, mask, tol=KRYLOV_TOL[dtype], iters=24)
+    assert kernels.LAUNCHES == {
+        "stencil5_apply": 0, "bicgstab_solve": 0, "stencil7_apply": 1, "bicgstab_solve3": 1,
+    }
+    xp, ip = kernels.bicgstab_solve3_plain(st, b, inv, mask, tol=KRYLOV_TOL[dtype], iters=24)
+    assert int(ik["iters"]) == int(ip["iters"]) > 0
+    assert bool(ik["converged"]) and bool(ip["converged"])
+    assert_close(xk, xp, TOL[dtype])
+
+
+@pytest.mark.parametrize("iters", [0, 1, 2])
+def test_bicgstab_solve3_kernel_budget_cut(card, iters):
+    st, b, inv, mask = _system(37, (17, 19, 21), torch.float64, card)
+    xk, ik = kernels.bicgstab_solve3(st, b, inv, mask, tol=1e-13, iters=iters)
+    xp, ip = kernels.bicgstab_solve3_plain(st, b, inv, mask, tol=1e-13, iters=iters)
+    assert int(ik["iters"]) == int(ip["iters"]) == iters
+    assert_close(xk, xp, 1e-12)
+
+
+def test_3d_kernels_refuse_planes_and_mixed_operands(card):
+    st, b, inv, mask = _system(38, (9, 9, 9), torch.float64, card)
+    with pytest.raises(ValueError, match="3-D volumes"):
+        kernels.stencil7_apply(type(st)(*(c[0] for c in st)), b[0])
+    with pytest.raises(ValueError, match="must match"):
+        kernels.bicgstab_solve3(st, b, inv.float(), mask, tol=1e-13, iters=4)

@@ -10,8 +10,13 @@ import pytest
 import torch
 
 from na_dd_tpu_torch import config
-from na_dd_tpu_torch.convert import grid_from_nodes, state_from_numpy, tensor_from_numpy
+from na_dd_tpu_torch.convert import grid3_from_nodes, grid_from_nodes, state_from_numpy, tensor_from_numpy
+from na_dd_tpu_torch.models.coefficients import Model02
+from na_dd_tpu_torch.models.consts import STUDY_MODEL_CONSTS
 from na_dd_tpu_torch.ops.grid import make_grid, make_uniform_grid
+from na_dd_tpu_torch.three_d.grid import make_grid3, make_uniform_grid3
+from na_dd_tpu_torch.three_d.harness import make_setup3, mms_error3
+from na_dd_tpu_torch.three_d.mms import MMSCaseExpSin3
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "na_dd_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -33,6 +38,8 @@ def _imported_modules(path):
 
 def test_port_files_were_found():
     assert len(PORT_FILES) >= 20
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert "na_dd_tpu_torch/three_d/harness.py" in names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -56,6 +63,11 @@ def no_card(monkeypatch):
         lambda: grid_from_nodes([0.0, 0.5, 1.0], [0.0, 0.5, 1.0]),
         lambda: tensor_from_numpy([1.0, 2.0]),
         lambda: state_from_numpy([[[0.0]]] * 5),
+        lambda: make_uniform_grid3(2, 2, 2),
+        lambda: make_grid3([0.0, 0.5, 1.0], [0.0, 0.5, 1.0], [0.0, 0.5, 1.0]),
+        lambda: grid3_from_nodes([0.0, 0.5, 1.0], [0.0, 0.5, 1.0], [0.0, 0.5, 1.0]),
+        lambda: make_setup3(MMSCaseExpSin3, N=2, model=Model02(STUDY_MODEL_CONSTS)),
+        lambda: mms_error3(MMSCaseExpSin3, N=2, model=Model02(STUDY_MODEL_CONSTS), Tf=0.01, dt=0.01),
     ],
 )
 def test_entry_points_without_a_card_raise(no_card, entry):

@@ -1,7 +1,9 @@
 """The port's kernel wrappers (ops/kernels.py) on the CPU, where they run
 their plain PyTorch twins, against the JAX package's Pallas kernels in
-interpret mode: ``stencil5_apply`` vs ``stencil5_apply_pallas`` and
-``bicgstab_solve`` vs ``bicgstab_solve_pallas``, float64 and float32, with
+interpret mode: ``stencil5_apply`` vs ``stencil5_apply_pallas``,
+``bicgstab_solve`` vs ``bicgstab_solve_pallas``, ``stencil7_apply`` vs
+``stencil7_apply_pallas`` and ``stencil7_apply_tiled``, and
+``bicgstab_solve3`` vs ``bicgstab_solve3_pallas``, float64 and float32, with
 identical iteration counts.  Tolerances, relative to the reference's
 max-norm: 1e-12 in float64 and 1e-5 in float32 (the reductions are summed in
 another order).  The CUDA kernels themselves are held against the plain
@@ -17,9 +19,16 @@ import pytest
 import torch
 
 from na_dd_tpu.ops import linsolve as j_ls
-from na_dd_tpu.ops.pallas_kernels import bicgstab_solve_pallas, stencil5_apply_pallas
+from na_dd_tpu.ops.pallas_kernels import (
+    bicgstab_solve3_pallas,
+    bicgstab_solve_pallas,
+    stencil5_apply_pallas,
+    stencil7_apply_pallas,
+    stencil7_apply_tiled,
+)
 from na_dd_tpu.ops.shifts import LOCAL_OPS as J_OPS
-from na_dd_tpu_torch.convert import stencil5_from_numpy, tensor_from_numpy
+from na_dd_tpu.three_d.diffusion import Stencil7 as JStencil7
+from na_dd_tpu_torch.convert import stencil5_from_numpy, stencil7_from_numpy, tensor_from_numpy
 from na_dd_tpu_torch.ops import kernels
 from na_dd_tpu_torch.ops import linsolve as t_ls
 
@@ -38,13 +47,14 @@ def assert_close(port, ref, rtol):
 
 
 def _system(seed, shape, dtype):
-    """A diagonally dominant Stencil5 system with zero boundary rows, the
-    shape of a Newton system: planes, rhs, Jacobi inverse diagonal, mask."""
+    """A diagonally dominant Stencil5 (2-D shape) or Stencil7 (3-D shape)
+    system with a zero boundary, the shape of a Newton system: planes, rhs,
+    Jacobi inverse diagonal, mask."""
     rng = np.random.default_rng(seed)
     mask = np.zeros(shape)
-    mask[1:-1, 1:-1] = 1.0
-    c0 = (4.5 + rng.random(shape)) * mask
-    planes = [c0] + [-rng.random(shape) * mask for _ in range(4)]
+    mask[(slice(1, -1),) * len(shape)] = 1.0
+    c0 = (4.5 + 2.0 * (len(shape) - 2) + rng.random(shape)) * mask
+    planes = [c0] + [-rng.random(shape) * mask for _ in range(2 * len(shape))]
     b = rng.standard_normal(shape) * mask
     inv = np.where(mask > 0, 1.0 / np.where(c0 == 0, 1.0, c0), 0.0)
     npd = NP_DTYPE[dtype]
@@ -119,6 +129,52 @@ def test_bicgstab_unrolled_matches_jax():
     assert_close(port_x, ref_x, 1e-12)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(7, 6, 5), (9, 4, 11)])
+def test_stencil7_apply_plain_vs_pallas(dtype, shape):
+    rng = np.random.default_rng(51)
+    npd = NP_DTYPE[dtype]
+    planes = [rng.standard_normal(shape).astype(npd) for _ in range(7)]
+    u = rng.standard_normal(shape).astype(npd)
+    port = kernels.stencil7_apply(stencil7_from_numpy(planes, dtype, "cpu"), tensor_from_numpy(u, dtype, "cpu"))
+    ref = stencil7_apply_pallas(JStencil7(*map(jnp.asarray, planes)), jnp.asarray(u), interpret=True)
+    assert port.dtype == dtype
+    assert_close(port, ref, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_stencil7_apply_plain_vs_tiled_ragged(dtype):
+    """K7's slab-tiled form on a volume whose 9 x-slabs do not divide into
+    tiles of 2."""
+    shape = (9, 6, 5)
+    rng = np.random.default_rng(52)
+    npd = NP_DTYPE[dtype]
+    planes = [rng.standard_normal(shape).astype(npd) for _ in range(7)]
+    u = rng.standard_normal(shape).astype(npd)
+    port = kernels.stencil7_apply(stencil7_from_numpy(planes, dtype, "cpu"), tensor_from_numpy(u, dtype, "cpu"))
+    ref = stencil7_apply_tiled(JStencil7(*map(jnp.asarray, planes)), jnp.asarray(u), slab_tile=2, interpret=True)
+    assert_close(port, ref, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(8, 7, 6), (12, 12, 12)])
+def test_bicgstab_solve3_plain_vs_pallas(dtype, shape):
+    planes, b, inv, mask = _system(53, shape, dtype)
+    tol = 1e-13 if dtype == torch.float64 else 1e-5
+    port_x, port_info = kernels.bicgstab_solve3(
+        stencil7_from_numpy(planes, dtype, "cpu"),
+        *(tensor_from_numpy(a, dtype, "cpu") for a in (b, inv, mask)),
+        tol=tol, iters=24,
+    )
+    ref_x, ref_info = bicgstab_solve3_pallas(
+        JStencil7(*map(jnp.asarray, planes)), *map(jnp.asarray, (b, inv, mask)),
+        tol=tol, iters=24, interpret=True,
+    )
+    assert int(port_info["iters"]) == int(ref_info["iters"]) > 0
+    assert bool(port_info["converged"]) == bool(ref_info["converged"]) is True
+    assert_close(port_x, ref_x, TOL[dtype])
+
+
 def test_zero_rhs_takes_no_iteration():
     planes, b, inv, mask = _system(25, (6, 6), torch.float64)
     x, info = kernels.bicgstab_solve(
@@ -145,7 +201,14 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     xk, ik = kernels.bicgstab_solve(st, tb, tinv, tmask, tol=1e-13, iters=8)
     xp, ip = kernels.bicgstab_solve_plain(st, tb, tinv, tmask, tol=1e-13, iters=8)
     assert torch.equal(xk, xp) and int(ik["iters"]) == int(ip["iters"])
-    assert kernels.LAUNCHES == {"stencil5_apply": 0, "bicgstab_solve": 0}
+    st7 = stencil7_from_numpy(_system(28, (5, 6, 4), torch.float64)[0], device="cpu")
+    u7 = tensor_from_numpy(np.ones((5, 6, 4)), device="cpu")
+    assert torch.equal(kernels.stencil7_apply(st7, u7), kernels.stencil7_apply_plain(st7, u7))
+    xk, ik = kernels.bicgstab_solve3(st7, u7, u7, u7, tol=1e-13, iters=3)
+    xp, ip = kernels.bicgstab_solve3_plain(st7, u7, u7, u7, tol=1e-13, iters=3)
+    assert torch.equal(xk, xp) and int(ik["iters"]) == int(ip["iters"])
+    assert set(kernels.LAUNCHES) == {"stencil5_apply", "bicgstab_solve", "stencil7_apply", "bicgstab_solve3"}
+    assert all(count == 0 for count in kernels.LAUNCHES.values())
 
 
 def test_non_cpu_non_cuda_tensor_is_refused():
