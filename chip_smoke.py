@@ -5,11 +5,16 @@
 
 Builds the hand-written kernels from ``na_dd_tpu_torch/csrc`` with nvcc (one
 nvcc per source, all in parallel), holds each against its plain PyTorch
-version on the card, and drives the port's two paths:
+version on the card, and drives the port's paths:
 
 * 2-D: the MMSCasePol RegHCs spatial study, N=2..256, dt = h^1.5,
   Tf = 0.01, eta = 50, through ``MMSTrial.run_for_errors`` in float64 and
   float32 (kernels K1 ``bicgstab_solve`` and K2 ``stencil5_apply``);
+* 2-D, analytic couplings: the same study with
+  ``coupling_source="analytic"``, N=8..256, whose Newton sweep is one launch
+  of K4 ``triple_solve`` (and, with ``fused_triple=False``, three of K1);
+* 2-D, large grid: the scale_probe protocol (pol, N=1024, dt = 0.25/N, 5
+  steps), where the 5-point apply runs at 1025 x 1025 (the TPU's K3);
 * 3-D: the three_d_study protocol (MMSCaseExpSin3, RegHCs, eta = 50,
   Tf = 0.02, two Newton sweeps, dt = 1e-2/2^k), N=4..64 and N=128 in float64
   and N=32 in float32, through ``make_setup3`` and ``run_trial3`` (kernels K5
@@ -17,8 +22,8 @@ version on the card, and drives the port's two paths:
 
 It checks the errors against the reference values and the launch counts of
 each path's main level (counts set to 0 just before it, read just after),
-times the kernels (torch.profiler and CUDA events), profiles five steps of
-each main level, and prints one JSON line with every kernel's numbers, the
+times the kernels (torch.profiler and CUDA events; K4 also beside the
+per-solve route on the same systems), profiles five steps of each main level, and prints one JSON line with every kernel's numbers, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 Every check that fails stops the script with a nonzero exit code; without a
 card it exits nonzero at once.  Imports nothing of JAX.
@@ -61,6 +66,13 @@ N256_F64 = 4.382843255135883e-09
 N256_F64_PORT = 4.3828432027479154e-09
 N256_F32 = 3.7049e-07  # f32 + kernel error floor
 TF, ETA, MAIN_N = 0.01, 50.0, 256
+# CPU-x64 runs of the JAX package with coupling_source="analytic" (pol,
+# dt = h^1.5, Tf = 0.01, krylov_unroll=8).
+POL_ANALYTIC_CPU_X64 = {
+    8: 4.282692732192525e-06, 16: 1.087998167311069e-06,
+    32: 2.750060013224652e-07, 64: 6.960848974797674e-08,
+}
+SCALE_N, SCALE_STEPS = 1024, 5  # studies/scale_probe.py: dt = 0.25/N, Tf = 5 dt
 
 # The 3-D study (studies/three_d_study.py protocol): CPU-x64 errors of the
 # JAX package's build_runner3 at N = 4..64, dt = 1e-2/2^k; N=128 has none (its
@@ -107,7 +119,9 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def make_trial(N: int, dtype, device, dt=None):
+def make_trial(N: int, dtype, device, dt=None, **integrator_kw):
+    """The pol level N; ``integrator_kw`` (coupling_source, fused_triple)
+    goes to the integrator."""
     from na_dd_tpu_torch.core.fields import FieldRegHCsTriple
     from na_dd_tpu_torch.core.forcing import MMSForcingRegHCsTriple
     from na_dd_tpu_torch.harness.trial import MMSTrial, choose_krylov_unroll
@@ -131,6 +145,7 @@ def make_trial(N: int, dtype, device, dt=None):
             regularization_factor=ETA,
             track_residuals=False,
             krylov_unroll=choose_krylov_unroll(N, dt, POL_PEAKS_CONSTS),
+            **integrator_kw,
         ),
     )
     return trial, dt
@@ -164,10 +179,15 @@ class RecordingSolver:
     def __init__(self, inner):
         self.inner = inner
         self.systems = []
+        self.triples = []
 
     def solve(self, st, rhs, mask):
         self.systems.append((st, rhs * mask, mask))
         return self.inner.solve(st, rhs, mask)
+
+    def solve_triple(self, *args):
+        self.triples.append(args)
+        return self.inner.solve_triple(*args)
 
 
 def jacobi(st, mask):
@@ -195,26 +215,143 @@ def step1_systems(dtype, device):
     return rec.systems, rec.inner
 
 
-def phase_k2(device):
+def step1_triple(dtype, device):
+    """The operands of K4 in step 1 of the pol N=256 run with analytic
+    couplings, as :func:`kernels.triple_solve` takes them (the three Jacobi
+    inverse diagonals filled in), and the solver backend."""
+    import torch
+
+    trial, dt = make_trial(MAIN_N, dtype, device, coupling_source="analytic")
+    integ = trial.integrator
+    rec = RecordingSolver(integ.solver)
+    integ.solver = rec
+    t0 = torch.zeros((), dtype=dtype, device=device)
+    integ.step_fn(trial.grid, trial.ops, trial.initial_state, t0, dt)
+    integ.solver = rec.inner
+    check(len(rec.triples) == 1 and not rec.systems,
+          "step 1 with analytic couplings should make one fused triple solve")
+    *planes, mask, dt_ = rec.triples[0]
+    J_T, J_cl, J_cd = planes[:3]
+    operands = (*planes, jacobi(J_T, mask), jacobi(J_cl, mask), jacobi(J_cd, mask), mask, dt_)
+    return operands, rec.inner
+
+
+def random_triple(rng, shape, dtype, device):
+    """Random operands of K4 on an interior-masked plane: three diagonally
+    dominant Newton operators, two unstructured coupling operators, a random
+    diagonal coupling and right-hand sides, dt = 0.05."""
+    from na_dd_tpu_torch.ops.grid import make_uniform_grid
+
+    mask = make_uniform_grid(shape[0] - 1, shape[1] - 1, dtype=dtype, device=device).interior_mask
+    Js = []
+    for _ in range(3):
+        st, _u = random_planes(rng, shape, dtype, device, dominant=True)
+        Js.append(type(st)(*(c * mask for c in st)))
+    Cs = [random_planes(rng, shape, dtype, device, dominant=False)[0] for _ in range(2)]
+    d_cdcl, rhs_T, base_cl, base_cd = (
+        random_planes(rng, shape, dtype, device, dominant=False)[1] for _ in range(4))
+    return (*Js, *Cs, d_cdcl, rhs_T, base_cl, base_cd,
+            *(jacobi(J, mask) for J in Js), mask, 0.05)
+
+
+def compare_triple(operands, *, tol, iters, xtol, stol, label):
+    """K4 against its plain version on one set of operands: identical
+    iteration counts and convergence flags, each increment within ``xtol`` of
+    the plain version's max-norm, tol_sq within ``stol`` relative and
+    resnorm_sq within ``stol`` relative plus its rounding floor.  Returns (max abs error, kernel's converged flags)."""
     import torch
 
     from na_dd_tpu_torch.ops import kernels
 
-    rng = np.random.default_rng(2)
+    *xk, ik = kernels.triple_solve(*operands, tol=tol, iters=iters)
+    *xp, ip = kernels.triple_solve_plain(*operands, tol=tol, iters=iters)
+    torch.cuda.synchronize()
+    rels = [rel_to_max(a, b) for a, b in zip(xk, xp)]
+    itk, itp = ik["iters"].tolist(), ip["iters"].tolist()
+    # The recurrence residual of a converged solve is what cancellation left
+    # of r: once it nears the rounding floor (eps |b|)^2 of the iteration its
+    # own relative difference is noise (79 % in float32 after one iteration
+    # on the step-1 systems).  It is held to ``stol`` relative plus 16 times
+    # that floor; tol_sq to ``stol`` relative.
+    floor = 16.0 * torch.finfo(xk[0].dtype).eps ** 2 * ip["tol_sq"] / (tol * tol)
+    res_diff = (ik["resnorm_sq"] - ip["resnorm_sq"]).abs()
+    raw = float((res_diff / ip["resnorm_sq"].abs().clamp_min(1e-300)).max())
+    res_ok = bool((res_diff <= stol * ip["resnorm_sq"] + floor).all())
+    tol_rel = float(((ik["tol_sq"] - ip["tol_sq"]).abs() / ip["tol_sq"].abs().clamp_min(1e-300)).max())
+    log(f"[k4] {label}: iters kernel {itk} plain {itp}, max rel diff dT/dcl/dcd "
+        + "/".join(f"{r:.3e}" for r in rels) + f" (limit {xtol:g}), resnorm_sq rel {raw:.3e} "
+        f"({'within' if res_ok else 'OUTSIDE'} {stol:g} relative + 16 eps^2 b.b), tol_sq rel "
+        f"{tol_rel:.3e} (limit {stol:g}), converged {ik['converged'].tolist()}")
+    check(all(bool(torch.isfinite(x).all()) for x in xk), f"K4 {label}: output not finite")
+    check(itk == itp, f"K4 {label}: iteration counts differ")
+    check(max(rels) <= xtol, f"K4 {label}: an increment disagrees with the plain version")
+    check(ik["converged"].tolist() == ip["converged"].tolist(),
+          f"K4 {label}: convergence flags differ")
+    check(tol_rel <= stol, f"K4 {label}: tol_sq disagrees")
+    check(res_ok, f"K4 {label}: resnorm_sq disagrees")
+    return max(float((a - b).abs().max()) for a, b in zip(xk, xp)), ik["converged"].tolist()
+
+
+def phase_k4(device):
+    import torch
+
+    from na_dd_tpu_torch.integrators.pc_trapezoidal import default_krylov_tol
+
+    rng = np.random.default_rng(4)
+    for dtype, xtol, stol in ((torch.float64, 1e-12, 1e-10), (torch.float32, 1e-5, 1e-4)):
+        name = str(dtype)[6:]
+        for shape in ((257, 257), (130, 257)):
+            operands = random_triple(rng, shape, dtype, device)
+            _, conv = compare_triple(operands, tol=default_krylov_tol(dtype), iters=40,
+                                     xtol=xtol, stol=stol, label=f"{name} random {shape}")
+            check(all(conv), f"K4 {name} random {shape}: a solve did not converge")
+            if shape == (257, 257):
+                _, conv = compare_triple(operands, tol=default_krylov_tol(dtype), iters=1,
+                                         xtol=xtol, stol=stol,
+                                         label=f"{name} random {shape}, budget cut to 1")
+                check(not all(conv), "K4 budget cut: one iteration should not converge")
+    main_err = None
+    for dtype, xtol, stol in ((torch.float64, 1e-12, 1e-10), (torch.float32, 1e-5, 1e-4)):
+        operands, solver = step1_triple(dtype, device)
+        err, conv = compare_triple(operands, tol=default_krylov_tol(dtype), iters=solver.iters,
+                                   xtol=xtol, stol=stol,
+                                   label=f"{str(dtype)[6:]} step-1 systems of N={MAIN_N}")
+        check(all(conv), "K4 step-1 systems: a solve did not converge")
+        if dtype == torch.float64:
+            main_err = err
+    return main_err
+
+
+K2_SHAPES = ((257, 257), (257, 130))
+# the large-grid plane, the TPU tiled kernel's ragged test shapes and a plane
+# twice as tall
+K3_SHAPES = ((1025, 1025), (33, 33), (40, 17), (9, 129), (129, 65), (2049, 1025))
+
+
+def phase_apply5(device, tag, shapes, seed):
+    """The 5-point apply against its plain version at ``shapes`` (K2: the
+    main path's planes; K3: the shapes where the TPU used its row-tiled
+    kernel).  Returns the float64 max abs error at the first shape."""
+    import torch
+
+    from na_dd_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(seed)
     worst = {}
     for dtype, tol in ((torch.float64, 1e-14), (torch.float32, 1e-6)):
-        for shape in ((257, 257), (257, 130)):
+        for shape in shapes:
             st, u = random_planes(rng, shape, dtype, device, dominant=False)
             k = kernels.stencil5_apply(st, u)
             p = kernels.stencil5_apply_plain(st, u)
             torch.cuda.synchronize()
             rel = rel_to_max(k, p)
-            log(f"[k2] {str(dtype)[6:]} {shape}: max rel diff {rel:.3e} (limit {tol:g}), "
+            log(f"[{tag}] {str(dtype)[6:]} {shape}: max rel diff {rel:.3e} (limit {tol:g}), "
                 f"max abs {float((k - p).abs().max()):.3e}")
-            check(bool(torch.isfinite(k).all()), "K2 output not finite")
-            check(rel <= tol, f"K2 {dtype} {shape} disagrees with its plain version")
+            check(bool(torch.isfinite(k).all()), f"{tag.upper()} output not finite")
+            check(rel <= tol, f"{tag.upper()} {dtype} {shape} disagrees with its plain version")
             worst[(dtype, shape)] = float((k - p).abs().max())
-    return worst[(torch.float64, (257, 257))]
+            del st, u, k, p
+    return worst[(torch.float64, shapes[0])]
 
 
 def compare_solve(st, b, inv_diag, mask, *, tol, iters, xtol, label):
@@ -269,8 +406,8 @@ def phase_k1(device):
     return main_err
 
 
-def run_level(N, dtype, device, dt=None):
-    trial, dt = make_trial(N, dtype, device, dt)
+def run_level(N, dtype, device, dt=None, **integrator_kw):
+    trial, dt = make_trial(N, dtype, device, dt, **integrator_kw)
     summary = trial.run_for_errors(Tf=TF, dt=dt)
     return trial, dt, summary
 
@@ -330,18 +467,195 @@ def phase_slice_f64(device):
         check(launches[name] == 0, f"the 2-D path launched the 3-D kernel {name}")
     check(bool(s.series.krylov_converged.all()), "N=256: a solve did not converge")
 
-    trial.run_for_errors(Tf=TF, dt=dt)  # warm-up
-    runs = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        s2 = trial.run_for_errors(Tf=TF, dt=dt)
-        runs.append(time.perf_counter() - t0)
-    check(s2.overall_combined_error == err, "repeat run changed the error")
+    runs = steady_in_turns({"jvp": (trial, err)}, dt)["jvp"]
     steady = min(runs)
     log(f"[f64] N=256 steady wall-clock {steady:.6f} s (min of 3 after a warm-up; runs "
         + ", ".join(f"{r:.6f}" for r in runs) + " s)")
-    return launches, steady, err
+    return launches, steady, err, s.series.krylov_iters.tolist()
+
+
+def steady_in_turns(routes, dt):
+    """Three timed runs of each ``{name: (trial, error)}`` after a warm-up of
+    each, taken in turns (a, b, c, a, b, c, ...) so that drift of the host
+    falls on all alike; each run must repeat its error."""
+    import torch
+
+    for trial, _ in routes.values():
+        trial.run_for_errors(Tf=TF, dt=dt)
+    runs = {name: [] for name in routes}
+    for _ in range(3):
+        for name, (trial, err) in routes.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s = trial.run_for_errors(Tf=TF, dt=dt)
+            runs[name].append(time.perf_counter() - t0)
+            check(s.overall_combined_error == err, f"repeat {name} run changed the error")
+    return runs
+
+
+def phase_analytic(device, jvp_iters=None):
+    """The pol study with analytic couplings: the ladder and the main level
+    through K4 (one launch a step), the main level through three K1 solves a
+    step (``fused_triple=False``), in float32, and on the CPU plain versions.
+    ``jvp_iters``: the per-step Krylov iterations of the jvp route's main
+    level (run here when not given)."""
+    import torch
+
+    from na_dd_tpu_torch.ops import kernels
+
+    for N, ref in POL_ANALYTIC_CPU_X64.items():
+        _, _, s = run_level(N, torch.float64, device, coupling_source="analytic")
+        err = s.overall_combined_error
+        rel = abs(err - ref) / ref
+        log(f"[analytic] N={N}: error {err!r}, vs CPU-x64 {ref!r} rel {rel:.3e}")
+        check(math.isfinite(err) and rel <= 1e-8, f"analytic N={N} off the CPU-x64 value")
+        check(bool(s.series.krylov_converged.all()), f"analytic N={N}: a solve did not converge")
+
+    if jvp_iters is None:
+        _, _, s_jvp = run_level(MAIN_N, torch.float64, device)
+        jvp_iters = s_jvp.series.krylov_iters.tolist()
+
+    # the main path of this route: counts set to 0 just before, read just after
+    trial, dt = make_trial(MAIN_N, torch.float64, device, coupling_source="analytic")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    s = trial.run_for_errors(Tf=TF, dt=dt)
+    launches = dict(kernels.LAUNCHES)
+    err = s.overall_combined_error
+    nsteps = len(s.series.krylov_iters)
+    rel = abs(err - N256_F64_PORT) / N256_F64_PORT
+    iters = s.series.krylov_iters.tolist()
+    log(f"[analytic] N=256 fused: error {err!r}, vs the jvp route's {N256_F64_PORT!r} rel "
+        f"{rel:.3e} (limit 1e-8); steps {nsteps}; launches {launches}; Krylov iterations "
+        f"{sum(iters)} (per step {iters})")
+    check(math.isfinite(err) and rel <= 1e-8, "analytic N=256 off the jvp route's value")
+    check(nsteps == 41, "N=256 should take 41 steps")
+    check(launches["triple_solve"] == nsteps,
+          f"triple_solve launched {launches['triple_solve']} times, expected {nsteps}")
+    for name in ("bicgstab_solve", "stencil5_apply", "bicgstab_solve3", "stencil7_apply"):
+        check(launches[name] == 0, f"the fused analytic path launched {name}")
+    check(bool(s.series.krylov_converged.all()), "analytic N=256: a solve did not converge")
+    check(iters == jvp_iters, "analytic N=256: per-step Krylov iterations differ from the jvp route")
+
+    # the same level with three separate solves a step
+    trial_ps, _ = make_trial(MAIN_N, torch.float64, device,
+                             coupling_source="analytic", fused_triple=False)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    s_ps = trial_ps.run_for_errors(Tf=TF, dt=dt)
+    launches_ps = dict(kernels.LAUNCHES)
+    err_ps = s_ps.overall_combined_error
+    rel_ps = abs(err_ps - err) / err
+    log(f"[analytic] N=256 per-solve: error {err_ps!r}, vs fused rel {rel_ps:.3e} (limit 1e-9); "
+        f"launches {launches_ps}")
+    check(rel_ps <= 1e-9, "analytic N=256: per-solve and fused routes disagree")
+    check(launches_ps["bicgstab_solve"] == 3 * nsteps and launches_ps["triple_solve"] == 0,
+          "analytic per-solve route: expected 3 K1 launches a step and no K4")
+    check(bool(s_ps.series.krylov_converged.all()), "analytic per-solve: a solve did not converge")
+
+    # steady wall-clock of the three routes, in turns within this one call
+    trial_jvp, _ = make_trial(MAIN_N, torch.float64, device)
+    routes = {"fused": (trial, err), "per-solve": (trial_ps, err_ps),
+              "jvp": (trial_jvp, N256_F64_PORT)}
+    runs = steady_in_turns(routes, dt)
+    steady, steady_ps = min(runs["fused"]), min(runs["per-solve"])
+    for name, times in runs.items():
+        log(f"[analytic] N=256 {name} steady wall-clock {min(times):.6f} s (min of 3 after a "
+            "warm-up, the routes run in turns; runs " + ", ".join(f"{r:.6f}" for r in times) + " s)")
+
+    # float32, fused
+    kernels.reset_launch_counts()
+    _, _, s32 = run_level(MAIN_N, torch.float32, device, coupling_source="analytic")
+    err32 = s32.overall_combined_error
+    rel32 = abs(err32 - N256_F32) / N256_F32
+    log(f"[analytic] N=256 f32 fused: error {err32!r}, vs {N256_F32:g} rel {rel32:.3e}; "
+        f"triple_solve launches {kernels.LAUNCHES['triple_solve']}; converged "
+        f"{bool(s32.series.krylov_converged.all())}")
+    check(math.isfinite(err32) and rel32 <= 1e-2, "analytic N=256 f32 off its error floor")
+    check(kernels.LAUNCHES["triple_solve"] == nsteps, "analytic f32: expected one K4 launch a step")
+
+    # the same level through the plain versions on this machine's CPU
+    t0 = time.perf_counter()
+    _, _, s_cpu = run_level(MAIN_N, torch.float64, "cpu", coupling_source="analytic")
+    err_cpu = s_cpu.overall_combined_error
+    rel_cpu = abs(err - err_cpu) / err_cpu
+    log(f"[analytic] N=256 on the CPU (plain versions): error {err_cpu!r}, card vs CPU rel "
+        f"{rel_cpu:.3e} ({time.perf_counter() - t0:.1f} s)")
+    check(rel_cpu <= 1e-8, "analytic N=256: the card and the CPU disagree")
+    return launches, steady, err, steady_ps
+
+
+def phase_scale(device):
+    """The large-grid level (studies/scale_probe.py's protocol): pol, N=1024,
+    dt = 0.25/N, 5 steps, default jvp couplings, float64 and float32 on the
+    card, each held against the CPU plain versions of the same level."""
+    import torch
+
+    from na_dd_tpu_torch.ops import kernels
+
+    N, dt = SCALE_N, 0.25 / SCALE_N
+    Tf = SCALE_STEPS * dt
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype)[6:]
+        trial, _ = make_trial(N, dtype, device, dt=dt)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        s = trial.run_for_errors(Tf=Tf, dt=dt)
+        cold = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        s2 = trial.run_for_errors(Tf=Tf, dt=dt)
+        steady = time.perf_counter() - t0
+        nsteps = len(s.series.krylov_iters)
+        err = s.overall_combined_error
+        log(f"[scale] {name} N={N}: error {err!r}; steps {nsteps}; budget "
+            f"{trial.integrator.solver.iters}; launches {launches}; Krylov iterations per step "
+            f"{s.series.krylov_iters.tolist()}; wall first {cold:.3f} s, second {steady:.3f} s "
+            f"({1e3 * steady / nsteps:.1f} ms a step); peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        check(math.isfinite(err), f"scale {name}: error not finite")
+        check(s2.overall_combined_error == err, f"scale {name}: repeat run changed the error")
+        check(nsteps == SCALE_STEPS, f"scale: expected {SCALE_STEPS} steps, took {nsteps}")
+        check(bool(s.series.krylov_converged.all()), f"scale {name}: a solve did not converge")
+        for k in ("bicgstab_solve", "stencil5_apply"):
+            check(launches[k] == 3 * nsteps,
+                  f"scale {name}: {k} launched {launches[k]} times, expected {3 * nsteps}")
+        for k in ("triple_solve", "bicgstab_solve3", "stencil7_apply"):
+            check(launches[k] == 0, f"scale {name}: launched {k}")
+        out[name] = (err, launches, steady)
+        del trial, s, s2
+        torch.cuda.empty_cache()
+
+    trial, _ = make_trial(N, torch.float64, device, dt=dt)
+    wall, found = profile_device(lambda: trial.run_for_errors(Tf=Tf, dt=dt))
+    busy_us = sum(us for _, us in found.values())
+    n_launch = sum(c for c, _ in found.values())
+    log(f"[scale] {SCALE_STEPS} steps of f64 N={N} under the profiler: wall {wall:.6f} s, device "
+        f"busy {busy_us / 1e6:.6f} s ({100 * busy_us / 1e6 / wall:.2f} %), idle "
+        f"{100 * (1 - busy_us / 1e6 / wall):.2f} %, {n_launch} kernel launches "
+        f"({busy_us / max(n_launch, 1):.2f} us each on average)")
+    for kname in ("bicgstab_kernel", "stencil5_apply_kernel"):
+        hits = [(c, us) for k, (c, us) in found.items() if kname in k]
+        if hits:
+            log(f"[scale]   {kname}: {sum(c for c, _ in hits)} launches, "
+                f"{sum(us for _, us in hits) / sum(c for c, _ in hits):.2f} us each on the device")
+    del trial
+    torch.cuda.empty_cache()
+
+    # scale_probe's own gate: agreement between backends, here the card
+    # against the CPU plain versions of the same level in the same dtype
+    for dtype, limit in ((torch.float64, 1e-8), (torch.float32, 1e-2)):
+        name = str(dtype)[6:]
+        t0 = time.perf_counter()
+        trial, _ = make_trial(N, dtype, "cpu", dt=dt)
+        err_cpu = trial.run_for_errors(Tf=Tf, dt=dt).overall_combined_error
+        rel = abs(out[name][0] - err_cpu) / err_cpu
+        log(f"[scale] {name} N={N} on the CPU (plain versions): error {err_cpu!r} "
+            f"({time.perf_counter() - t0:.1f} s); card vs CPU rel {rel:.3e} (limit {limit:g})")
+        check(rel <= limit, f"scale {name}: the card and the CPU disagree")
+    return out["float64"][1], out["float64"][2], out["float64"][0]
 
 
 def phase_slice_f32(device):
@@ -454,6 +768,92 @@ def phase_timings(device):
     log(f"[time] bicgstab_solve per iteration: ~35 plane passes = {passes / 1e6:.2f} MB, "
         f"{passes / HBM_BYTES_PER_S * 1e6:.2f} us at the HBM rate; measured "
         f"{res['bicgstab_solve']['ms'] * 1e3 / max(iters, 1):.2f} us an iteration")
+    del systems, st, b, mask, inv
+    res.update(timings_k4_k3(device))
+    return res
+
+
+def per_solve_route(operands, *, tol, iters):
+    """What K4 computes, the way the integrator's per-solve route does it:
+    three K1 wrapper calls with the coupling planes applied between them by
+    plain tensor operations."""
+    from na_dd_tpu_torch.ops import kernels
+    from na_dd_tpu_torch.ops.shifts import LOCAL_OPS
+
+    (J_T, J_cl, J_cd, C_clT, C_cdT, d_cdcl, rhs_T, base_cl, base_cd,
+     invd_T, invd_cl, invd_cd, mask, dt) = operands
+    dT, _ = kernels.bicgstab_solve(J_T, rhs_T * mask, invd_T, mask, tol=tol, iters=iters)
+    rhs_cl = (base_cl + dt * C_clT.apply(LOCAL_OPS, dT)) * mask
+    dcl, _ = kernels.bicgstab_solve(J_cl, rhs_cl, invd_cl, mask, tol=tol, iters=iters)
+    rhs_cd = (base_cd + dt * (C_cdT.apply(LOCAL_OPS, dT) + d_cdcl * dcl)) * mask
+    dcd, _ = kernels.bicgstab_solve(J_cd, rhs_cd, invd_cd, mask, tol=tol, iters=iters)
+    return dT, dcl, dcd
+
+
+def timings_k4_k3(device):
+    """K4 on the step-1 systems of the N=256 level and on random systems at
+    1025 x 1025, each beside the per-solve route on the same operands; K3 (the
+    5-point apply) at 1025 x 1025.  float64."""
+    import torch
+
+    from na_dd_tpu_torch.ops import kernels
+
+    tol = 1e-13
+    res = {}
+    step1, solver = step1_triple(torch.float64, device)
+    big = random_triple(np.random.default_rng(44), (SCALE_N + 1, SCALE_N + 1), torch.float64, device)
+    for key, operands, budget, reps in (("triple_solve", step1, solver.iters, 20),
+                                        ("triple_solve_1025", big, 40, 1)):
+        rhs_T = operands[6]
+        n, item = rhs_T.numel(), rhs_T.element_size()
+        its = kernels.triple_solve(*operands, tol=tol, iters=budget)[3]["iters"].tolist()
+        fused = per_solve_route(operands, tol=tol, iters=budget)
+        k4_out = kernels.triple_solve(*operands, tol=tol, iters=budget)[:3]
+        check(max(rel_to_max(a, b) for a, b in zip(k4_out, fused)) <= 1e-10,
+              "the per-solve route and K4 disagree on the timed operands")
+
+        def k4():
+            return kernels.triple_solve(*operands, tol=tol, iters=budget)
+
+        label = f"f64 {rhs_T.shape[0]}x{rhs_T.shape[1]} (iterations {its})"
+        # reads 33 planes, writes 3.  Per iteration taken as K1 (44 operations
+        # a point); the two coupling applies (9 each), the diagonal term and
+        # the three rhs forms (~3 each).
+        res[key] = kernel_row(
+            "triple_solve", rhs_T.dtype, label=label,
+            device_ms=kernel_device_ms(k4, 5 * reps, "triple_solve_kernel"),
+            wrapper_ms=time_ms(k4, 10 * reps),
+            plain_ms=time_ms(lambda: kernels.triple_solve_plain(
+                *operands, tol=tol, iters=budget), 2),
+            nbytes=36 * n * item, ops=(44 * max(sum(its), 1) + 29) * n)
+        route_ms = time_ms(lambda: per_solve_route(operands, tol=tol, iters=budget), 10 * reps)
+        res[key]["per_solve_route_ms"] = route_ms
+        blocks = kernels._BLOCKS.get(("triple_solve", rhs_T.dtype, n))
+        log(f"[time] triple_solve {label}: the per-solve route (3 K1 calls, 3 residual applies, "
+            f"the couplings as tensor operations) {route_ms * 1e3:.2f} us a call by CUDA events, "
+            f"{route_ms / res[key]['wrapper_ms']:.2f}x the K4 wrapper call; cooperative grid "
+            f"{blocks} blocks of 256 threads; {res[key]['ms'] * 1e3 / max(sum(its), 1):.2f} us "
+            "an iteration")
+    del big, step1, operands, fused, k4_out
+
+    st, u = random_planes(np.random.default_rng(33), (SCALE_N + 1, SCALE_N + 1), torch.float64,
+                          device, dominant=False)
+
+    def k3():
+        return kernels.stencil5_apply(st, u)
+
+    res["stencil5_apply_1025"] = kernel_row(
+        "stencil5_apply", u.dtype, label=f"f64 {u.shape[0]}x{u.shape[1]}",
+        device_ms=kernel_device_ms(k3, 100, "stencil5_apply_kernel"),
+        wrapper_ms=time_ms(k3, 500),
+        plain_ms=time_ms(lambda: kernels.stencil5_apply_plain(st, u), 100),
+        nbytes=7 * u.numel() * u.element_size(), ops=9 * u.numel())
+    st32 = type(st)(*(c.float() for c in st))
+    u32 = u.float()
+    ms32 = kernel_device_ms(lambda: kernels.stencil5_apply(st32, u32), 100, "stencil5_apply_kernel")
+    if ms32 is not None:
+        log(f"[time] stencil5_apply f32 1025x1025: kernel (device) {ms32 * 1e3:.2f} us, bound "
+            f"{7 * u32.numel() * 4 / HBM_BYTES_PER_S * 1e6:.3f} us (bytes)")
     return res
 
 
@@ -485,6 +885,10 @@ def phase_profile(device):
         g, ops, trial.mms_case, s0, t0, trial.variable_names, trial.integral_vars))
     log(f"[profile] one step_fn: {step_launches} launches; {breakdown}"
         f"; one error collection: {collect} launches")
+    for label, kw in (("fused", {}), ("per-solve", {"fused_triple": False})):
+        trial_an, _ = make_trial(MAIN_N, torch.float64, device, coupling_source="analytic", **kw)
+        n_an = launches_of(lambda: trial_an.integrator.step_fn(g, ops, s0, t0, dt))
+        log(f"[profile] one step_fn with analytic couplings, {label}: {n_an} launches")
 
 
 def launches_of(fn) -> int:
@@ -847,7 +1251,7 @@ def phase_profile3(device):
     log(f"[profile3] one step_fn: {step_launches} launches; {breakdown}")
 
 
-PHASES = ("k2", "k1", "slice", "f32", "timings", "profile",
+PHASES = ("k2", "k1", "k3", "k4", "slice", "f32", "analytic", "scale", "timings", "profile",
           "k6", "k5", "3d", "3d128", "3d_f32", "timings3", "profile3")
 
 
@@ -897,10 +1301,14 @@ def main(argv=None) -> int:
             done[name] = fn(*args)
             log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
 
-    phase("k2", phase_k2, device)
+    phase("k2", phase_apply5, device, "k2", K2_SHAPES, 2)
     phase("k1", phase_k1, device)
+    phase("k3", phase_apply5, device, "k3", K3_SHAPES, 3)
+    phase("k4", phase_k4, device)
     phase("slice", phase_slice_f64, device)
     phase("f32", phase_slice_f32, device)
+    phase("analytic", phase_analytic, device, done["slice"][3] if "slice" in done else None)
+    phase("scale", phase_scale, device)
     phase("timings", phase_timings, device)
     phase("profile", phase_profile, device)
     phase("k6", phase_k6, device)
@@ -916,25 +1324,39 @@ def main(argv=None) -> int:
         log(f"[done] phases {only}; total {time.perf_counter() - t_all:.1f} s (no result line)")
         return 0
 
-    launches2, steady2, err2 = done["slice"]
+    launches2, steady2, err2, _ = done["slice"]
+    launches_an, steady_an, err_an, steady_ps = done["analytic"]
+    launches_sc, steady_sc, err_sc = done["scale"]
     launches3, steady3, err3 = done["3d"]
     t2, t3 = done["timings"], done["timings3"][MAIN_N3]
     pk = "na_dd_tpu/ops/pallas_kernels.py"
     entries = []
-    for name, src, replaces, err, launches, t in (
-        ("bicgstab_solve", "bicgstab", f"{pk}:342", done["k1"], launches2, t2),
-        ("stencil5_apply", "stencil5", f"{pk}:523", done["k2"], launches2, t2),
-        ("bicgstab_solve3", "bicgstab3", f"{pk}:702", done["k5"], launches3, t3),
-        ("stencil7_apply", "stencil7", f"{pk}:615, {pk}:834", done["k6"], launches3, t3),
+    # (wrapper, source, TPU kernel, shape, error against the plain version,
+    # the launch counts of the path that runs it at that shape, timing row)
+    for name, src, replaces, shape, err, launches, row in (
+        ("bicgstab_solve", "bicgstab", f"{pk}:342", "257x257", done["k1"], launches2,
+         t2["bicgstab_solve"]),
+        ("stencil5_apply", "stencil5", f"{pk}:523", "257x257", done["k2"], launches2,
+         t2["stencil5_apply"]),
+        ("stencil5_apply", "stencil5", f"{pk}:466", "1025x1025", done["k3"], launches_sc,
+         t2["stencil5_apply_1025"]),
+        ("triple_solve", "triple_solve", f"{pk}:263", "257x257", done["k4"], launches_an,
+         t2["triple_solve"]),
+        ("bicgstab_solve3", "bicgstab3", f"{pk}:702", "65x65x65", done["k5"], launches3,
+         t3["bicgstab_solve3"]),
+        ("stencil7_apply", "stencil7", f"{pk}:615, {pk}:834", "65x65x65", done["k6"], launches3,
+         t3["stencil7_apply"]),
     ):
-        row = t[name]
         entries.append({
             "name": name, "route": "cuda", "source": f"na_dd_tpu_torch/csrc/{src}.cu",
-            "replaces": replaces, "launches": launches[name], "max_abs_err": err,
-            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": None,
+            "replaces": replaces, "shape": shape, "launches": launches[name],
+            "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
         })
-    log(f"[done] 2-D N=256 steady {steady2:.6f} s, error {err2!r}; 3-D N=64 steady "
+        check(launches[name] > 0, f"{name} at {shape} was launched no time on its path")
+    log(f"[done] 2-D N=256 steady {steady2:.6f} s, error {err2!r}; analytic fused steady "
+        f"{steady_an:.6f} s (per-solve {steady_ps:.6f} s), error {err_an!r}; N={SCALE_N} "
+        f"{SCALE_STEPS} steps {steady_sc:.6f} s, error {err_sc!r}; 3-D N=64 steady "
         f"{steady3:.6f} s, error {err3!r}; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(nvidia_smi_line())

@@ -15,7 +15,10 @@
 The stencil and reaction parts are added on the interior only; the forcing
 keeps its boundary values, as in the reference.  FT, Fcl and Fcd are linear
 in their own variable, so their self-Jacobians are 5-point stencils with
-closed-form planes (``stencil_dF*_d*``).
+closed-form planes (``stencil_dF*_d*``).  The cross couplings dFcl/dT,
+dFcd/dT and dFcd/dcl that the triangular Newton sweep applies to the
+preceding solves' increments have closed forms too (``stencil_dFcl_dT``,
+``stencil_dFcd_dT``, ``diag_dFcd_dcl``).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from na_dd_tpu_torch.ops.linsolve import (
     Stencil5,
     advection_planes,
     diffusion_planes,
+    midpoint_coupling_planes,
     stencil_add_diag,
 )
 from na_dd_tpu_torch.ops.shifts import Ops
@@ -165,6 +169,58 @@ class Field01Base:
             * g.interior_mask
         )
         return stencil_add_diag(L, dreac)
+
+    # analytic cross-coupling Jacobian stencils
+    def stencil_dFcl_dT(self, g: Grid, ops: Ops, s: State) -> Stencil5:
+        """∂Fcl/∂T·w = −D*_x(M_x(V1'(T)(cl+1)·w)) − D*_y(M_y(V2'(T)(cl+1)·w)):
+        Fcl sees T only through the advection velocity, so these are
+        :func:`advection_planes` with b = V'(T)·(cl+1)."""
+        m = self.model
+        return advection_planes(
+            g, ops, m.V1(s.T, d=1) * (s.cl + 1.0), m.V2(s.T, d=1) * (s.cl + 1.0)
+        )
+
+    def stencil_dFcd_dT(self, g: Grid, ops: Ops, s: State) -> Stencil5:
+        """∂Fcd/∂T·w = D*_x(∂_T Dd(M cp, M T)·D₋x cd ⊙ M_x w) + (y) +
+        a_T·[reaction factor]·w: the diffusion coefficient's T-derivative in
+        midpoint-coupling form, plus the reaction diagonal (a_T = 0 in this
+        model family)."""
+        m = self.model
+        ax = m.Dd(Mx(ops, g, s.cp), Mx(ops, g, s.T), d=(0, 1)) * Dx_reg(ops, g, s.cd)
+        ay = m.Dd(My(ops, g, s.cp), My(ops, g, s.T), d=(0, 1)) * Dy_reg(ops, g, s.cd)
+        st = midpoint_coupling_planes(g, ops, ax, ay)
+        a_T, _b_T = self.cscd_reaction_T()
+        if a_T == 0.0:
+            return st
+        return stencil_add_diag(st, self._dreac_dT(g, s, a_T))
+
+    def _dreac_dT(self, g, s: State, a_T):
+        """T-derivative of the reaction term (dimension-agnostic)."""
+        a_cl, b_cl = self.cscd_reaction_cl()
+        a_cd, b_cd = self.cscd_reaction_cd()
+        return (
+            self.cscd_reaction_cp(s.cp)
+            * a_T
+            * (a_cl * s.cl + b_cl)
+            * (a_cd * s.cd + b_cd)
+            * self.cscd_reaction_cs(s.cs)
+            * g.interior_mask
+        )
+
+    def diag_dFcd_dcl(self, g: Grid, s: State):
+        """∂Fcd/∂cl is purely diagonal: the reaction's cl-factor derivative
+        (the diffusion coefficients never see cl)."""
+        a_T, b_T = self.cscd_reaction_T()
+        a_cl, _b_cl = self.cscd_reaction_cl()
+        a_cd, b_cd = self.cscd_reaction_cd()
+        return (
+            self.cscd_reaction_cp(s.cp)
+            * (a_T * s.T + b_T)
+            * a_cl
+            * (a_cd * s.cd + b_cd)
+            * self.cscd_reaction_cs(s.cs)
+            * g.interior_mask
+        )
 
 
 class FieldRegHCsTriple(Field01Base):

@@ -4,7 +4,7 @@
 // Replaces: bicgstab_solve_pallas, na_dd_tpu/ops/pallas_kernels.py:342
 // (body _make_bicgstab_kernel :61 and _bicgstab_inline :83).  The solve
 // body, its contract and its design are in bicgstab.cuh, shared with K5;
-// this file gives it the 5-point operator.
+// this file gives it the 5-point operator (Stencil5Op, stencil5.cuh).
 //
 // Bound on the card: bytes and latency, not operations.  One iteration makes
 // about 35 plane-sized passes (two stencil applies reading five coefficient
@@ -21,26 +21,6 @@
 #include "stencil5.cuh"
 
 namespace {
-
-// The 5-point operator on an (n0, n1) plane, flat index k = i * n1 + j.
-template <typename T>
-struct Stencil5Op {
-  const T* c0;
-  const T* cxm;
-  const T* cxp;
-  const T* cym;
-  const T* cyp;
-  int n0;
-  int n1;
-
-  __host__ __device__ int size() const { return n0 * n1; }
-
-  __device__ __forceinline__ T apply(const T* u, int k) const {
-    const int i = k / n1;
-    const int j = k - i * n1;
-    return stencil5_at<T, true>(u, c0, cxm, cxp, cym, cyp, i, j, n0, n1);
-  }
-};
 
 template <typename T>
 int solve(const T* b, const T* c0, const T* cxm, const T* cxp, const T* cym,

@@ -1,5 +1,5 @@
-// Shared 5-point stencil apply at one grid point, used by the stencil5 and
-// bicgstab kernels.
+// Shared 5-point stencil apply at one grid point, used by the stencil5,
+// bicgstab and triple_solve kernels.
 //
 // Layout is the JAX package's: an (n0, n1) row-major plane, axis 0 = i (x),
 // axis 1 = j (y, contiguous).  Zero inflow: a neighbour outside the plane
@@ -38,3 +38,25 @@ __device__ __forceinline__ T stencil5_at(const T* u, const T* __restrict__ c0,
   return __ldg(c0 + k) * u0 + __ldg(cxm + k) * uxm + __ldg(cxp + k) * uxp +
          __ldg(cym + k) * uym + __ldg(cyp + k) * uyp;
 }
+
+// The 5-point operator on an (n0, n1) plane, flat index k = i * n1 + j, as
+// the solve kernels take it: u is read through L2 (kCoherent), since other
+// blocks wrote it in the same launch.
+template <typename T>
+struct Stencil5Op {
+  const T* c0;
+  const T* cxm;
+  const T* cxp;
+  const T* cym;
+  const T* cyp;
+  int n0;
+  int n1;
+
+  __host__ __device__ int size() const { return n0 * n1; }
+
+  __device__ __forceinline__ T apply(const T* u, int k) const {
+    const int i = k / n1;
+    const int j = k - i * n1;
+    return stencil5_at<T, true>(u, c0, cxm, cxp, cym, cyp, i, j, n0, n1);
+  }
+};

@@ -1,0 +1,218 @@
+// K4: the whole triangular Newton sweep's linear algebra — the T, cl and cd
+// Jacobi-BiCGStab solves and the cross-coupling right-hand sides between
+// them — in one persistent cooperative kernel, for Hopper (sm_90a).
+//
+// Replaces: triple_solve_pallas, na_dd_tpu/ops/pallas_kernels.py:263 (body
+// _make_triple_solve_kernel :182, solves _bicgstab_inline :83).  It computes
+//
+//   J_T  dT  = rhs_T m
+//   J_cl dcl = (base_cl + dt C_clT (dT m)) m
+//   J_cd dcd = (base_cd + dt (C_cdT (dT m) + d_cdcl (dcl m))) m
+//
+// each the masked-early-exit solve of bicgstab.cuh from x0 = 0, and writes
+// dT m, dcl m, dcd m, the three iteration counts, the three recurrence
+// residuals r.r at exit and the three tol_sq = tol^2 (b.b) of the masked,
+// coupled right-hand sides.  `converged = res <= tol_sq` is formed by the
+// caller, as the TPU wrapper forms it.
+//
+// Bound on the card: bytes and latency.  33 input planes and 3 output planes
+// must cross device memory once (19.0 MB in f64 at 257 x 257, 5.7 us at
+// 3.35 TB/s); each iteration of each solve makes the ~35 plane passes of K1.
+//
+// Design: the TPU kernel kept all 40 planes in one core's VMEM; here a plane
+// (528 KB in f64 at N=256) exceeds an SM's shared memory, so what carries
+// over is the single launch: one cooperative grid runs the three solves back
+// to back with the working set (36 planes + 7 of scratch, 22.7 MB in f64 at
+// N=256) resident in the 50 MB L2, and nothing returns to the host or waits
+// for a launch between the solves.  The solve is bicgstab::solve, the same
+// device function K1 wraps, called three times on the same six working
+// arrays.  Between two solves: one grid sync (dT must be visible at the
+// neighbours' points, and the dot-product partials must be free), then one
+// grid-stride pass that forms the next right-hand side into a scratch plane.
+// Each thread owns the same points throughout, and a right-hand side is only
+// read at a thread's own points, so that pass needs no sync of its own; the
+// scratch plane is read with plain loads, never through the read-only path,
+// because this launch wrote it.  dT is read through the coupling stencils
+// with L2 loads (Stencil5Op), dcl only at the thread's own point.
+#include <cuda_runtime.h>
+
+#include "bicgstab.cuh"
+#include "stencil5.cuh"
+
+namespace {
+
+namespace cg = cooperative_groups;
+using bicgstab::kThreads;
+using bicgstab::kWarps;
+
+constexpr int kInputPlanes = 33;
+constexpr int kScratchPlanes = bicgstab::kWorkArrays + 1;  // + the rhs plane
+
+template <typename T>
+struct TripleParams {
+  Stencil5Op<T> J_T, J_cl, J_cd;  // Newton operators
+  Stencil5Op<T> C_clT, C_cdT;     // coupling operators dFcl/dT, dFcd/dT
+  const T* d_cdcl;                // diagonal coupling dFcd/dcl
+  const T* rhs_T;
+  const T* base_cl;
+  const T* base_cd;
+  const T* invd_T;
+  const T* invd_cl;
+  const T* invd_cd;
+  const T* mask;
+  T* dT;
+  T* dcl;
+  T* dcd;
+  int* iters_out;  // [3]
+  T* res_out;      // [3] recurrence r.r at exit
+  T* tolsq_out;    // [3]
+  T* rhs;          // scratch: the masked (coupled) rhs of the running solve
+  bicgstab::Work<T> W;
+  int iters;
+  double tol_sq_coef;  // tol * tol, cast to T in the kernel
+  double dt;           // cast to T in the kernel
+};
+
+template <typename T>
+__device__ __forceinline__ void write_result(const TripleParams<T>& P, int k,
+                                             const bicgstab::Result<T>& res) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    P.iters_out[k] = res.used;
+    P.res_out[k] = res.rr;
+    P.tolsq_out[k] = res.tol_sq;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    triple_solve_kernel(TripleParams<T> P) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ T red[kWarps];
+  __shared__ T bcast;
+
+  const int n = P.J_T.size();
+  const int stride = gridDim.x * kThreads;
+  const int first = blockIdx.x * kThreads + threadIdx.x;
+  const T dt = static_cast<T>(P.dt);
+  const T* __restrict__ mask = P.mask;
+
+  // --- T solve ---
+  for (int k = first; k < n; k += stride)
+    P.rhs[k] = __ldg(P.rhs_T + k) * __ldg(mask + k);
+  bicgstab::Result<T> res = bicgstab::solve<T, Stencil5Op<T>, false>(
+      grid, P.J_T, P.rhs, P.invd_T, mask, P.dT, P.W, P.iters, P.tol_sq_coef,
+      red, &bcast);
+  write_result(P, 0, res);
+  grid.sync();
+
+  // --- cl rhs coupling + solve ---
+  for (int k = first; k < n; k += stride) {
+    const T coup = P.C_clT.apply(P.dT, k);
+    P.rhs[k] = (__ldg(P.base_cl + k) + dt * coup) * __ldg(mask + k);
+  }
+  res = bicgstab::solve<T, Stencil5Op<T>, false>(
+      grid, P.J_cl, P.rhs, P.invd_cl, mask, P.dcl, P.W, P.iters,
+      P.tol_sq_coef, red, &bcast);
+  write_result(P, 1, res);
+  grid.sync();
+
+  // --- cd rhs coupling + solve ---
+  for (int k = first; k < n; k += stride) {
+    const T coup = P.C_cdT.apply(P.dT, k) + __ldg(P.d_cdcl + k) * P.dcl[k];
+    P.rhs[k] = (__ldg(P.base_cd + k) + dt * coup) * __ldg(mask + k);
+  }
+  res = bicgstab::solve<T, Stencil5Op<T>, false>(
+      grid, P.J_cd, P.rhs, P.invd_cd, mask, P.dcd, P.W, P.iters,
+      P.tol_sq_coef, red, &bcast);
+  write_result(P, 2, res);
+}
+
+template <typename T>
+Stencil5Op<T> op_at(const void* const* planes, int first, int n0, int n1) {
+  const T* const* p = reinterpret_cast<const T* const*>(planes) + first;
+  return Stencil5Op<T>{p[0], p[1], p[2], p[3], p[4], n0, n1};
+}
+
+// `in` holds the 33 input planes in the TPU kernel's order: J_T, J_cl, J_cd,
+// C_clT, C_cdT (c0, cxm, cxp, cym, cyp each), d_cdcl, rhs_T, base_cl,
+// base_cd, invd_T, invd_cl, invd_cd, mask.  `out` holds dT, dcl, dcd;
+// `scalars` res[3] then tol_sq[3]; `work` the seven scratch planes.
+template <typename T>
+int launch(const void* const* in, void* const* out, int* iters_out,
+           void* scalars, void* work, void* partials, int n0, int n1,
+           int iters, double tol_sq_coef, double dt, int blocks,
+           void* stream) {
+  const T* const* p = reinterpret_cast<const T* const*>(in);
+  T* const* o = reinterpret_cast<T* const*>(out);
+  const size_t n = static_cast<size_t>(n0) * n1;
+  T* w = static_cast<T*>(work);
+  T* s = static_cast<T*>(scalars);
+  TripleParams<T> P{op_at<T>(in, 0, n0, n1),
+                    op_at<T>(in, 5, n0, n1),
+                    op_at<T>(in, 10, n0, n1),
+                    op_at<T>(in, 15, n0, n1),
+                    op_at<T>(in, 20, n0, n1),
+                    p[25],
+                    p[26],
+                    p[27],
+                    p[28],
+                    p[29],
+                    p[30],
+                    p[31],
+                    p[32],
+                    o[0],
+                    o[1],
+                    o[2],
+                    iters_out,
+                    s,
+                    s + 3,
+                    w + bicgstab::kWorkArrays * n,
+                    bicgstab::make_work(w, n, static_cast<T*>(partials)),
+                    iters,
+                    tol_sq_coef,
+                    dt};
+  return bicgstab::launch_cooperative(triple_solve_kernel<T>, P, blocks,
+                                      stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+int triple_solve_input_planes() { return kInputPlanes; }
+
+int triple_solve_num_slots() { return bicgstab::kNumSlots; }
+
+int triple_solve_work_planes() { return kScratchPlanes; }
+
+// The triple kernel holds more pointers and registers than K1, so its
+// cooperative grid comes from its own occupancy.
+int triple_solve_blocks_f64(int n, int* blocks) {
+  return bicgstab::grid_blocks_of(triple_solve_kernel<double>, n, blocks);
+}
+
+int triple_solve_blocks_f32(int n, int* blocks) {
+  return bicgstab::grid_blocks_of(triple_solve_kernel<float>, n, blocks);
+}
+
+int triple_solve_f64(const void* const* in, void* const* out, int* iters_out,
+                     void* scalars, void* work, void* partials, int n0, int n1,
+                     int iters, double tol_sq_coef, double dt, int blocks,
+                     void* stream) {
+  return launch<double>(in, out, iters_out, scalars, work, partials, n0, n1,
+                        iters, tol_sq_coef, dt, blocks, stream);
+}
+
+int triple_solve_f32(const void* const* in, void* const* out, int* iters_out,
+                     void* scalars, void* work, void* partials, int n0, int n1,
+                     int iters, double tol_sq_coef, double dt, int blocks,
+                     void* stream) {
+  return launch<float>(in, out, iters_out, scalars, work, partials, n0, n1,
+                       iters, tol_sq_coef, dt, blocks, stream);
+}
+
+const char* error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -8,14 +8,28 @@ Per step:
 2. (T, cl, cd) advanced with the trapezoidal rule by Newton sweeps over the
    triangular coupling FT(T) → Fcl(T, cl) → Fcd(T, cl, cd): three interior
    linear solves per sweep on the closed-form Newton planes, the cross
-   couplings entering the right-hand sides as ``torch.func.jvp`` tangents;
+   couplings entering the right-hand sides as ``torch.func.jvp`` tangents
+   (``coupling_source="jvp"``, the default) or as closed-form coupling
+   planes (``coupling_source="analytic"``);
 3. cp corrected in closed form, cs by a pointwise regularized-Heaviside
    Newton iteration.
 
 The linear solves go through one solver-backend object
 (:class:`KrylovBackend`): the hand-written BiCGStab kernel of the stencil's
 dimension on CUDA tensors, its plain twin on CPU tensors.  Later precisions
-and solvers plug in as other backends.  The step is dimension-agnostic: the
+and solvers plug in as other backends.
+
+With analytic couplings the whole sweep is stencil algebra, so in 2-D
+``fused_triple=True`` (the default) hands the three solves and the coupling
+applies between them to the backend's :meth:`KrylovBackend.solve_triple` as
+one call: one launch of the fused triple-solve kernel on CUDA tensors.  The
+JAX package ties that route to ``stencil_backend="pallas"``; the port has no
+such switch (its wrappers pick the kernel by the tensor's device), so
+``fused_triple`` alone selects it.  ``fused_triple=False``, or a 3-D system
+(the fused kernel is 2-D only, as in the JAX package), takes three separate
+solves with the coupling planes applied between them.
+
+The step is dimension-agnostic: the
 3-D integrators (:mod:`na_dd_tpu_torch.three_d.integrator`) override only
 :meth:`PCTrapezoidalBase._newton_planes`.
 
@@ -74,18 +88,41 @@ class KrylovBackend:
     def __init__(self, *, iters: int):
         self.iters = int(iters)
 
-    def solve(self, st, rhs, mask):
-        tol = default_krylov_tol(rhs.dtype)
-        inv_diag = torch.where(
+    @staticmethod
+    def _inv_diag(st, mask):
+        return torch.where(
             mask > 0,
             1.0 / torch.where(st.c0 == 0, torch.ones_like(st.c0), st.c0),
             torch.zeros_like(st.c0),
         )
+
+    def solve(self, st, rhs, mask):
+        tol = default_krylov_tol(rhs.dtype)
         bicgstab = kernels.bicgstab_solve3 if isinstance(st, Stencil7) else kernels.bicgstab_solve
         x, info = bicgstab(
-            st, rhs * mask, inv_diag, mask, tol=tol, iters=self.iters
+            st, rhs * mask, self._inv_diag(st, mask), mask, tol=tol, iters=self.iters
         )
         return x * mask, info
+
+    def solve_triple(
+        self, J_T, J_cl, J_cd, C_clT, C_cdT, d_cdcl, rhs_T, base_cl, base_cd, mask, dt
+    ):
+        """The whole triangular sweep's linear algebra in one call of
+        :func:`kernels.triple_solve` (2-D ``Stencil5`` systems):
+        ``J_T·δT = rhs_T``, ``J_cl·δcl = base_cl + dt·C_clT·δT``,
+        ``J_cd·δcd = base_cd + dt·(C_cdT·δT + d_cdcl ⊙ δcl)`` on the interior.
+        Returns ``(δT, δcl, δcd, (info_T, info_cl, info_cd))``, each info as
+        :meth:`solve` returns it, the residual being the recurrence one."""
+        dT, dcl, dcd, info3 = kernels.triple_solve(
+            J_T, J_cl, J_cd, C_clT, C_cdT, d_cdcl, rhs_T, base_cl, base_cd,
+            self._inv_diag(J_T, mask), self._inv_diag(J_cl, mask), self._inv_diag(J_cd, mask),
+            mask, dt, tol=default_krylov_tol(rhs_T.dtype), iters=self.iters,
+        )
+        infos = tuple(
+            {key: info3[key][k] for key in ("iters", "resnorm_sq", "converged")}
+            for k in range(3)
+        )
+        return dT, dcl, dcd, infos
 
 
 class PCTrapezoidalBase:
@@ -99,11 +136,25 @@ class PCTrapezoidalBase:
         num_newton_steps: int = 1,
         krylov_unroll: int = 16,
         track_residuals: bool = True,
+        coupling_source: str = "jvp",
+        fused_triple: bool = True,
     ):
         """krylov_unroll: BiCGStab iteration budget per solve (masked early
         exit, so any sufficient budget gives the same answer).  The solves go
         through ``self.solver``, an object with ``solve(stencil, rhs, mask)
-        -> (x, info)``: the :class:`KrylovBackend` here."""
+        -> (x, info)`` and ``solve_triple(...)``: the :class:`KrylovBackend`
+        here.
+
+        coupling_source: "jvp" — the cross couplings as ``torch.func.jvp``
+        tangents; "analytic" — as closed-form coupling planes
+        (``field.stencil_dFcl_dT`` etc.).  fused_triple: with analytic
+        couplings in 2-D, the whole sweep through ``solver.solve_triple``."""
+        if coupling_source not in ("jvp", "analytic"):
+            raise ValueError(
+                f"coupling_source must be 'jvp' or 'analytic', got {coupling_source!r}"
+            )
+        self.coupling_source = coupling_source
+        self.fused_triple = bool(fused_triple)
         self.semi_discrete_field = semi_discrete_field
         self._model = semi_discrete_field.model
         self.num_pc_steps = int(num_pc_steps)
@@ -157,36 +208,80 @@ class PCTrapezoidalBase:
         YT0, Ycl0, Ycd0 = Y
         mask = g.interior_mask
         solve = self.solver.solve
+        analytic = self.coupling_source == "analytic"
 
         # T: FT is linear in T — closed-form planes and a direct primal
         fT0 = field.FT(g, ops, s, t1)
         J_T = self._newton_planes(g, ops, field.stencil_dFT_dT(g, ops, s), dt)
         rhs_T = YT0 - (2.0 * s.T - dt * fT0)
+
+        if analytic and self.fused_triple and isinstance(J_T, linsolve.Stencil5):
+            # the whole sweep's linear algebra in one call
+            fcl0 = field.Fcl(g, ops, s, t1)
+            fcd0 = field.Fcd(g, ops, s, t1)
+            J_cl = self._newton_planes(g, ops, field.stencil_dFcl_dcl(g, ops, s), dt)
+            J_cd = self._newton_planes(g, ops, field.stencil_dFcd_dcd(g, ops, s), dt)
+            dT, dcl, dcd, infos = self.solver.solve_triple(
+                J_T, J_cl, J_cd,
+                field.stencil_dFcl_dT(g, ops, s),
+                field.stencil_dFcd_dT(g, ops, s),
+                field.diag_dFcd_dcl(g, s),
+                rhs_T,
+                Ycl0 - 2.0 * s.cl + dt * fcl0,
+                Ycd0 - 2.0 * s.cd + dt * fcd0,
+                mask, dt,
+            )
+            T1 = s.T * mask + dT  # boundary re-zeroed, as in the reference
+            cl1 = s.cl + dcl  # boundary kept
+            cd1 = s.cd + dcd
+            return self._sweep_tail(g, ops, s, t1, dt, Y, T1, cl1, cd1, *infos)
+
         dT, info_T = solve(J_T, rhs_T, mask)
         T1 = s.T * mask + dT  # boundary re-zeroed, as in the reference
 
-        # cl: primal and the T-coupling tangent in one jvp pass
+        # cl: the primal and the T-coupling, a closed-form plane apply or
+        # the tangent of one jvp pass
         wT = (T1 - s.T) * mask
-        fcl0, jvp_cl_T = torch.func.jvp(
-            lambda T: field.Fcl(g, ops, s._replace(T=T), t1), (s.T,), (wT,)
-        )
+        if analytic:
+            fcl0 = field.Fcl(g, ops, s, t1)
+            jvp_cl_T = field.stencil_dFcl_dT(g, ops, s).apply(ops, wT)
+        else:
+            fcl0, jvp_cl_T = torch.func.jvp(
+                lambda T: field.Fcl(g, ops, s._replace(T=T), t1), (s.T,), (wT,)
+            )
         J_cl = self._newton_planes(g, ops, field.stencil_dFcl_dcl(g, ops, s), dt)
         rhs_cl = Ycl0 - 2.0 * s.cl + dt * fcl0 + dt * jvp_cl_T
         dcl, info_cl = solve(J_cl, rhs_cl, mask)
         cl1 = s.cl + dcl  # boundary kept, as in the reference
 
-        # cd: primal and the (T, cl)-coupling tangent in one jvp pass
+        # cd: the primal and the (T, cl)-coupling, likewise
         wcl = (cl1 - s.cl) * mask
-        fcd0, jvp_cd_Tcl = torch.func.jvp(
-            lambda T, cl: field.Fcd(g, ops, s._replace(T=T, cl=cl), t1),
-            (s.T, s.cl),
-            (wT, wcl),
-        )
+        if analytic:
+            fcd0 = field.Fcd(g, ops, s, t1)
+            jvp_cd_Tcl = (
+                field.stencil_dFcd_dT(g, ops, s).apply(ops, wT)
+                + field.diag_dFcd_dcl(g, s) * wcl
+            )
+        else:
+            fcd0, jvp_cd_Tcl = torch.func.jvp(
+                lambda T, cl: field.Fcd(g, ops, s._replace(T=T, cl=cl), t1),
+                (s.T, s.cl),
+                (wT, wcl),
+            )
         J_cd = self._newton_planes(g, ops, field.stencil_dFcd_dcd(g, ops, s), dt)
         rhs_cd = Ycd0 - 2.0 * s.cd + dt * fcd0 + dt * jvp_cd_Tcl
         dcd, info_cd = solve(J_cd, rhs_cd, mask)
         cd1 = s.cd + dcd
 
+        return self._sweep_tail(
+            g, ops, s, t1, dt, Y, T1, cl1, cd1, info_T, info_cl, info_cd
+        )
+
+    def _sweep_tail(self, g, ops, s, t1, dt, Y, T1, cl1, cd1, info_T, info_cl, info_cd):
+        """Residual tracking and diagnostics packaging, shared by the
+        per-solve and fused sweep routes."""
+        field = self.semi_discrete_field
+        YT0, Ycl0, Ycd0 = Y
         if self.track_residuals:
             res_T = 2.0 * T1 - dt * field.FT(g, ops, s._replace(T=T1), t1) - YT0
             s_cl = s._replace(T=T1, cl=cl1)

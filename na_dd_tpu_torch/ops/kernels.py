@@ -4,8 +4,10 @@ twin.
 ==========================  ===================================================
 wrapper                     replaces (na_dd_tpu/ops/pallas_kernels.py)
 ==========================  ===================================================
-:func:`stencil5_apply`      ``stencil5_apply_pallas`` (:523) — K2
+:func:`stencil5_apply`      ``stencil5_apply_pallas`` (:523) — K2, and
+                            ``stencil5_apply_tiled`` (:466) — K3
 :func:`bicgstab_solve`      ``bicgstab_solve_pallas`` (:342) — K1
+:func:`triple_solve`        ``triple_solve_pallas`` (:263) — K4
 :func:`stencil7_apply`      ``stencil7_apply_pallas`` (:615) — K6, and
                             ``stencil7_apply_tiled`` (:834) — K7
 :func:`bicgstab_solve3`     ``bicgstab_solve3_pallas`` (:702) — K5
@@ -49,6 +51,7 @@ SOURCES = {
     "bicgstab": "bicgstab.cu",
     "stencil7": "stencil7.cu",
     "bicgstab3": "bicgstab3.cu",
+    "triple_solve": "triple_solve.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -56,7 +59,13 @@ NVCC_FLAGS = (
 )
 
 #: launches of each kernel since the last :func:`reset_launch_counts`
-LAUNCHES = {"stencil5_apply": 0, "bicgstab_solve": 0, "stencil7_apply": 0, "bicgstab_solve3": 0}
+LAUNCHES = {
+    "stencil5_apply": 0,
+    "bicgstab_solve": 0,
+    "stencil7_apply": 0,
+    "bicgstab_solve3": 0,
+    "triple_solve": 0,
+}
 
 #: per-source build record of the last :func:`build_kernels` in this process:
 #: {"seconds", "cached", "ptxas"} (ptxas = nvcc's register/spill report)
@@ -109,6 +118,40 @@ def _bicgstab_plain(apply, stencil, b, inv_diag, mask, tol, iters):
 def bicgstab_solve_plain(stencil: Stencil5, b, inv_diag, mask, *, tol: float, iters: int):
     """Plain twin of K1."""
     return _bicgstab_plain(stencil5_apply_plain, stencil, b, inv_diag, mask, tol, iters)
+
+
+def triple_solve_plain(
+    J_T: Stencil5, J_cl: Stencil5, J_cd: Stencil5, C_clT: Stencil5, C_cdT: Stencil5, d_cdcl,
+    rhs_T, base_cl, base_cd, invd_T, invd_cl, invd_cd, mask, dt, *, tol: float, iters: int,
+):
+    """Plain twin of K4: three :func:`bicgstab_unrolled` solves from x0 = 0
+    with the coupling applies between them.  ``info`` holds, per solve, the
+    iteration count, the recurrence residual ``r·r`` at exit, ``tol_sq =
+    tol²·(b·b)`` of the masked, coupled rhs, and ``converged = resnorm_sq <=
+    tol_sq``."""
+    infos = []
+
+    def solve(J, b, inv_diag):
+        x, info = bicgstab_unrolled(
+            lambda w: J.apply(LOCAL_OPS, w),
+            b,
+            torch.zeros_like(b),
+            dot=lambda u, v: torch.sum(u * v),
+            minv=lambda r: r * inv_diag,
+            tol=tol,
+            iters=iters,
+        )
+        infos.append((info["iters"], info["resnorm_sq"], tol * tol * torch.sum(b * b)))
+        return x * mask
+
+    dT = solve(J_T, rhs_T * mask, invd_T)
+    dcl = solve(J_cl, (base_cl + dt * C_clT.apply(LOCAL_OPS, dT)) * mask, invd_cl)
+    coup_cd = C_cdT.apply(LOCAL_OPS, dT) + d_cdcl * dcl
+    dcd = solve(J_cd, (base_cd + dt * coup_cd) * mask, invd_cd)
+    its, res, tol_sq = (torch.stack(v) for v in zip(*infos))
+    return dT, dcl, dcd, {
+        "iters": its, "resnorm_sq": res, "tol_sq": tol_sq, "converged": res <= tol_sq,
+    }
 
 
 def stencil7_apply_plain(stencil: Stencil7, u):
@@ -164,7 +207,7 @@ def _declare(name: str, lib) -> None:
             fn.restype = i32
         lib.bicgstab_num_slots.restype = i32
         lib.bicgstab_work_planes.restype = i32
-    else:
+    elif name == "bicgstab3":
         for fn in (lib.bicgstab3_blocks_f64, lib.bicgstab3_blocks_f32):
             fn.argtypes = [i32, ctypes.POINTER(i32)]
             fn.restype = i32
@@ -173,6 +216,18 @@ def _declare(name: str, lib) -> None:
             fn.restype = i32
         lib.bicgstab3_num_slots.restype = i32
         lib.bicgstab3_work_volumes.restype = i32
+    elif name == "triple_solve":
+        for fn in (lib.triple_solve_blocks_f64, lib.triple_solve_blocks_f32):
+            fn.argtypes = [i32, ctypes.POINTER(i32)]
+            fn.restype = i32
+        for fn in (lib.triple_solve_f64, lib.triple_solve_f32):
+            fn.argtypes = [vp] * 6 + [i32, i32, i32, f64, f64, i32, vp]
+            fn.restype = i32
+        lib.triple_solve_input_planes.restype = i32
+        lib.triple_solve_num_slots.restype = i32
+        lib.triple_solve_work_planes.restype = i32
+    else:
+        raise ValueError(f"no declarations for the kernel library {name!r}")
 
 
 def build_kernels() -> dict:
@@ -256,7 +311,7 @@ def _stream(t: torch.Tensor) -> int:
 # wrappers
 # ---------------------------------------------------------------------------
 def stencil5_apply(stencil: Stencil5, u):
-    """K2.  CPU tensor → :func:`stencil5_apply_plain`; CUDA tensor → kernel."""
+    """K2/K3, any plane shape.  CPU tensor → :func:`stencil5_apply_plain`; CUDA tensor → kernel."""
     if u.device.type == "cpu":
         return stencil5_apply_plain(stencil, u)
     _check_operands("stencil5_apply", 2, u, *stencil)
@@ -274,8 +329,8 @@ def stencil5_apply(stencil: Stencil5, u):
 
 
 def _bicgstab_blocks(lib, prefix: str, dtype, n: int) -> int:
-    """The cooperative grid of a BiCGStab kernel (``prefix`` "bicgstab" or
-    "bicgstab3") for n points, as its library reports it."""
+    """The cooperative grid of a BiCGStab kernel (``prefix`` "bicgstab",
+    "bicgstab3" or "triple_solve") for n points, as its library reports it."""
     key = (prefix, dtype, n)
     if key not in _BLOCKS:
         suffix = "f64" if dtype == torch.float64 else "f32"
@@ -316,6 +371,59 @@ def bicgstab_solve(stencil: Stencil5, b, inv_diag, mask, *, tol: float, iters: i
     _check_launch(lib, code, "bicgstab_solve")
     LAUNCHES["bicgstab_solve"] += 1
     return x, _residual_info(stencil5_apply, stencil, b, x, iters_out[0], tol)
+
+
+def triple_solve(
+    J_T: Stencil5, J_cl: Stencil5, J_cd: Stencil5, C_clT: Stencil5, C_cdT: Stencil5, d_cdcl,
+    rhs_T, base_cl, base_cd, invd_T, invd_cl, invd_cd, mask, dt, *, tol: float, iters: int,
+):
+    """K4: the whole triangular Newton sweep's linear algebra in one launch.
+
+    Solves ``J_T·δT = rhs_T·m``, then ``J_cl·δcl = (base_cl + dt·C_clT·δT)·m``,
+    then ``J_cd·δcd = (base_cd + dt·(C_cdT·δT + d_cdcl ⊙ δcl))·m``, each the
+    solve of :func:`bicgstab_solve` (x0 = 0, ``iters`` masked-early-exit
+    iterations), ``m = mask``.  Returns ``(δT·m, δcl·m, δcd·m, info)``;
+    ``info["iters"]``, ``["resnorm_sq"]``, ``["tol_sq"]`` and ``["converged"]``
+    have one entry per solve, the residual being the recurrence ``r·r`` at
+    exit (``bicgstab_unrolled`` semantics), as ``triple_solve_pallas`` reports
+    them.  CPU tensors take :func:`triple_solve_plain`.  Never synchronises
+    with the host.
+    """
+    if rhs_T.device.type == "cpu":
+        return triple_solve_plain(
+            J_T, J_cl, J_cd, C_clT, C_cdT, d_cdcl, rhs_T, base_cl, base_cd,
+            invd_T, invd_cl, invd_cd, mask, dt, tol=tol, iters=iters,
+        )
+    planes = (
+        *J_T, *J_cl, *J_cd, *C_clT, *C_cdT,
+        d_cdcl, rhs_T, base_cl, base_cd, invd_T, invd_cl, invd_cd, mask,
+    )
+    _check_operands("triple_solve", 2, rhs_T, *planes)
+    lib = _lib("triple_solve")
+    if len(planes) != lib.triple_solve_input_planes():
+        raise ValueError(f"triple_solve: expected {lib.triple_solve_input_planes()} planes")
+    n0, n1 = rhs_T.shape
+    dtype, device = rhs_T.dtype, rhs_T.device
+    blocks = _bicgstab_blocks(lib, "triple_solve", dtype, n0 * n1)
+    out = torch.empty((3, n0, n1), dtype=dtype, device=device)
+    iters_out = torch.empty(3, dtype=torch.int32, device=device)
+    scalars = torch.empty((2, 3), dtype=dtype, device=device)  # r·r, tol_sq
+    work = torch.empty((lib.triple_solve_work_planes(), n0, n1), dtype=dtype, device=device)
+    partials = torch.empty(lib.triple_solve_num_slots() * blocks, dtype=dtype, device=device)
+    in_ptrs = (ctypes.c_void_p * len(planes))(*(t.data_ptr() for t in planes))
+    out_ptrs = (ctypes.c_void_p * 3)(*(out[k].data_ptr() for k in range(3)))
+    fn = lib.triple_solve_f64 if dtype == torch.float64 else lib.triple_solve_f32
+    code = fn(
+        ctypes.cast(in_ptrs, ctypes.c_void_p), ctypes.cast(out_ptrs, ctypes.c_void_p),
+        iters_out.data_ptr(), scalars.data_ptr(), work.data_ptr(), partials.data_ptr(),
+        n0, n1, int(iters), float(tol) * float(tol), float(dt), blocks, _stream(rhs_T),
+    )
+    _check_launch(lib, code, "triple_solve")
+    LAUNCHES["triple_solve"] += 1
+    res, tol_sq = scalars[0], scalars[1]
+    return out[0], out[1], out[2], {
+        "iters": iters_out, "resnorm_sq": res, "tol_sq": tol_sq, "converged": res <= tol_sq,
+    }
 
 
 def stencil7_apply(stencil: Stencil7, u):

@@ -80,6 +80,33 @@ def advection_planes3(g: Grid3, ops: Ops3, bx, by, bz) -> Stencil7:
     )
 
 
+def midpoint_coupling_planes3(g: Grid3, ops: Ops3, ax, ay, az) -> Stencil7:
+    """Planes of w ↦ D*_x(ax ⊙ M_x w) + D*_y(ay ⊙ M_y w) + D*_z(az ⊙ M_z w):
+    the coefficient outside the midpoint average (a diffusion coefficient's
+    state-derivative)."""
+    half_x = 0.5 * g.inv_hh_phalf
+    half_y = 0.5 * g.inv_kk_phalf
+    half_z = 0.5 * g.inv_ll_phalf
+    axm = ax * g.mask_x1
+    aym = ay * g.mask_y1
+    azm = az * g.mask_z1
+    cxp = half_x * ops.shift_xp(axm)
+    cxm = -half_x * axm
+    cyp = half_y * ops.shift_yp(aym)
+    cym = -half_y * aym
+    czp = half_z * ops.shift_zp(azm)
+    czm = -half_z * azm
+    return Stencil7(
+        c0=(cxp + cxm) + (cyp + cym) + (czp + czm),
+        cxm=cxm,
+        cxp=cxp,
+        cym=cym,
+        cyp=cyp,
+        czm=czm,
+        czp=czp,
+    )
+
+
 def newton_planes3(g: Grid3, ops: Ops3, L: Stencil7, dt) -> Stencil7:
     """Planes of the interior Newton operator w ↦ m·(2(w·m) − dt·m·L(w·m)),
     m = interior_mask."""

@@ -10,7 +10,8 @@ of :mod:`na_dd_tpu_torch.three_d.stencils`.  Everything pointwise — Fcp,
 Fcs, the reaction factorization and the regularized Heaviside — is inherited
 unchanged from :class:`na_dd_tpu_torch.core.fields.Field01Base`; the 3-D
 class overrides only the methods that touch spatial operators, and its
-self-Jacobians are :class:`Stencil7` planes.
+self- and cross-coupling Jacobians are :class:`Stencil7` planes
+(``diag_dFcd_dcl`` is pointwise and inherited).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from na_dd_tpu_torch.three_d.diffusion import (
     Stencil7,
     advection_planes3,
     diffusion_planes3,
+    midpoint_coupling_planes3,
     stencil_add_diag3,
 )
 from na_dd_tpu_torch.three_d.grid import Grid3
@@ -139,6 +141,28 @@ class Field3Base(Field01Base):
             * g.interior_mask
         )
         return stencil_add_diag3(L, dreac)
+
+    # analytic cross-coupling Jacobian stencils
+    def stencil_dFcl_dT(self, g: Grid3, ops: Ops3, s: State) -> Stencil7:
+        """∂Fcl/∂T·w = −∇·(M(V'(T)(cl+1)·w)): advection planes with
+        b = V'(T)·(cl+1) per axis."""
+        m = self.model
+        cl1 = s.cl + 1.0
+        return advection_planes3(
+            g, ops, m.V1(s.T, d=1) * cl1, m.V2(s.T, d=1) * cl1, m.V3(s.T, d=1) * cl1
+        )
+
+    def stencil_dFcd_dT(self, g: Grid3, ops: Ops3, s: State) -> Stencil7:
+        """∂Fcd/∂T·w = Σ_axis D*(∂_T Dd · D₋cd ⊙ M w) + a_T·[reaction]·w."""
+        m = self.model
+        ax = m.Dd(Mx3(ops, g, s.cp), Mx3(ops, g, s.T), d=(0, 1)) * Dx_reg3(ops, g, s.cd)
+        ay = m.Dd(My3(ops, g, s.cp), My3(ops, g, s.T), d=(0, 1)) * Dy_reg3(ops, g, s.cd)
+        az = m.Dd(Mz3(ops, g, s.cp), Mz3(ops, g, s.T), d=(0, 1)) * Dz_reg3(ops, g, s.cd)
+        st = midpoint_coupling_planes3(g, ops, ax, ay, az)
+        a_T, _b_T = self.cscd_reaction_T()
+        if a_T == 0.0:
+            return st
+        return stencil_add_diag3(st, self._dreac_dT(g, s, a_T))
 
 
 class FieldRegHCsTriple3(Field3Base, FieldRegHCsTriple):

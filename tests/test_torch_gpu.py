@@ -1,12 +1,13 @@
-"""The hand-written CUDA kernels (K1, K2 on planes; K5, K6/K7 on volumes)
-against their plain PyTorch versions on a card.  Every test here is marked ``gpu`` and skips where
+"""The hand-written CUDA kernels (K1, K2/K3, K4 on planes; K5, K6/K7 on
+volumes) against their plain PyTorch versions on a card.  Every test here is marked ``gpu`` and skips where
 ``torch.cuda.is_available()`` is false; the file imports nothing of JAX, so
 on a machine with a card and no JAX it runs alone:
 
     python -m pytest --noconftest tests/test_torch_gpu.py -q
 
 Tolerances, relative to the plain version's max-norm: 1e-12 in float64 and
-1e-5 in float32 (the kernels sum in another order and contract to FMA)."""
+1e-5 in float32 (the kernels sum in another order and contract to FMA); the
+fused triple solve's ``tol_sq`` 1e-10 / 1e-4 relative."""
 
 import numpy as np
 import pytest
@@ -72,6 +73,7 @@ def test_bicgstab_solve_kernel_vs_plain(card, dtype, shape):
     xk, ik = kernels.bicgstab_solve(st, b, inv, mask, tol=KRYLOV_TOL[dtype], iters=40)
     assert kernels.LAUNCHES == {
         "stencil5_apply": 1, "bicgstab_solve": 1, "stencil7_apply": 0, "bicgstab_solve3": 0,
+        "triple_solve": 0,
     }
     xp, ip = kernels.bicgstab_solve_plain(st, b, inv, mask, tol=KRYLOV_TOL[dtype], iters=40)
     assert int(ik["iters"]) == int(ip["iters"]) > 0
@@ -117,6 +119,7 @@ def test_bicgstab_solve3_kernel_vs_plain(card, dtype, shape):
     xk, ik = kernels.bicgstab_solve3(st, b, inv, mask, tol=KRYLOV_TOL[dtype], iters=24)
     assert kernels.LAUNCHES == {
         "stencil5_apply": 0, "bicgstab_solve": 0, "stencil7_apply": 1, "bicgstab_solve3": 1,
+        "triple_solve": 0,
     }
     xp, ip = kernels.bicgstab_solve3_plain(st, b, inv, mask, tol=KRYLOV_TOL[dtype], iters=24)
     assert int(ik["iters"]) == int(ip["iters"]) > 0
@@ -139,3 +142,68 @@ def test_3d_kernels_refuse_planes_and_mixed_operands(card):
         kernels.stencil7_apply(type(st)(*(c[0] for c in st)), b[0])
     with pytest.raises(ValueError, match="must match"):
         kernels.bicgstab_solve3(st, b, inv.float(), mask, tol=1e-13, iters=4)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(1025, 1025), (2049, 1025), (33, 33), (40, 17), (9, 129), (129, 65)])
+def test_stencil5_apply_kernel_vs_plain_large_and_ragged(card, dtype, shape):
+    """The shapes where the TPU used its row-tiled kernel."""
+    rng = np.random.default_rng(39)
+    st = stencil5_from_numpy([rng.standard_normal(shape) for _ in range(5)], dtype, card)
+    u = tensor_from_numpy(rng.standard_normal(shape), dtype, card)
+    kernels.reset_launch_counts()
+    out = kernels.stencil5_apply(st, u)
+    assert kernels.LAUNCHES["stencil5_apply"] == 1
+    assert_close(out, kernels.stencil5_apply_plain(st, u), TOL[dtype])
+
+
+def _triple(seed, shape, dtype, device):
+    """Operands of the fused triple solve: three dominant Newton systems, two
+    unstructured coupling stencils, random diagonal coupling and rhs pieces."""
+    rng = np.random.default_rng(seed)
+    systems = [_system(seed + 10 * k, shape, dtype, device) for k in range(3)]
+    couplings = [stencil5_from_numpy([rng.standard_normal(shape) for _ in range(5)], dtype, device)
+                 for _ in range(2)]
+    planes = [tensor_from_numpy(rng.standard_normal(shape), dtype, device) for _ in range(4)]
+    return (*(s[0] for s in systems), *couplings, *planes, *(s[2] for s in systems),
+            systems[0][3], 0.05)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(257, 257), (130, 257), (1025, 1025)])
+def test_triple_solve_kernel_vs_plain(card, dtype, shape):
+    operands = _triple(40, shape, dtype, card)
+    kernels.reset_launch_counts()
+    *xk, ik = kernels.triple_solve(*operands, tol=KRYLOV_TOL[dtype], iters=40)
+    assert kernels.LAUNCHES == {
+        "stencil5_apply": 0, "bicgstab_solve": 0, "stencil7_apply": 0, "bicgstab_solve3": 0,
+        "triple_solve": 1,
+    }
+    *xp, ip = kernels.triple_solve_plain(*operands, tol=KRYLOV_TOL[dtype], iters=40)
+    assert ik["iters"].tolist() == ip["iters"].tolist() and min(ik["iters"].tolist()) > 0
+    assert ik["converged"].tolist() == ip["converged"].tolist() == [True] * 3
+    for a, b in zip(xk, xp):
+        assert a.device.type == "cuda" and a.dtype == dtype
+        assert_close(a, b, TOL[dtype])
+    rel = (ik["tol_sq"] - ip["tol_sq"]).abs() / ip["tol_sq"]
+    assert float(rel.max()) <= (1e-10 if dtype == torch.float64 else 1e-4)
+
+
+@pytest.mark.parametrize("iters", [0, 1, 2])
+def test_triple_solve_kernel_budget_cut(card, iters):
+    operands = _triple(41, (65, 65), torch.float64, card)
+    *xk, ik = kernels.triple_solve(*operands, tol=1e-13, iters=iters)
+    *xp, ip = kernels.triple_solve_plain(*operands, tol=1e-13, iters=iters)
+    assert ik["iters"].tolist() == ip["iters"].tolist() == [iters] * 3
+    assert ik["converged"].tolist() == ip["converged"].tolist() == [False] * 3
+    for a, b in zip(xk, xp):
+        assert_close(a, b, 1e-12)
+    rel = (ik["resnorm_sq"] - ip["resnorm_sq"]).abs() / ip["resnorm_sq"]
+    assert float(rel.max()) <= 1e-10
+
+
+def test_triple_solve_refuses_mixed_operands(card):
+    operands = list(_triple(42, (17, 17), torch.float64, card))
+    operands[6] = operands[6].float()  # rhs_T
+    with pytest.raises(ValueError, match="must match"):
+        kernels.triple_solve(*operands, tol=1e-13, iters=4)

@@ -1,10 +1,13 @@
 """The port stands alone: no module of ``na_dd_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX or anything of the JAX package (checked on the
-AST of every file), and the entry points never fall back to the CPU on their
-own — without a card and without an explicit device they raise."""
+AST of every file), the CUDA sources include only their own headers and the
+CUDA toolkit's, every source has its ``ctypes`` declarations, and the entry
+points never fall back to the CPU on their own — without a card and without
+an explicit device they raise."""
 
 import ast
 import pathlib
+import re
 
 import pytest
 import torch
@@ -13,6 +16,7 @@ from na_dd_tpu_torch import config
 from na_dd_tpu_torch.convert import grid3_from_nodes, grid_from_nodes, state_from_numpy, tensor_from_numpy
 from na_dd_tpu_torch.models.coefficients import Model02
 from na_dd_tpu_torch.models.consts import STUDY_MODEL_CONSTS
+from na_dd_tpu_torch.ops import kernels
 from na_dd_tpu_torch.ops.grid import make_grid, make_uniform_grid
 from na_dd_tpu_torch.three_d.grid import make_grid3, make_uniform_grid3
 from na_dd_tpu_torch.three_d.harness import make_setup3, mms_error3
@@ -47,6 +51,52 @@ def test_no_jax_import(path):
     for module in _imported_modules(path):
         root = module.split(".")[0]
         assert root not in FORBIDDEN, f"{path.name} imports {module}"
+
+
+CSRC = REPO / "na_dd_tpu_torch" / "csrc"
+TOOLKIT_HEADERS = {"cuda_runtime.h", "cooperative_groups.h"}
+CUDA_SOURCES = ["stencil5.cu", "bicgstab.cu", "stencil7.cu", "bicgstab3.cu", "triple_solve.cu",
+                "stencil5.cuh", "stencil7.cuh", "bicgstab.cuh"]
+
+
+def test_every_cuda_source_is_listed():
+    assert sorted(p.name for p in CSRC.iterdir()) == sorted(CUDA_SOURCES)
+    assert sorted(kernels.SOURCES.values()) == sorted(n for n in CUDA_SOURCES if n.endswith(".cu"))
+
+
+@pytest.mark.parametrize("name", CUDA_SOURCES)
+def test_cuda_source_includes_only_its_own_and_toolkit_headers(name):
+    """No PyTorch, JAX or third-party header: each source builds with nvcc
+    alone into a plain-C library."""
+    text = (CSRC / name).read_text()
+    for header in re.findall(r'#include\s+"([^"]+)"', text):
+        assert (CSRC / header).is_file(), f"{name} includes a missing header {header}"
+    for header in re.findall(r"#include\s+<([^>]+)>", text):
+        assert header in TOOLKIT_HEADERS, f"{name} includes <{header}>"
+    if name.endswith(".cu"):
+        assert 'extern "C"' in text and "error_string" in text
+
+
+class _AnyLibrary:
+    """Stands in for a ctypes library: any symbol can be declared on it."""
+
+    def __getattr__(self, name):
+        fn = type("Fn", (), {})()
+        setattr(self, name, fn)
+        return fn
+
+
+@pytest.mark.parametrize("name", sorted(kernels.SOURCES))
+def test_every_kernel_library_has_its_declarations(name):
+    lib = _AnyLibrary()
+    kernels._declare(name, lib)
+    declared = [k for k, v in vars(lib).items() if hasattr(v, "argtypes")]
+    assert declared, f"no argtypes declared for {name}"
+
+
+def test_unknown_kernel_library_is_refused():
+    with pytest.raises(ValueError, match="no declarations"):
+        kernels._declare("stencil9", _AnyLibrary())
 
 
 @pytest.fixture

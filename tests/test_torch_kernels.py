@@ -1,14 +1,20 @@
 """The port's kernel wrappers (ops/kernels.py) on the CPU, where they run
 their plain PyTorch twins, against the JAX package's Pallas kernels in
 interpret mode: ``stencil5_apply`` vs ``stencil5_apply_pallas``,
-``bicgstab_solve`` vs ``bicgstab_solve_pallas``, ``stencil7_apply`` vs
-``stencil7_apply_pallas`` and ``stencil7_apply_tiled``, and
-``bicgstab_solve3`` vs ``bicgstab_solve3_pallas``, float64 and float32, with
-identical iteration counts.  Tolerances, relative to the reference's
-max-norm: 1e-12 in float64 and 1e-5 in float32 (the reductions are summed in
-another order).  The CUDA kernels themselves are held against the plain
+and ``stencil5_apply_tiled`` (row tiles of 8 on ragged shapes),
+``bicgstab_solve`` vs ``bicgstab_solve_pallas``, ``triple_solve`` vs
+``triple_solve_pallas``, ``stencil7_apply`` vs ``stencil7_apply_pallas`` and
+``stencil7_apply_tiled``, and ``bicgstab_solve3`` vs
+``bicgstab_solve3_pallas``, float64 and float32, with identical iteration
+counts.  Tolerances, relative to the reference's max-norm: 1e-12 in float64
+and 1e-5 in float32 (the reductions are summed in another order); the triple
+solve's ``tol_sq`` thresholds 1e-12 / 1e-5 relative, its recurrence residuals
+1e-10 / 1e-4 relative plus the rounding floor 16 eps² (b·b) (a converged
+residual is what cancellation left of r, so near that floor its own relative
+difference is noise).  The CUDA kernels themselves are held against the plain
 versions in tests/test_torch_gpu.py, which needs a card."""
 
+import functools
 import os
 import subprocess
 import sys
@@ -23,8 +29,10 @@ from na_dd_tpu.ops.pallas_kernels import (
     bicgstab_solve3_pallas,
     bicgstab_solve_pallas,
     stencil5_apply_pallas,
+    stencil5_apply_tiled,
     stencil7_apply_pallas,
     stencil7_apply_tiled,
+    triple_solve_pallas,
 )
 from na_dd_tpu.ops.shifts import LOCAL_OPS as J_OPS
 from na_dd_tpu.three_d.diffusion import Stencil7 as JStencil7
@@ -75,17 +83,131 @@ def test_stencil5_apply_plain_vs_pallas(dtype, shape):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(33, 33), (40, 17), (9, 129), (129, 65)])
+def test_stencil5_apply_plain_vs_tiled_ragged(dtype, shape):
+    """K3's row-tiled form (tiles of 8 rows with halo blocks) on its own
+    ragged test shapes."""
+    rng = np.random.default_rng(31)
+    npd = NP_DTYPE[dtype]
+    planes = [rng.standard_normal(shape).astype(npd) for _ in range(5)]
+    u = rng.standard_normal(shape).astype(npd)
+    port = kernels.stencil5_apply(stencil5_from_numpy(planes, dtype, "cpu"), tensor_from_numpy(u, dtype, "cpu"))
+    ref = stencil5_apply_tiled(
+        j_ls.Stencil5(*map(jnp.asarray, planes)), jnp.asarray(u), row_tile=8, interpret=True
+    )
+    assert_close(port, ref, TOL[dtype])
+
+
+def _triple_operands(seed, shape, dtype):
+    """Operands of the fused triple solve as numpy arrays, in its argument
+    order: three Newton systems, two unstructured coupling stencils, the
+    diagonal coupling, three rhs pieces, three Jacobi diagonals, the mask."""
+    rng = np.random.default_rng(seed)
+    npd = NP_DTYPE[dtype]
+    systems = [_system(seed + 10 * k, shape, dtype) for k in range(3)]
+    couplings = [[rng.standard_normal(shape).astype(npd) for _ in range(5)] for _ in range(2)]
+    d_cdcl, rhs_T, base_cl, base_cd = (rng.standard_normal(shape).astype(npd) for _ in range(4))
+    mask = systems[0][3]
+    return ([s[0] for s in systems], couplings, d_cdcl, (rhs_T, base_cl, base_cd),
+            [s[2] for s in systems], mask)
+
+
+@functools.lru_cache(maxsize=None)
+def _triple_both(seed, shape, dtype, *, tol, iters, dt=0.05):
+    """(port result, JAX interpret-mode result) on the same operands."""
+    Js, Cs, d_cdcl, rhs, invs, mask = _triple_operands(seed, shape, dtype)
+    t = lambda a: tensor_from_numpy(a, dtype, "cpu")  # noqa: E731
+    port = kernels.triple_solve(
+        *(stencil5_from_numpy(p, dtype, "cpu") for p in Js + Cs), t(d_cdcl),
+        *map(t, rhs), *map(t, invs), t(mask), dt, tol=tol, iters=iters,
+    )
+    ref = triple_solve_pallas(
+        *(j_ls.Stencil5(*map(jnp.asarray, p)) for p in Js + Cs), jnp.asarray(d_cdcl),
+        *map(jnp.asarray, rhs), *map(jnp.asarray, invs), jnp.asarray(mask), dt,
+        tol=tol, iters=iters, interpret=True,
+    )
+    return port, ref
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(9, 8), (12, 17)])
+def test_triple_solve_plain_vs_pallas(dtype, shape):
+    tol = 1e-13 if dtype == torch.float64 else 1e-5
+    port, ref = _triple_both(41, shape, dtype, tol=tol, iters=14)
+    p_info, r_info = port[3], ref[3]
+    assert p_info["iters"].tolist() == np.asarray(r_info["iters"]).tolist()
+    assert min(p_info["iters"].tolist()) > 0
+    assert p_info["converged"].tolist() == np.asarray(r_info["converged"]).tolist() == [True] * 3
+    for p, r in zip(port[:3], ref[:3]):
+        assert p.dtype == dtype
+        assert_close(p, r, TOL[dtype])
+    res_p = p_info["resnorm_sq"].double().numpy()
+    res_r = np.asarray(r_info["resnorm_sq"], dtype=np.float64)
+    floor = 16.0 * torch.finfo(dtype).eps ** 2 * p_info["tol_sq"].double().numpy() / (tol * tol)
+    rtol = 1e-10 if dtype == torch.float64 else 1e-4
+    assert np.all(np.abs(res_p - res_r) <= rtol * res_r + floor)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_triple_solve_tol_sq_is_of_the_masked_coupled_rhs(dtype):
+    """tol_sq[k] = tol² (b_k·b_k) with b_k the masked rhs after the coupling
+    term is added, rebuilt here from the reference's own increments."""
+    tol = 1e-13 if dtype == torch.float64 else 1e-5
+    dt = 0.05
+    Js, Cs, d_cdcl, rhs, invs, mask = _triple_operands(41, (9, 8), dtype)
+    port, ref = _triple_both(41, (9, 8), dtype, tol=tol, iters=14, dt=dt)
+    dT, dcl = (np.asarray(x, dtype=np.float64) for x in ref[:2])
+
+    def apply(planes, w):
+        pad = np.pad(w, 1)
+        c0, cxm, cxp, cym, cyp = (np.asarray(p, dtype=np.float64) for p in planes)
+        return (c0 * w + cxm * pad[:-2, 1:-1] + cxp * pad[2:, 1:-1]
+                + cym * pad[1:-1, :-2] + cyp * pad[1:-1, 2:])
+
+    b = [
+        rhs[0] * mask,
+        (rhs[1] + dt * apply(Cs[0], dT)) * mask,
+        (rhs[2] + dt * (apply(Cs[1], dT) + d_cdcl * dcl)) * mask,
+    ]
+    expect = np.array([tol * tol * np.sum(np.asarray(x, dtype=np.float64) ** 2) for x in b])
+    got = port[3]["tol_sq"].double().numpy()
+    assert np.all(np.abs(got - expect) <= TOL[dtype] * expect)
+
+
+@pytest.mark.parametrize("iters", [1, 2])
+def test_triple_solve_budget_cut_matches_pallas(iters):
+    """A budget that ends before convergence: same iterates, same counts,
+    the same not-converged flags, and here the recurrence residual (no
+    cancellation yet) agrees relatively."""
+    port, ref = _triple_both(43, (9, 8), torch.float64, tol=1e-13, iters=iters)
+    p_info, r_info = port[3], ref[3]
+    assert p_info["iters"].tolist() == np.asarray(r_info["iters"]).tolist() == [iters] * 3
+    assert p_info["converged"].tolist() == np.asarray(r_info["converged"]).tolist() == [False] * 3
+    for p, r in zip(port[:3], ref[:3]):
+        assert_close(p, r, 1e-12)
+    res_r = np.asarray(r_info["resnorm_sq"])
+    assert np.all(np.abs(p_info["resnorm_sq"].numpy() - res_r) <= 1e-10 * res_r)
+
+
+def test_triple_solve_outputs_are_masked():
+    port, _ = _triple_both(41, (9, 8), torch.float64, tol=1e-13, iters=14)
+    for x in port[:3]:
+        assert float(x[0].abs().max()) == float(x[:, -1].abs().max()) == 0.0
+        assert float(x.abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_bicgstab_solve_plain_vs_pallas(dtype):
     planes, b, inv, mask = _system(22, (9, 8), dtype)
     tol = 1e-13 if dtype == torch.float64 else 1e-5
     port_x, port_info = kernels.bicgstab_solve(
         stencil5_from_numpy(planes, dtype, "cpu"),
         *(tensor_from_numpy(a, dtype, "cpu") for a in (b, inv, mask)),
-        tol=tol, iters=12,
+        tol=tol, iters=14,
     )
     ref_x, ref_info = bicgstab_solve_pallas(
         j_ls.Stencil5(*map(jnp.asarray, planes)), *map(jnp.asarray, (b, inv, mask)),
-        tol=tol, iters=12, interpret=True,
+        tol=tol, iters=14, interpret=True,
     )
     assert int(port_info["iters"]) == int(ref_info["iters"]) > 0
     assert bool(port_info["converged"]) == bool(ref_info["converged"]) is True
@@ -207,7 +329,16 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     xk, ik = kernels.bicgstab_solve3(st7, u7, u7, u7, tol=1e-13, iters=3)
     xp, ip = kernels.bicgstab_solve3_plain(st7, u7, u7, u7, tol=1e-13, iters=3)
     assert torch.equal(xk, xp) and int(ik["iters"]) == int(ip["iters"])
-    assert set(kernels.LAUNCHES) == {"stencil5_apply", "bicgstab_solve", "stencil7_apply", "bicgstab_solve3"}
+    Js, Cs, d_cdcl, rhs, invs, tmask3 = _triple_operands(29, (7, 7), torch.float64)
+    t = lambda a: tensor_from_numpy(a, device="cpu")  # noqa: E731
+    operands = (*(stencil5_from_numpy(p, device="cpu") for p in Js + Cs), t(d_cdcl),
+                *map(t, rhs), *map(t, invs), t(tmask3), 0.05)
+    *xk, ik = kernels.triple_solve(*operands, tol=1e-13, iters=8)
+    *xp, ip = kernels.triple_solve_plain(*operands, tol=1e-13, iters=8)
+    assert all(torch.equal(a, b) for a, b in zip(xk, xp)) and torch.equal(ik["iters"], ip["iters"])
+    assert set(kernels.LAUNCHES) == {
+        "stencil5_apply", "bicgstab_solve", "stencil7_apply", "bicgstab_solve3", "triple_solve"
+    }
     assert all(count == 0 for count in kernels.LAUNCHES.values())
 
 

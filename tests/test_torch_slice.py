@@ -2,11 +2,15 @@
 one PCTrapezoidalRegHCsTriple step at N=8 against the JAX integrator with
 ``stencil_backend="pallas"`` (its Pallas kernels in interpret mode) — as the
 studies run it (one PC step, one Newton sweep) and with two of each — and
-``MMSTrial.run_for_errors`` for the pol case at N=8 and N=16.
+``MMSTrial.run_for_errors`` for the pol case at N=8 and N=16, with the
+default jvp couplings and with ``coupling_source="analytic"`` (fused: the
+JAX package through ``triple_solve_pallas`` in interpret mode, the port
+through ``kernels.triple_solve``; and per-solve, ``fused_triple=False``).
 
 Tolerances: each stepped field within 1e-12 relative to its max-norm with the
 same Krylov iteration total; each combined error within 1e-10 relative of
-the JAX value and within 1e-5 of the reference notebook's 6-digit value."""
+the JAX value and within 1e-5 of the reference notebook's 6-digit value;
+the analytic routes also within 1e-10 of the JAX package's CPU-x64 values."""
 
 import jax
 import numpy as np
@@ -38,6 +42,10 @@ TF = 0.01
 # the pol notebook's saved spatial errors (studies/reference_values.py)
 REFERENCE = {8: 4.28269e-06, 16: 1.08800e-06}
 FIELDS = ("cp", "T", "cl", "cd", "cs")
+# CPU-x64 errors of the JAX package with coupling_source="analytic"
+ANALYTIC_CPU_X64 = {8: 4.282692732192525e-06, 16: 1.087998167311069e-06}
+ROUTES = {"fused": dict(coupling_source="analytic"),
+          "per_solve": dict(coupling_source="analytic", fused_triple=False)}
 
 
 def _params(N, dt, **extra):
@@ -137,3 +145,76 @@ def test_run_for_errors_float32_stays_near_the_float64_error():
     assert trial.initial_state.T.dtype == torch.float32
     err = trial.run_for_errors(Tf=TF, dt=dt).overall_combined_error
     assert np.isfinite(err) and abs(err - REFERENCE[N]) <= 1e-2 * REFERENCE[N]
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+@pytest.mark.parametrize("N", [8, 16])
+def test_analytic_run_for_errors_matches_jax(N, route):
+    dt = (1.0 / N) ** 1.5
+    ref = _jax_trial(N, dt, **ROUTES[route]).run_for_errors(Tf=TF, dt=dt)
+    port = _port_trial(N, dt, **ROUTES[route]).run_for_errors(Tf=TF, dt=dt)
+    err, ref_err = port.overall_combined_error, ref.overall_combined_error
+    assert abs(err - ref_err) <= 1e-10 * ref_err
+    assert abs(err - ANALYTIC_CPU_X64[N]) <= 1e-10 * ANALYTIC_CPU_X64[N]
+    for var in FIELDS:
+        a, b = port.per_variable_sup_errors[var], ref.per_variable_sup_errors[var]
+        assert abs(a - b) <= 1e-10 * b
+    assert port.series.krylov_converged.all()
+
+
+@pytest.fixture(scope="module", params=list(ROUTES))
+def analytic_step(request):
+    """One step at N=8 with analytic couplings (two Newton sweeps, residual
+    tracking on) in both packages, and the port's solver calls by kind."""
+    N = 8
+    dt = (1.0 / N) ** 1.5
+    extra = dict(track_residuals=True, num_newton_steps=2, **ROUTES[request.param])
+    jt = _jax_trial(N, dt, **extra)
+    j_state, j_diag = jax.jit(jt.integrator.step_fn, static_argnums=1)(
+        jt.grid, J_OPS, jt.initial_state, 0.0, dt
+    )
+    tt = _port_trial(N, dt, **extra)
+    calls = {"solve": 0, "solve_triple": 0}
+    solver = tt.integrator.solver
+
+    class Counting:
+        iters = solver.iters
+
+        def solve(self, *args):
+            calls["solve"] += 1
+            return solver.solve(*args)
+
+        def solve_triple(self, *args):
+            calls["solve_triple"] += 1
+            return solver.solve_triple(*args)
+
+    tt.integrator.solver = Counting()
+    s0 = state_from_numpy({k: np.asarray(v) for k, v in jt.initial_state._asdict().items()}, device="cpu")
+    t_state, t_diag = tt.integrator.step_fn(tt.grid, T_OPS, s0, 0.0, dt)
+    return request.param, j_state, j_diag, t_state, t_diag, calls
+
+
+@pytest.mark.parametrize("field", FIELDS)
+def test_analytic_step_field_matches_jax(analytic_step, field):
+    _, j_state, _, t_state, _, _ = analytic_step
+    ref = np.asarray(getattr(j_state, field))
+    port = getattr(t_state, field).numpy()
+    assert np.max(np.abs(port - ref)) <= 1e-12 * np.max(np.abs(ref))
+
+
+def test_analytic_step_diagnostics_and_route(analytic_step):
+    route, _, j_diag, _, t_diag, calls = analytic_step
+    assert int(t_diag.krylov_iters) == int(j_diag.krylov_iters) > 0
+    assert bool(t_diag.krylov_converged) and bool(j_diag.krylov_converged)
+    for name in ("residual_T", "residual_cl", "residual_cd"):
+        ref = np.asarray(getattr(j_diag, name))
+        assert np.max(np.abs(getattr(t_diag, name).numpy() - ref)) <= 1e-12 * np.max(np.abs(ref))
+    # two sweeps: one fused call each, or three solves each
+    assert calls == ({"solve": 0, "solve_triple": 2} if route == "fused" else {"solve": 6, "solve_triple": 0})
+
+
+def test_coupling_source_is_validated():
+    with pytest.raises(ValueError, match="coupling_source"):
+        _port_trial(8, 0.04, coupling_source="probe")
+    integ = _port_trial(8, 0.04).integrator
+    assert integ.coupling_source == "jvp" and integ.fused_triple is True

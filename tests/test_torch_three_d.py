@@ -11,7 +11,9 @@ package (na_dd_tpu.three_d) on CPU float64, fed the same numpy inputs:
   CPU, the port in full form);
 * one ``step_fn`` at N=6 against the JAX integrator with
   ``stencil_backend="pallas"`` (its K5/K6 Pallas kernels in interpret mode):
-  ≤1e-12 per field, the same Krylov iteration total;
+  ≤1e-12 per field, the same Krylov iteration total; and one step at N=4
+  with ``coupling_source="analytic"`` (the per-solve route through K5: the
+  fused kernel is 2-D only in both packages), the same tolerances;
 * ``run_trial3`` at N=4 and N=8 (the three_d_study protocol: Tf=0.02, two
   Newton sweeps, dt = 1e-2/2^k): ≤1e-10 relative to the JAX trial and to the
   CPU-x64 values of the JAX package."""
@@ -301,6 +303,53 @@ def test_one_step_field_matches_jax_pallas(one_step, field):
 
 def test_one_step_krylov_diagnostics_match_jax_pallas(one_step):
     _, j_diag, _, t_diag = one_step
+    assert int(t_diag.krylov_iters) == int(j_diag.krylov_iters) > 0
+    assert bool(t_diag.krylov_converged) and bool(j_diag.krylov_converged)
+
+
+@pytest.fixture(scope="module")
+def analytic_step():
+    """One step at N=4, dt=1e-2, two Newton sweeps, analytic couplings, in
+    both packages, and the port's solver calls by kind."""
+    jm, tm = _models()
+    dt = 1e-2
+    loops = dict(num_newton_steps=2, track_residuals=False, krylov_unroll=24,
+                 coupling_source="analytic")
+    jg, jcase, _, jinteg = j_make_setup3(
+        JCase, N=4, model=jm, eta=ETA, integrator_params=dict(stencil_backend="pallas", **loops)
+    )
+    tg, tcase, _, tinteg = t_make_setup3(TCase, N=4, model=tm, eta=ETA, integrator_params=loops, device="cpu")
+    from na_dd_tpu.three_d.mms import state_from_mms_when3
+
+    js0 = state_from_mms_when3(mms_case=jcase, t=0.0, grid=jg)
+    j_state, j_diag = jax.jit(jinteg.step_fn, static_argnums=1)(jg, J_OPS, js0, 0.0, dt)
+    calls = []
+    solver = tinteg.solver
+
+    class Counting:
+        def solve(self, *args):
+            calls.append("solve")
+            return solver.solve(*args)
+
+        def solve_triple(self, *args):
+            calls.append("solve_triple")
+            return solver.solve_triple(*args)
+
+    tinteg.solver = Counting()
+    ts0 = state_from_numpy({k: np.asarray(v) for k, v in js0._asdict().items()}, device="cpu")
+    t_state, t_diag = tinteg.step_fn(tg, T_OPS, ts0, 0.0, dt)
+    return j_state, j_diag, t_state, t_diag, calls
+
+
+@pytest.mark.parametrize("field", FIELDS)
+def test_analytic_step_field_matches_jax(analytic_step, field):
+    j_state, _, t_state, _, _ = analytic_step
+    assert_close(getattr(t_state, field), getattr(j_state, field), RTOL_PHYSICS)
+
+
+def test_analytic_step_takes_the_per_solve_route(analytic_step):
+    _, j_diag, _, t_diag, calls = analytic_step
+    assert calls == ["solve"] * 6
     assert int(t_diag.krylov_iters) == int(j_diag.krylov_iters) > 0
     assert bool(t_diag.krylov_converged) and bool(j_diag.krylov_converged)
 
