@@ -200,11 +200,12 @@ def jacobi(st, mask):
     )
 
 
-def step1_systems(dtype, device):
-    """The T, cl and cd Newton systems of step 1 of the pol N=256 run."""
+def step1_systems(dtype, device, N=MAIN_N, dt=None):
+    """The T, cl and cd Newton systems of step 1 of the pol level N (the
+    main level unless asked)."""
     import torch
 
-    trial, dt = make_trial(MAIN_N, dtype, device)
+    trial, dt = make_trial(N, dtype, device, dt)
     integ = trial.integrator
     rec = RecordingSolver(integ.solver)
     integ.solver = rec
@@ -357,7 +358,7 @@ def phase_apply5(device, tag, shapes, seed):
 def compare_solve(st, b, inv_diag, mask, *, tol, iters, xtol, label):
     """K1 (a plane) or K5 (a volume) against its plain version on one
     system: identical iteration counts, x within ``xtol`` of the plain
-    version's max-norm."""
+    version's max-norm.  Returns (max abs error, iterations)."""
     import torch
 
     from na_dd_tpu_torch.ops import kernels
@@ -377,7 +378,50 @@ def compare_solve(st, b, inv_diag, mask, *, tol, iters, xtol, label):
     check(bool(torch.isfinite(xk).all()), f"{tag.upper()} {label}: x not finite")
     check(itk == itp, f"{tag.upper()} {label}: iteration counts differ")
     check(rel <= xtol, f"{tag.upper()} {label}: x disagrees with the plain version")
-    return float((xk - xp).abs().max())
+    return float((xk - xp).abs().max()), itk
+
+
+def solve_edge_cases(device, cases):
+    """K1 (planes) or K5 (volumes) against its plain version where the
+    solve's schedule branches (csrc/bicgstab.cuh): b = 0 (no iteration,
+    x = 0), A = c0 I (an exit on s_conv in iteration 1), grids smaller than one
+    block and ragged ones, each with a budget of 40, past convergence.
+    ``cases``: (case, shape) pairs, case "zero rhs", "diagonal" or
+    "dominant"."""
+    import torch
+
+    from na_dd_tpu_torch.integrators.pc_trapezoidal import default_krylov_tol
+    from na_dd_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(8)
+    budget = 40
+    for dtype, xtol in ((torch.float64, 1e-12), (torch.float32, 1e-4)):
+        tol = default_krylov_tol(dtype)
+        for case, shape in cases:
+            label = f"{str(dtype)[6:]} {case} {shape}, budget {budget}"
+            m = np.zeros(shape)
+            m[(slice(1, -1),) * len(shape)] = 1.0
+            mask = torch.as_tensor(m, dtype=dtype, device=device)
+            st, b = random_planes(rng, shape, dtype, device, dominant=True)
+            st, b = type(st)(*(c * mask for c in st)), b * mask
+            if case == "zero rhs":
+                b = torch.zeros_like(b)
+            elif case == "diagonal":
+                st = type(st)(st[0], *(torch.zeros_like(c) for c in st[1:]))
+            inv = jacobi(st, mask)
+            if case == "zero rhs":
+                solve = kernels.bicgstab_solve if len(shape) == 2 else kernels.bicgstab_solve3
+                x, info = solve(st, b, inv, mask, tol=tol, iters=budget)
+                used, zero = int(info["iters"]), float(x.abs().max()) == 0.0
+                log(f"[edge] {label}: iters {used}, x == 0 {zero}")
+                check(used == 0 and zero, f"{label}: expected 0 iterations and x = 0")
+                continue
+            _, used = compare_solve(st, b, inv, mask, tol=tol, iters=budget, xtol=xtol,
+                                    label=label)
+            if case == "diagonal":
+                check(used == 1, f"{label}: expected the exit on s_conv in iteration 1")
+            else:
+                check(0 < used < budget, f"{label}: expected convergence inside the budget")
 
 
 def phase_k1(device):
@@ -394,13 +438,15 @@ def phase_k1(device):
         compare_solve(st, b * mask, jacobi(st, mask), mask,
                       tol=default_krylov_tol(dtype), iters=40, xtol=xtol,
                       label=f"{str(dtype)[6:]} random dominant 257x257")
+    solve_edge_cases(device, (("zero rhs", (257, 257)), ("diagonal", (257, 257)),
+                              ("dominant", (9, 9)), ("dominant", (130, 257))))
     main_err = None
     for dtype, xtol in ((torch.float64, 1e-12), (torch.float32, 1e-4)):
         systems, solver = step1_systems(dtype, device)
         for name, (st, b, mask) in zip(("T", "cl", "cd"), systems):
-            err = compare_solve(st, b, jacobi(st, mask), mask,
-                                tol=default_krylov_tol(dtype), iters=solver.iters,
-                                xtol=xtol, label=f"{str(dtype)[6:]} step-1 {name} plane")
+            err, _ = compare_solve(st, b, jacobi(st, mask), mask,
+                                   tol=default_krylov_tol(dtype), iters=solver.iters,
+                                   xtol=xtol, label=f"{str(dtype)[6:]} step-1 {name} plane")
             if dtype == torch.float64:
                 main_err = max(err, main_err or 0.0)
     return main_err
@@ -721,6 +767,122 @@ def kernel_device_ms(fn, reps: int, name: str):
     return sum(us for _, us in hits) / calls / 1e3
 
 
+# Arrays a solve touches per pass sweep (csrc/bicgstab.cu, bicgstab3.cu):
+# iteration 0 and each later iteration, planes (2-D) or volumes (3-D).
+PASSES = {2: (27, 32), 3: (31, 36)}
+BARRIERS_PER_ITERATION = 3
+
+
+def solve_of(b):
+    """(K1 or K5 wrapper, its library prefix) for a plane or a volume."""
+    from na_dd_tpu_torch.ops import kernels
+
+    if b.dim() == 2:
+        return kernels.bicgstab_solve, "bicgstab"
+    return kernels.bicgstab_solve3, "bicgstab3"
+
+
+def solve_costs(st, b, inv, mask, label, reps):
+    """Fixed and per-iteration device time of K1/K5 on one random dominant
+    system: solves capped at 1, 2, 4 and 8 iterations (tol 1e-13, so each
+    runs its whole budget), the least-squares line through them, and the
+    slope less the streaming time of one iteration at the HBM rate, divided
+    by the barriers an iteration makes."""
+    solve, _ = solve_of(b)
+    caps = (1, 2, 4, 8)
+    us = []
+    for cap in caps:
+        used = int(solve(st, b, inv, mask, tol=1e-13, iters=cap)[1]["iters"])
+        check(used == cap, f"{label}: a solve capped at {cap} took {used} iterations")
+        ms = kernel_device_ms(lambda: solve(st, b, inv, mask, tol=1e-13, iters=cap), reps,
+                              "bicgstab_kernel")
+        check(ms is not None, f"{label}: no device time for the solve kernel")
+        us.append(ms * 1e3)
+    slope, intercept = (float(v) for v in np.polyfit(caps, us, 1))
+    stream = PASSES[b.dim()][1] * b.numel() * b.element_size() / HBM_BYTES_PER_S * 1e6
+    per_barrier = (slope - stream) / BARRIERS_PER_ITERATION
+    log(f"[cost] {label}: capped at {caps} iterations " + ", ".join(f"{u:.2f}" for u in us)
+        + f" us; fixed {intercept:.2f} us, per iteration {slope:.2f} us, of which streaming "
+        f"{stream:.2f} us ({PASSES[b.dim()][1]} arrays at the HBM rate); per barrier "
+        f"{per_barrier:.2f} us")
+    return {"caps": caps, "us": us, "fixed_us": intercept, "per_iteration_us": slope,
+            "stream_us": stream, "per_barrier_us": per_barrier}
+
+
+def grid_table(st, b, inv, mask, iters, label, reps):
+    """Device time of one K1/K5 solve of a main-path system at a grid of 1
+    and of 2 blocks a SM and at the grid rule's own (the occupancy limit,
+    capped by the blocks the points need), in float64 and float32."""
+    import torch
+
+    from na_dd_tpu_torch.integrators.pc_trapezoidal import default_krylov_tol
+    from na_dd_tpu_torch.ops import kernels
+
+    solve, prefix = solve_of(b)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    need = -(-b.numel() // 256)
+    rows = []
+    for dtype in (torch.float64, torch.float32):
+        st_d = type(st)(*(c.to(dtype) for c in st))
+        b_d, inv_d, mask_d = (t.to(dtype) for t in (b, inv, mask))
+        tol = default_krylov_tol(dtype)
+
+        def run():
+            return solve(st_d, b_d, inv_d, mask_d, tol=tol, iters=iters)
+
+        run()
+        key = (prefix, dtype, b.numel())
+        rule = kernels._BLOCKS[key]
+        for name, blocks in (("rule", rule), ("1/SM", min(need, sms)), ("2/SM", min(need, 2 * sms))):
+            kernels._BLOCKS[key] = blocks
+            used = int(run()[1]["iters"])
+            ms = kernel_device_ms(run, reps, "bicgstab_kernel")
+            check(ms is not None, f"{label}: no device time for the solve kernel")
+            rows.append({"dtype": str(dtype)[6:], "grid": name, "blocks": blocks,
+                         "us": ms * 1e3, "iters": used})
+            log(f"[grid] {label} {str(dtype)[6:]}: {name} {blocks} blocks "
+                f"({blocks / sms:.2f} a SM): {ms * 1e3:.2f} us, {used} iterations")
+        kernels._BLOCKS[key] = rule
+    return rows
+
+
+def timings_k1_1025(device):
+    """K1 at 1025 x 1025 on the step-1 T system of the large-grid level
+    (pol N=1024, dt = 0.25/N), with its grid table, and the fixed and
+    per-iteration cost on a random dominant system of that size.  float64."""
+    import torch
+
+    from na_dd_tpu_torch.ops import kernels
+    from na_dd_tpu_torch.ops.grid import make_uniform_grid
+
+    systems, solver = step1_systems(torch.float64, device, SCALE_N, 0.25 / SCALE_N)
+    st, b, mask = systems[0]
+    del systems
+    inv = jacobi(st, mask)
+    n, item, tol = b.numel(), b.element_size(), 1e-13
+    err, iters = compare_solve(st, b, inv, mask, tol=tol, iters=solver.iters, xtol=1e-12,
+                               label=f"f64 N={SCALE_N} step-1 T plane")
+
+    def k1():
+        return kernels.bicgstab_solve(st, b, inv, mask, tol=tol, iters=solver.iters)
+
+    row = kernel_row(
+        "bicgstab_solve", b.dtype, label=f"f64 {b.shape[0]}x{b.shape[1]} ({iters} iterations)",
+        device_ms=kernel_device_ms(k1, 20, "bicgstab_kernel"), wrapper_ms=time_ms(k1, 50),
+        plain_ms=time_ms(lambda: kernels.bicgstab_solve_plain(
+            st, b, inv, mask, tol=tol, iters=solver.iters), 5),
+        nbytes=9 * n * item, ops=(2 * 9 + 6 * 2 + 14) * n * max(iters, 1))
+    row["max_abs_err"] = err
+    row["grid"] = grid_table(st, b, inv, mask, solver.iters, "K1 1025x1025 step-1 T", 10)
+    grid_mask = make_uniform_grid(SCALE_N, SCALE_N, dtype=b.dtype, device=device).interior_mask
+    st_r, b_r = random_planes(np.random.default_rng(1025), tuple(b.shape), b.dtype, device,
+                              dominant=True)
+    st_r = type(st_r)(*(c * grid_mask for c in st_r))
+    row["cost"] = solve_costs(st_r, b_r * grid_mask, jacobi(st_r, grid_mask), grid_mask,
+                              "K1 1025x1025 random dominant", 5)
+    return row
+
+
 def phase_timings(device):
     import torch
 
@@ -763,12 +925,21 @@ def phase_timings(device):
     }
     log(f"[time] bicgstab_solve iterations in the timed solve: {iters}; cooperative grid "
         f"{kernels._BLOCKS.get(('bicgstab', b.dtype, n))} blocks of 256 threads")
-    # one iteration makes ~35 plane passes (csrc/bicgstab.cu): its streaming time
-    passes = 35 * n * item
-    log(f"[time] bicgstab_solve per iteration: ~35 plane passes = {passes / 1e6:.2f} MB, "
-        f"{passes / HBM_BYTES_PER_S * 1e6:.2f} us at the HBM rate; measured "
-        f"{res['bicgstab_solve']['ms'] * 1e3 / max(iters, 1):.2f} us an iteration")
-    del systems, st, b, mask, inv
+    first, later = PASSES[2]
+    passes = (first + later * (max(iters, 1) - 1)) * n * item
+    log(f"[time] bicgstab_solve: {iters} iterations touch {first} + {later} x {max(iters, 1) - 1} "
+        f"planes = {passes / 1e6:.2f} MB, {passes / HBM_BYTES_PER_S * 1e6:.2f} us at the HBM "
+        f"rate; measured {res['bicgstab_solve']['ms'] * 1e3:.2f} us")
+    res["bicgstab_solve"]["grid"] = grid_table(st, b, inv, mask, solver.iters,
+                                               "K1 257x257 step-1 T", 50)
+    st_r, b_r = random_planes(np.random.default_rng(257), tuple(b.shape), b.dtype, device,
+                              dominant=True)
+    st_r = type(st_r)(*(c * mask for c in st_r))
+    res["bicgstab_solve"]["cost"] = solve_costs(st_r, b_r * mask, jacobi(st_r, mask), mask,
+                                                "K1 257x257 random dominant", 50)
+    del systems, st, b, mask, inv, st_r, b_r
+    res["bicgstab_solve_1025"] = timings_k1_1025(device)
+    torch.cuda.empty_cache()
     res.update(timings_k4_k3(device))
     return res
 
@@ -1024,13 +1195,15 @@ def phase_k5(device):
         compare_solve(st, b * mask, jacobi(st, mask), mask,
                       tol=default_krylov_tol(dtype), iters=24, xtol=xtol,
                       label=f"{str(dtype)[6:]} random dominant 65^3")
+    solve_edge_cases(device, (("zero rhs", (65, 65, 65)), ("diagonal", (65, 65, 65)),
+                              ("dominant", (5, 5, 5)), ("dominant", (33, 20, 41))))
     main_err = 0.0
     for dtype, xtol in ((torch.float64, 1e-12), (torch.float32, 1e-4)):
         systems, solver = step1_systems3(MAIN_N3, dtype, device)
         for name, (st, b, mask) in zip(("T", "cl", "cd"), systems[:3]):
-            err = compare_solve(st, b, jacobi(st, mask), mask,
-                                tol=default_krylov_tol(dtype), iters=solver.iters,
-                                xtol=xtol, label=f"{str(dtype)[6:]} N={MAIN_N3} step-1 {name} volume")
+            err, _ = compare_solve(st, b, jacobi(st, mask), mask,
+                                   tol=default_krylov_tol(dtype), iters=solver.iters,
+                                   xtol=xtol, label=f"{str(dtype)[6:]} N={MAIN_N3} step-1 {name} volume")
             if dtype == torch.float64:
                 main_err = max(err, main_err)
     return main_err
@@ -1208,14 +1381,19 @@ def phase_timings3(device):
         if ms_r is not None:
             log(f"[time] bicgstab_solve3 {label} random dominant system: {it_r} iterations in "
                 f"{ms_r * 1e3:.2f} us on the device, {ms_r * 1e3 / it_r:.2f} us an iteration")
+        res[N]["bicgstab_solve3"]["cost"] = solve_costs(
+            st_r, b_r, inv_r, mask, f"K5 {label} random dominant", 20 // reps)
         del st_r, b_r, inv_r
-        # one iteration makes ~39 volume passes (csrc/bicgstab3.cu)
-        passes = 39 * n * item
+        first, later = PASSES[3]
+        passes = (first + later * (max(iters, 1) - 1)) * n * item
         blocks = kernels._BLOCKS.get(("bicgstab3", b.dtype, n), 0)
         log(f"[time] bicgstab_solve3 {label}: cooperative grid {blocks} blocks of 256 threads "
-            f"({n / max(blocks * 256, 1):.1f} points a thread); per iteration ~39 volume passes = "
-            f"{passes / 1e6:.1f} MB, {passes / HBM_BYTES_PER_S * 1e6:.1f} us at the HBM rate; "
-            f"measured {res[N]['bicgstab_solve3']['ms'] * 1e3 / max(iters, 1):.1f} us an iteration")
+            f"({n / max(blocks * 256, 1):.1f} points a thread); {iters} iterations touch {first} + "
+            f"{later} x {max(iters, 1) - 1} volumes = {passes / 1e6:.1f} MB, "
+            f"{passes / HBM_BYTES_PER_S * 1e6:.1f} us at the HBM rate; measured "
+            f"{res[N]['bicgstab_solve3']['ms'] * 1e3:.1f} us")
+        res[N]["bicgstab_solve3"]["grid"] = grid_table(
+            st, b, inv, mask, solver.iters, f"K5 {label} step-1 T", 20 // reps)
         del st, b, mask, inv
         torch.cuda.empty_cache()
     return res
@@ -1251,8 +1429,101 @@ def phase_profile3(device):
     log(f"[profile3] one step_fn: {step_launches} launches; {breakdown}")
 
 
+FORMS = {0: "recompute", 1: "stored p^", 2: "recompute, L1 loads", 3: "stored p^, L1 loads"}
+
+
+def phase_forms(device):
+    """The solve's forms side by side on one card, f64: D^-1 p' recomputed
+    at the neighbours (three barriers an iteration) or p^ stored (four), each
+    with the work arrays read through L2 or through L1, on the step-1 T
+    system of each level that launches K1/K5 and on a random dominant system
+    capped at 8 iterations.  On a common grid the forms must agree bit for
+    bit; each is timed on its own occupancy grid, in the order 0 1 2 3 3 2 1 0."""
+    import ctypes
+
+    import torch
+
+    from na_dd_tpu_torch.ops import kernels
+    from na_dd_tpu_torch.ops.grid import make_uniform_grid
+    from na_dd_tpu_torch.three_d.grid import make_uniform_grid3
+
+    libs = kernels.build_kernels()
+    for prefix in ("bicgstab", "bicgstab3"):
+        lib = libs[prefix]
+        getattr(lib, f"{prefix}_blocks_form_f64").argtypes = [ctypes.c_int, ctypes.c_int,
+                                                              ctypes.POINTER(ctypes.c_int)]
+        fn = getattr(lib, f"{prefix}_solve_form_f64")
+        fn.argtypes = [ctypes.c_int] + list(getattr(lib, f"{prefix}_solve_f64").argtypes)
+        fn.restype = ctypes.c_int
+
+    def form_blocks(b, form):
+        prefix = "bicgstab" if b.dim() == 2 else "bicgstab3"
+        out = ctypes.c_int(0)
+        code = getattr(libs[prefix], f"{prefix}_blocks_form_f64")(form, b.numel(), ctypes.byref(out))
+        check(code == 0, f"occupancy of form {form}")
+        return out.value
+
+    def run(form, blocks, st, b, inv, mask, iters):
+        prefix = "bicgstab" if b.dim() == 2 else "bicgstab3"
+        lib, name = libs[prefix], f"{prefix}_solve_f64"
+        own, key = getattr(lib, name), (prefix, b.dtype, b.numel())
+        form_fn = getattr(lib, f"{prefix}_solve_form_f64")
+        setattr(lib, name, lambda *args: form_fn(form, *args))
+        kernels._BLOCKS[key] = blocks
+        try:
+            return solve_of(b)[0](st, b, inv, mask, tol=1e-13, iters=iters)
+        finally:
+            setattr(lib, name, own)
+            del kernels._BLOCKS[key]
+
+    def systems():
+        for N in (MAIN_N, SCALE_N):
+            sy, solver = step1_systems(torch.float64, device, N, None if N == MAIN_N else 0.25 / N)
+            st, b, mask = sy[0]
+            yield f"{N + 1}^2 step-1 T", st, b, mask, solver.iters
+            m = make_uniform_grid(N, N, dtype=b.dtype, device=device).interior_mask
+            st, b = random_planes(np.random.default_rng(N), tuple(b.shape), b.dtype, device, True)
+            yield f"{N + 1}^2 random, 8 iterations", type(st)(*(c * m for c in st)), b * m, m, 8
+        for N in (MAIN_N3, N128):
+            sy, solver = step1_systems3(N, torch.float64, device)
+            st, b, mask = sy[0]
+            del sy
+            yield f"{N + 1}^3 step-1 T", st, b, mask, solver.iters
+            m = make_uniform_grid3(N, N, N, dtype=b.dtype, device=device).interior_mask
+            st, b = random_planes(np.random.default_rng(N), tuple(b.shape), b.dtype, device, True)
+            yield f"{N + 1}^3 random, 8 iterations", type(st)(*(c * m for c in st)), b * m, m, 8
+
+    out = {}
+    for label, st, b, mask, iters in systems():
+        inv = jacobi(st, mask)
+        grids = {f: form_blocks(b, f) for f in FORMS}
+        common = min(grids.values())
+        ref = None
+        for f in FORMS:
+            x, info = run(f, common, st, b, inv, mask, iters)
+            torch.cuda.synchronize()
+            if ref is None:
+                ref = (x, int(info["iters"]))
+            same = bool(torch.equal(x, ref[0])) and int(info["iters"]) == ref[1]
+            check(same, f"forms {label}: form {f} disagrees with form 0 on {common} blocks")
+        reps = max(2, int(2e7 // b.numel()))
+        us = {f: [] for f in FORMS}
+        for f in (0, 1, 2, 3, 3, 2, 1, 0):
+            ms = kernel_device_ms(lambda: run(f, grids[f], st, b, inv, mask, iters), reps,
+                                  "bicgstab_kernel")
+            check(ms is not None, f"forms {label}: no device time")
+            us[f].append(ms * 1e3)
+        log(f"[forms] {label}: {ref[1]} iterations, bit for bit on {common} blocks; "
+            + "; ".join(f"{FORMS[f]} ({grids[f]} blocks) " + "/".join(f"{u:.2f}" for u in us[f])
+                        + " us" for f in FORMS))
+        out[label] = {FORMS[f]: min(us[f]) for f in FORMS}
+        del st, b, mask, inv, x, ref
+        torch.cuda.empty_cache()
+    return out
+
+
 PHASES = ("k2", "k1", "k3", "k4", "slice", "f32", "analytic", "scale", "timings", "profile",
-          "k6", "k5", "3d", "3d128", "3d_f32", "timings3", "profile3")
+          "k6", "k5", "3d", "3d128", "3d_f32", "timings3", "profile3", "forms")
 
 
 def main(argv=None) -> int:
@@ -1320,6 +1591,7 @@ def main(argv=None) -> int:
     phase("3d_f32", phase_three_d_f32, device)
     phase("timings3", phase_timings3, device)
     phase("profile3", phase_profile3, device)
+    phase("forms", phase_forms, device)
     if set(only) != set(PHASES):
         log(f"[done] phases {only}; total {time.perf_counter() - t_all:.1f} s (no result line)")
         return 0
@@ -1336,6 +1608,9 @@ def main(argv=None) -> int:
     for name, src, replaces, shape, err, launches, row in (
         ("bicgstab_solve", "bicgstab", f"{pk}:342", "257x257", done["k1"], launches2,
          t2["bicgstab_solve"]),
+        ("bicgstab_solve", "bicgstab", f"{pk}:342", "1025x1025",
+         done["timings"]["bicgstab_solve_1025"]["max_abs_err"], launches_sc,
+         t2["bicgstab_solve_1025"]),
         ("stencil5_apply", "stencil5", f"{pk}:523", "257x257", done["k2"], launches2,
          t2["stencil5_apply"]),
         ("stencil5_apply", "stencil5", f"{pk}:466", "1025x1025", done["k3"], launches_sc,

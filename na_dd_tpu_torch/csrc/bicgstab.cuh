@@ -2,9 +2,10 @@
 // cooperative kernel, templated on the stencil operator.  Shared by K1
 // (bicgstab.cu, a 5-point Stencil5 system), K5 (bicgstab3.cu, a 7-point
 // Stencil7 system) and K4 (triple_solve.cu, three Stencil5 solves in one
-// launch); the operator supplies size() and apply(u, k), the stencil at flat
-// index k with zero inflow.  The solve itself is the __device__ function
-// solve() of a cooperative grid; bicgstab_kernel wraps one call of it.
+// launch); the operator supplies size() and apply_of(u, k), the stencil at
+// flat index k of the values a callable u gives, with zero inflow.  The solve
+// itself is the __device__ function solve() of a cooperative grid;
+// bicgstab_kernel wraps one call of it.
 //
 // It computes exactly _bicgstab_inline of na_dd_tpu/ops/pallas_kernels.py
 // (:83) with x0 = 0: the masked-early-exit update of bicgstab_unrolled,
@@ -13,23 +14,43 @@
 // |den| > 1e-300 cast to the dtype (0 in float32, so the float guard is
 // |den| > 0), and the output x * mask.
 //
-// Design: the TPU kernels kept every iterate in one core's VMEM; here one
+// Design.  The TPU kernels kept every iterate in one core's VMEM; here one
 // plane or volume alone exceeds an SM's 227 KB of shared memory, so the
-// solve is spread over the whole card instead.  One cooperative launch, grid
-// sized to the blocks that can be co-resident; grid-stride loops over the
-// points (each thread always owns the same points, so r, p, v, x, t need no
-// cross-block visibility); cooperative_groups grid syncs between the phases
-// that need a neighbour's value or a global dot.  Every dot product is
-// deterministic: each block writes one partial sum, and after the sync every
-// block sums all partials in the same fixed order, so all blocks hold
-// bit-identical scalars and take the same `done` branch — which makes a real
-// `break` on done safe and equal to the masked fixed budget.  Neighbour reads
-// of p^ and s^ and the partials go through __ldcg (L2) because other blocks
-// wrote them in this launch.  The rhs b (also the shadow residual r^) is only
-// ever read at a thread's own points: through the read-only path when it is
-// an input of the launch, with plain loads when the same thread wrote it
-// earlier in the launch (K4's coupled right-hand sides).  Scratch (six
-// working arrays and the partials) is allocated by the caller.
+// solve is spread over the whole card: one cooperative launch, grid-stride
+// loops (each thread always owns the same points), and a grid-wide barrier
+// wherever a value is needed at a point another block owns, or a dot product
+// over the whole grid.  Those barriers and the passes over the arrays are
+// the cost (a main-path solve takes 1-3 iterations), so an iteration has
+// three passes and three barriers, with beta, omega, alpha from the barrier
+// before:
+//   A  p' = r + beta (p - omega v) at the own point, stored in the other p
+//      buffer; v' = A (D^-1 p'), where D^-1 p' at each neighbour is
+//      recomputed there from r, p, v and inv_diag; v' into the other v
+//      buffer; r^.v' partial.                        barrier -> alpha
+//   B  s = r - alpha v' at the own point and the neighbours (never stored);
+//      t = A (D^-1 s) stored; s.s, t.s, t.t partials.  barrier -> s_conv, omega
+//   C  s again at the own point; x += alpha D^-1 p' (+ omega D^-1 s),
+//      r = s (- omega t); r.r, r^.r partials.         barrier -> done
+// Own-point and neighbour values go through the same __forceinline__
+// functions (next_p, next_s), so they are the same floating-point
+// operations, and each thread sums its points in the same order as the
+// five-barrier form of earlier versions: iterates and partials are bit for
+// bit those of a solve that stores p^ = D^-1 p and s^ = D^-1 s.
+// Iteration 0 is specialised: with x0 = 0, p' = b + 0 exactly, so p, v, x
+// are not read and the b.b partial rides on pass A's barrier (no set-up
+// pass).  Pass C writes x * mask into the output every iteration, and the
+// unmasked x into a work array only when another iteration may follow, so
+// there is no separate mask pass.
+//
+// Every dot product is deterministic: each block writes one partial per
+// slot; after the barrier warp 0 of every block sums all partials of the
+// barrier's slots in one loop, lane l adding blocks l, l + 32, ... in turn,
+// so all blocks hold bit-identical scalars and take the same `done` branch,
+// which makes a real `break` equal to the masked fixed budget.  Every array
+// this launch writes, and the rhs b (which K4 writes in the launch), is read
+// through L2 (__ldcg): another block may have written it, and a stale L1 line
+// must never shadow that.  Scratch (seven working arrays and the partials)
+// is allocated by the caller.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -41,28 +62,35 @@ namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kWorkArrays = 6;
+constexpr int kWorkArrays = 8;  // comparison form: + p^
+constexpr int kMaxSlotsPerBarrier = 3;
 
-// dot-product slots in the partials array (slot * gridDim.x + block)
-enum Slot { kBB = 0, kRR, kRhatR, kRhatV, kSS, kTS, kTT, kNumSlots };
+// Dot-product slots in the partials array (slot * gridDim.x + block); the
+// slots one barrier sums are adjacent.
+enum Slot { kRhatV = 0, kBB, kSS, kTS, kTT, kRR, kRhatR, kNumSlots };
 
-// The six working arrays of a solve and the dot-product partials.
+// The seven working arrays of a solve and the dot-product partials.
 template <typename T>
 struct Work {
-  T* r;  // holds s within an iteration
-  T* p;
-  T* v;
-  T* phat;
-  T* shat;
+  T* r;
+  T* p[2];  // p of the last iteration and p' of this one, in turns
+  T* v[2];  // likewise v and v'
   T* t;
+  T* x;  // the unmasked iterate, kept while another iteration may follow
+  T* phat;  // comparison form only: p^ = D^-1 p' stored
   T* partials;  // kNumSlots * gridDim.x
 };
 
-// `work` holds the six working arrays of n points each.
+// `work` holds the seven working arrays of n points each.
 template <typename T>
 Work<T> make_work(T* work, size_t n, T* partials) {
-  return Work<T>{work,         work + n,     work + 2 * n, work + 3 * n,
-                 work + 4 * n, work + 5 * n, partials};
+  return Work<T>{work,
+                 {work + n, work + 2 * n},
+                 {work + 3 * n, work + 4 * n},
+                 work + 5 * n,
+                 work + 6 * n,
+                 work + 7 * n,
+                 partials};
 }
 
 // What a solve leaves behind, the same in every thread of the grid:
@@ -112,184 +140,260 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-// Block sum of v, written by thread 0 into the block's slot of `partials`.
-template <typename T>
-__device__ void store_partial(T v, T* partials, int slot, T* red) {
-  v = warp_sum(v);
+// Block sums of the kS values v[s], written into the block's slots
+// first .. first + kS - 1 of `partials`.  `red` holds kS * kWarps values; it
+// is free again once the grid barrier that follows has passed.
+template <int kS, typename T>
+__device__ __forceinline__ void store_partials(T (&v)[kS], T* partials,
+                                               int first, T* red) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  if (lane == 0) red[warp] = v;
+#pragma unroll
+  for (int s = 0; s < kS; ++s) {
+    const T w = warp_sum(v[s]);
+    if (lane == 0) red[s * kWarps + warp] = w;
+  }
   __syncthreads();
   if (warp == 0) {
-    T w = lane < kWarps ? red[lane] : T(0);
-    w = warp_sum(w);
-    if (lane == 0) partials[slot * gridDim.x + blockIdx.x] = w;
+#pragma unroll
+    for (int s = 0; s < kS; ++s) {
+      T w = lane < kWarps ? red[s * kWarps + lane] : T(0);
+      w = warp_sum(w);
+      if (lane == 0) partials[(first + s) * gridDim.x + blockIdx.x] = w;
+    }
   }
-  __syncthreads();
 }
 
-// Sum of all blocks' partials of `slot`, in one fixed order: every block gets
-// the bit-identical value.
-template <typename T>
-__device__ T grid_total(const T* partials, int slot, T* bcast) {
+// Totals over all blocks of slots first .. first + kS - 1, each in one fixed
+// order, so every block gets bit-identical values.  One loop serves all kS
+// slots, so their loads are in flight together.  `bcast` holds kS values.
+template <int kS, typename T>
+__device__ __forceinline__ void grid_totals(const T* partials, int first,
+                                            T (&out)[kS], T* bcast) {
   if (threadIdx.x < 32) {
-    T v = T(0);
-    for (int k = threadIdx.x; k < static_cast<int>(gridDim.x); k += 32)
-      v += __ldcg(partials + slot * gridDim.x + k);
-    v = warp_sum(v);
-    if (threadIdx.x == 0) *bcast = v;
+    const int g = gridDim.x;
+    T acc[kS];
+#pragma unroll
+    for (int s = 0; s < kS; ++s) acc[s] = T(0);
+#pragma unroll 4
+    for (int k = threadIdx.x; k < g; k += 32) {
+#pragma unroll
+      for (int s = 0; s < kS; ++s)
+        acc[s] += __ldcg(partials + (first + s) * g + k);
+    }
+#pragma unroll
+    for (int s = 0; s < kS; ++s) {
+      acc[s] = warp_sum(acc[s]);
+      if (threadIdx.x == 0) bcast[s] = acc[s];
+    }
   }
   __syncthreads();
-  const T out = *bcast;
-  __syncthreads();
-  return out;
+#pragma unroll
+  for (int s = 0; s < kS; ++s) out[s] = bcast[s];
 }
 
-// The rhs at a thread's own point k: the read-only path for an input of the
-// launch, a plain load for a value this thread wrote earlier in the launch.
-template <typename T, bool kRhsIsInput>
-__device__ __forceinline__ T load_rhs(const T* b, int k) {
-  if (kRhsIsInput) return __ldg(b + k);
-  return b[k];
+// A value of an array that this launch writes, or may write (see above).
+template <typename T, bool kL1 = false>
+__device__ __forceinline__ T ld(const T* a, int k) {
+  if constexpr (kL1) return a[k];  // comparison form: L1-cacheable loads
+  return __ldcg(a + k);
+}
+
+// p' = r + beta (p - omega v) at one point, own or neighbour.
+template <typename T>
+__device__ __forceinline__ T next_p(T r, T p, T v, T beta, T omega) {
+  return r + beta * (p - omega * v);
+}
+
+// s = r - alpha v' at one point, own or neighbour.
+template <typename T>
+__device__ __forceinline__ T next_s(T r, T v, T alpha) {
+  return r - alpha * v;
 }
 
 // One whole solve A x = b from x0 = 0 by every thread of the cooperative
-// grid; x comes out multiplied by mask.  `red` (kWarps values) and `bcast`
-// are the block's shared scratch.  Ends without a grid sync: a caller that
-// reads x at a neighbour's point, or starts another solve on the same
-// partials, syncs first.
-template <typename T, class Op, bool kRhsIsInput>
+// grid; x comes out multiplied by mask.  b is read at neighbours' points, so
+// a caller that writes b in the launch syncs the grid before the call.
+// `red` (kMaxSlotsPerBarrier * kWarps values) and `bcast`
+// (kMaxSlotsPerBarrier) are the block's shared scratch.  Ends without a grid
+// sync: a caller that reads x at a neighbour's point, or starts another solve
+// on the same work arrays, syncs first.
+template <typename T, class Op, int kForm = 0>
 __device__ __forceinline__ Result<T> solve(cg::grid_group& grid, const Op& A,
                                            const T* b, const T* inv_diag_in,
-                                           const T* mask, T* x,
+                                           const T* mask_in, T* x,
                                            const Work<T>& W, int iters,
                                            double tol_sq_coef, T* red,
                                            T* bcast) {
+  constexpr bool kStoredPhat = (kForm & 1) != 0;
+  constexpr bool kL1 = (kForm & 2) != 0;
+  const auto ld = [](const T* a, int k) { return bicgstab::ld<T, kL1>(a, k); };
   const int n = A.size();
   const int stride = gridDim.x * kThreads;
   const int first = blockIdx.x * kThreads + threadIdx.x;
   const T* __restrict__ inv_diag = inv_diag_in;
+  const T* __restrict__ mask = mask_in;
 
-  // x0 = 0  =>  r0 = b = r^, p = v = 0
-  T acc = T(0);
-  for (int k = first; k < n; k += stride) {
-    const T bk = load_rhs<T, kRhsIsInput>(b, k);
-    x[k] = T(0);
-    W.r[k] = bk;
-    W.p[k] = T(0);
-    W.v[k] = T(0);
-    acc += bk * bk;
+  // Iteration 0, pass A: x0 = 0 gives r = r^ = b, p = v = 0, and
+  // p' = b + beta (0 - 1 * 0) = b + 0 bit for bit.  Its barrier also brings
+  // b.b, hence tol_sq and `done` at the start.
+  {
+    T* Pn = W.p[1];
+    T* Vn = W.v[1];
+    T acc[2] = {T(0), T(0)};  // r^.v', b.b
+    const auto phat = [&](int j) {
+      return (ld(b, j) + T(0)) * __ldg(inv_diag + j);
+    };
+    const auto stored = [&](int j) { return ld(W.phat, j); };
+    if constexpr (kStoredPhat) {
+      for (int k = first; k < n; k += stride) W.phat[k] = phat(k);
+      grid.sync();
+    }
+    for (int k = first; k < n; k += stride) {
+      const T bk = ld(b, k);
+      Pn[k] = bk + T(0);
+      T vk;
+      if constexpr (kStoredPhat) {
+        vk = A.apply_of(stored, k);
+      } else {
+        vk = A.apply_of(phat, k);
+      }
+      Vn[k] = vk;
+      acc[0] += bk * vk;
+      acc[1] += bk * bk;
+    }
+    store_partials(acc, W.partials, kRhatV, red);
   }
-  store_partial(acc, W.partials, kBB, red);
   grid.sync();
-  const T bb = grid_total(W.partials, kBB, bcast);
+  T first_totals[2];
+  grid_totals(W.partials, kRhatV, first_totals, bcast);
+  T rv = first_totals[0];
+  const T bb = first_totals[1];
   const T tol_sq = static_cast<T>(tol_sq_coef) * bb;
-  T rr = bb;     // r.r
-  T rhat_r = bb; // r^.r
+  T rr = bb;      // r.r
+  T rhat_r = bb;  // r^.r
+  if (rr <= tol_sq || iters <= 0) {
+    for (int k = first; k < n; k += stride) x[k] = T(0) * __ldg(mask + k);
+    return Result<T>{0, rr, tol_sq};
+  }
   T rho = T(1), alpha = T(1), omega = T(1);
-  bool done = rr <= tol_sq;
   int used = 0;
 
-  for (int it = 0; it < iters && !done; ++it) {
-    bool ok1, ok2, ok3, ok4;
+  for (int it = 0;; ++it) {
+    const T* r = it == 0 ? b : W.r;  // r of the last iteration
+    const T* Pc = W.p[it & 1];
+    const T* Vc = W.v[it & 1];
+    T* Pn = W.p[(it + 1) & 1];
+    T* Vn = W.v[(it + 1) & 1];
     const T rho1 = rhat_r;
-    const T ratio = safe_div(rho1, rho, &ok1);
-    const T aw = safe_div(alpha, omega, &ok2);
-    const T beta = ratio * aw;
+    bool ok1 = true, ok2 = true, ok3, ok4;  // iteration 0: rho = omega = 1
 
-    // p = r + beta (p - omega v);  p^ = p * inv_diag
-    for (int k = first; k < n; k += stride) {
-      const T pk = W.r[k] + beta * (W.p[k] - omega * W.v[k]);
-      W.p[k] = pk;
-      W.phat[k] = pk * __ldg(inv_diag + k);
-    }
-    grid.sync();
-
-    // v = A p^;  r^.v
-    acc = T(0);
-    for (int k = first; k < n; k += stride) {
-      const T vk = A.apply(W.phat, k);
-      W.v[k] = vk;
-      acc += load_rhs<T, kRhsIsInput>(b, k) * vk;
-    }
-    store_partial(acc, W.partials, kRhatV, red);
-    grid.sync();
-    const T alpha_new =
-        safe_div(rho1, grid_total(W.partials, kRhatV, bcast), &ok3);
-
-    // s = r - alpha v (kept in r);  s^ = s * inv_diag;  s.s
-    acc = T(0);
-    for (int k = first; k < n; k += stride) {
-      const T sk = W.r[k] - alpha_new * W.v[k];
-      W.r[k] = sk;
-      W.shat[k] = sk * __ldg(inv_diag + k);
-      acc += sk * sk;
-    }
-    store_partial(acc, W.partials, kSS, red);
-    grid.sync();
-    const bool s_conv = grid_total(W.partials, kSS, bcast) <= tol_sq;
-
-    // t = A s^;  t.s and t.t
-    acc = T(0);
-    T acc2 = T(0);
-    for (int k = first; k < n; k += stride) {
-      const T tk = A.apply(W.shat, k);
-      W.t[k] = tk;
-      acc += tk * W.r[k];
-      acc2 += tk * tk;
-    }
-    store_partial(acc, W.partials, kTS, red);
-    store_partial(acc2, W.partials, kTT, red);
-    grid.sync();
-    const T ts = grid_total(W.partials, kTS, bcast);
-    const T tt = grid_total(W.partials, kTT, bcast);
-    const T omega_new = safe_div(ts, tt, &ok4);
-
-    // x = x + alpha p^ (+ omega s^);  r = s (- omega t);  r.r and r^.r
-    acc = T(0);
-    acc2 = T(0);
-    for (int k = first; k < n; k += stride) {
-      const T sk = W.r[k];
-      const T x_half = x[k] + alpha_new * W.phat[k];
-      T xk, rk;
-      if (s_conv) {
-        xk = x_half;
-        rk = sk;
-      } else {
-        xk = x_half + omega_new * W.shat[k];
-        rk = sk - omega_new * W.t[k];
+    if (it > 0) {
+      // pass A: p' stored; v' = A D^-1 p' with p' recomputed at neighbours
+      const T ratio = safe_div(rho1, rho, &ok1);
+      const T aw = safe_div(alpha, omega, &ok2);
+      const T beta = ratio * aw;
+      const auto phat = [&](int j) {
+        return next_p(ld(r, j), ld(Pc, j), ld(Vc, j), beta, omega) *
+               __ldg(inv_diag + j);
+      };
+      T acc[1] = {T(0)};  // r^.v'
+      const auto stored = [&](int j) { return ld(W.phat, j); };
+      if constexpr (kStoredPhat) {
+        for (int k = first; k < n; k += stride) {
+          Pn[k] = next_p(ld(r, k), ld(Pc, k), ld(Vc, k), beta, omega);
+          W.phat[k] = Pn[k] * __ldg(inv_diag + k);
+        }
+        grid.sync();
       }
-      x[k] = xk;
-      W.r[k] = rk;
-      acc += rk * rk;
-      acc2 += load_rhs<T, kRhsIsInput>(b, k) * rk;
+      for (int k = first; k < n; k += stride) {
+        T vk;
+        if constexpr (kStoredPhat) {
+          vk = A.apply_of(stored, k);
+        } else {
+          Pn[k] = next_p(ld(r, k), ld(Pc, k), ld(Vc, k), beta, omega);
+          vk = A.apply_of(phat, k);
+        }
+        Vn[k] = vk;
+        acc[0] += ld(b, k) * vk;
+      }
+      store_partials(acc, W.partials, kRhatV, red);
+      grid.sync();
+      T rhat_v[1];
+      grid_totals(W.partials, kRhatV, rhat_v, bcast);
+      rv = rhat_v[0];
     }
-    store_partial(acc, W.partials, kRR, red);
-    store_partial(acc2, W.partials, kRhatR, red);
-    grid.sync();
-    rr = grid_total(W.partials, kRR, bcast);
-    rhat_r = grid_total(W.partials, kRhatR, bcast);
+    const T alpha_new = safe_div(rho1, rv, &ok3);
 
+    // pass B: t = A D^-1 s, with s recomputed at every point it is read
+    {
+      const auto shat = [&](int j) {
+        return next_s(ld(r, j), ld(Vn, j), alpha_new) * __ldg(inv_diag + j);
+      };
+      T acc[3] = {T(0), T(0), T(0)};  // s.s, t.s, t.t
+      for (int k = first; k < n; k += stride) {
+        const T tk = A.apply_of(shat, k);
+        W.t[k] = tk;
+        const T sk = next_s(ld(r, k), ld(Vn, k), alpha_new);
+        acc[0] += sk * sk;
+        acc[1] += tk * sk;
+        acc[2] += tk * tk;
+      }
+      store_partials(acc, W.partials, kSS, red);
+    }
+    grid.sync();
+    T sts[3];  // s.s, t.s, t.t
+    grid_totals(W.partials, kSS, sts, bcast);
+    const bool s_conv = sts[0] <= tol_sq;
+    const T omega_new = safe_div(sts[1], sts[2], &ok4);
     const bool breakdown = !(ok1 && ok2 && ok3 && ok4);
+    const bool last = s_conv || breakdown || it + 1 >= iters;
+
+    // pass C: x and r at the own point; x * mask into the output
+    {
+      T acc[2] = {T(0), T(0)};  // r.r, r^.r
+      for (int k = first; k < n; k += stride) {
+        const T sk = next_s(ld(r, k), ld(Vn, k), alpha_new);
+        const T ik = __ldg(inv_diag + k);
+        const T x_old = it == 0 ? T(0) : ld(W.x, k);
+        const T x_half = x_old + alpha_new * (ld(Pn, k) * ik);
+        T xk, rk;
+        if (s_conv) {
+          xk = x_half;
+          rk = sk;
+        } else {
+          xk = x_half + omega_new * (sk * ik);
+          rk = sk - omega_new * ld(W.t, k);
+        }
+        x[k] = xk * __ldg(mask + k);
+        if (!last) W.x[k] = xk;
+        W.r[k] = rk;
+        acc[0] += rk * rk;
+        acc[1] += ld(b, k) * rk;
+      }
+      store_partials(acc, W.partials, kRR, red);
+    }
+    grid.sync();
+    T rrs[2];  // r.r, r^.r
+    grid_totals(W.partials, kRR, rrs, bcast);
+    rr = rrs[0];
+    rhat_r = rrs[1];
     rho = rho1;
     alpha = alpha_new;
     omega = omega_new;
     ++used;
-    done = s_conv || breakdown || rr <= tol_sq;
+    if (last || rr <= tol_sq) break;
   }
-
-  for (int k = first; k < n; k += stride) x[k] *= __ldg(mask + k);
   return Result<T>{used, rr, tol_sq};
 }
 
-template <typename T, class Op>
+template <typename T, class Op, int kForm = 0>
 __global__ void __launch_bounds__(kThreads) bicgstab_kernel(Params<T, Op> P) {
   cg::grid_group grid = cg::this_grid();
-  __shared__ T red[kWarps];
-  __shared__ T bcast;
-  const Result<T> res =
-      solve<T, Op, true>(grid, P.A, P.b, P.inv_diag, P.mask, P.x, P.W, P.iters,
-                         P.tol_sq_coef, red, &bcast);
+  __shared__ T red[kMaxSlotsPerBarrier * kWarps];
+  __shared__ T bcast[kMaxSlotsPerBarrier];
+  const Result<T> res = solve<T, Op, kForm>(grid, P.A, P.b, P.inv_diag, P.mask, P.x,
+                                     P.W, P.iters, P.tol_sq_coef, red, bcast);
   if (blockIdx.x == 0 && threadIdx.x == 0) *P.iters_out = res.used;
 }
 
@@ -317,9 +421,9 @@ int grid_blocks_of(Kernel kernel, int n, int* blocks) {
   return static_cast<int>(cudaSuccess);
 }
 
-template <typename T, class Op>
+template <typename T, class Op, int kForm = 0>
 int grid_blocks(int n, int* blocks) {
-  return grid_blocks_of(bicgstab_kernel<T, Op>, n, blocks);
+  return grid_blocks_of(bicgstab_kernel<T, Op, kForm>, n, blocks);
 }
 
 // One cooperative launch of `kernel` on its one argument `params`.
@@ -333,8 +437,8 @@ int launch_cooperative(Kernel kernel, P& params, int blocks, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// `work` holds the six working arrays of A.size() points each.
-template <typename T, class Op>
+// `work` holds the seven working arrays of A.size() points each.
+template <typename T, class Op, int kForm = 0>
 int launch(const Op& A, const T* b, const T* inv_diag, const T* mask, T* x,
            int* iters_out, T* work, T* partials, int iters,
            double tol_sq_coef, int blocks, void* stream) {
@@ -347,7 +451,8 @@ int launch(const Op& A, const T* b, const T* inv_diag, const T* mask, T* x,
                   make_work(work, static_cast<size_t>(A.size()), partials),
                   iters,
                   tol_sq_coef};
-  return launch_cooperative(bicgstab_kernel<T, Op>, P, blocks, stream);
+  return launch_cooperative(bicgstab_kernel<T, Op, kForm>, P, blocks,
+                            stream);
 }
 
 }  // namespace bicgstab

@@ -21,8 +21,13 @@ __device__ __forceinline__ T load_u(const T* u, int k) {
   return __ldg(u + k);
 }
 
-template <typename T, bool kCoherent>
-__device__ __forceinline__ T stencil5_at(const T* u, const T* __restrict__ c0,
+// The 5-point sum at (i, j) of the values u(k') that the callable `u` gives
+// at the flat indices k' of the point and its neighbours; a neighbour outside
+// the plane reads as 0 and `u` is not called there.  The solve kernels pass
+// a callable that recomputes a value from the arrays it is made of, the
+// applies one that loads it.
+template <typename T, class U>
+__device__ __forceinline__ T stencil5_of(U u, const T* __restrict__ c0,
                                          const T* __restrict__ cxm,
                                          const T* __restrict__ cxp,
                                          const T* __restrict__ cym,
@@ -30,17 +35,29 @@ __device__ __forceinline__ T stencil5_at(const T* u, const T* __restrict__ c0,
                                          int j, int n0, int n1) {
   const int k = i * n1 + j;
   const T zero = T(0);
-  const T u0 = load_u<T, kCoherent>(u, k);
-  const T uxm = i > 0 ? load_u<T, kCoherent>(u, k - n1) : zero;
-  const T uxp = i < n0 - 1 ? load_u<T, kCoherent>(u, k + n1) : zero;
-  const T uym = j > 0 ? load_u<T, kCoherent>(u, k - 1) : zero;
-  const T uyp = j < n1 - 1 ? load_u<T, kCoherent>(u, k + 1) : zero;
+  const T u0 = u(k);
+  const T uxm = i > 0 ? u(k - n1) : zero;
+  const T uxp = i < n0 - 1 ? u(k + n1) : zero;
+  const T uym = j > 0 ? u(k - 1) : zero;
+  const T uyp = j < n1 - 1 ? u(k + 1) : zero;
   return __ldg(c0 + k) * u0 + __ldg(cxm + k) * uxm + __ldg(cxp + k) * uxp +
          __ldg(cym + k) * uym + __ldg(cyp + k) * uyp;
 }
 
+template <typename T, bool kCoherent>
+__device__ __forceinline__ T stencil5_at(const T* u, const T* __restrict__ c0,
+                                         const T* __restrict__ cxm,
+                                         const T* __restrict__ cxp,
+                                         const T* __restrict__ cym,
+                                         const T* __restrict__ cyp, int i,
+                                         int j, int n0, int n1) {
+  return stencil5_of<T>([u](int k) { return load_u<T, kCoherent>(u, k); }, c0,
+                        cxm, cxp, cym, cyp, i, j, n0, n1);
+}
+
 // The 5-point operator on an (n0, n1) plane, flat index k = i * n1 + j, as
-// the solve kernels take it: u is read through L2 (kCoherent), since other
+// the solve kernels take it: apply_of(u, k) sums the values the callable u
+// gives; apply(u, k) reads an array through L2 (kCoherent), since other
 // blocks wrote it in the same launch.
 template <typename T>
 struct Stencil5Op {
@@ -54,9 +71,14 @@ struct Stencil5Op {
 
   __host__ __device__ int size() const { return n0 * n1; }
 
-  __device__ __forceinline__ T apply(const T* u, int k) const {
+  template <class U>
+  __device__ __forceinline__ T apply_of(U u, int k) const {
     const int i = k / n1;
     const int j = k - i * n1;
-    return stencil5_at<T, true>(u, c0, cxm, cxp, cym, cyp, i, j, n0, n1);
+    return stencil5_of<T>(u, c0, cxm, cxp, cym, cyp, i, j, n0, n1);
+  }
+
+  __device__ __forceinline__ T apply(const T* u, int k) const {
+    return apply_of([u](int m) { return load_u<T, true>(u, m); }, k);
   }
 };

@@ -17,21 +17,23 @@
 //
 // Bound on the card: bytes and latency.  33 input planes and 3 output planes
 // must cross device memory once (19.0 MB in f64 at 257 x 257, 5.7 us at
-// 3.35 TB/s); each iteration of each solve makes the ~35 plane passes of K1.
+// 3.35 TB/s); each iteration of each solve makes the 32 plane passes and
+// three grid barriers of K1 (bicgstab.cu).
 //
 // Design: the TPU kernel kept all 40 planes in one core's VMEM; here a plane
 // (528 KB in f64 at N=256) exceeds an SM's shared memory, so what carries
 // over is the single launch: one cooperative grid runs the three solves back
-// to back with the working set (36 planes + 7 of scratch, 22.7 MB in f64 at
+// to back with the working set (36 planes + 8 of scratch, 23.2 MB in f64 at
 // N=256) resident in the 50 MB L2, and nothing returns to the host or waits
 // for a launch between the solves.  The solve is bicgstab::solve, the same
-// device function K1 wraps, called three times on the same six working
-// arrays.  Between two solves: one grid sync (dT must be visible at the
-// neighbours' points, and the dot-product partials must be free), then one
-// grid-stride pass that forms the next right-hand side into a scratch plane.
-// Each thread owns the same points throughout, and a right-hand side is only
-// read at a thread's own points, so that pass needs no sync of its own; the
-// scratch plane is read with plain loads, never through the read-only path,
+// device function K1 wraps, called three times on the same seven working
+// arrays.  Before each solve, one grid-stride pass forms its right-hand side
+// into a scratch plane, and one grid sync follows it: the solve reads the
+// rhs at neighbours' points from its first pass on.  Between two solves one
+// more grid sync comes before that pass (dT must be visible at the
+// neighbours' points, and the dot-product partials must be free), so a
+// solve's set-up costs the sync the solve itself no longer makes.  The
+// scratch plane is read through L2, never through the read-only path,
 // because this launch wrote it.  dT is read through the coupling stencils
 // with L2 loads (Stencil5Op), dcl only at the thread's own point.
 #include <cuda_runtime.h>
@@ -87,8 +89,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
     triple_solve_kernel(TripleParams<T> P) {
   cg::grid_group grid = cg::this_grid();
-  __shared__ T red[kWarps];
-  __shared__ T bcast;
+  __shared__ T red[bicgstab::kMaxSlotsPerBarrier * kWarps];
+  __shared__ T bcast[bicgstab::kMaxSlotsPerBarrier];
 
   const int n = P.J_T.size();
   const int stride = gridDim.x * kThreads;
@@ -99,9 +101,10 @@ __global__ void __launch_bounds__(kThreads)
   // --- T solve ---
   for (int k = first; k < n; k += stride)
     P.rhs[k] = __ldg(P.rhs_T + k) * __ldg(mask + k);
-  bicgstab::Result<T> res = bicgstab::solve<T, Stencil5Op<T>, false>(
+  grid.sync();
+  bicgstab::Result<T> res = bicgstab::solve<T, Stencil5Op<T>>(
       grid, P.J_T, P.rhs, P.invd_T, mask, P.dT, P.W, P.iters, P.tol_sq_coef,
-      red, &bcast);
+      red, bcast);
   write_result(P, 0, res);
   grid.sync();
 
@@ -110,9 +113,10 @@ __global__ void __launch_bounds__(kThreads)
     const T coup = P.C_clT.apply(P.dT, k);
     P.rhs[k] = (__ldg(P.base_cl + k) + dt * coup) * __ldg(mask + k);
   }
-  res = bicgstab::solve<T, Stencil5Op<T>, false>(
-      grid, P.J_cl, P.rhs, P.invd_cl, mask, P.dcl, P.W, P.iters,
-      P.tol_sq_coef, red, &bcast);
+  grid.sync();
+  res = bicgstab::solve<T, Stencil5Op<T>>(grid, P.J_cl, P.rhs, P.invd_cl, mask,
+                                          P.dcl, P.W, P.iters, P.tol_sq_coef,
+                                          red, bcast);
   write_result(P, 1, res);
   grid.sync();
 
@@ -121,9 +125,10 @@ __global__ void __launch_bounds__(kThreads)
     const T coup = P.C_cdT.apply(P.dT, k) + __ldg(P.d_cdcl + k) * P.dcl[k];
     P.rhs[k] = (__ldg(P.base_cd + k) + dt * coup) * __ldg(mask + k);
   }
-  res = bicgstab::solve<T, Stencil5Op<T>, false>(
-      grid, P.J_cd, P.rhs, P.invd_cd, mask, P.dcd, P.W, P.iters,
-      P.tol_sq_coef, red, &bcast);
+  grid.sync();
+  res = bicgstab::solve<T, Stencil5Op<T>>(grid, P.J_cd, P.rhs, P.invd_cd, mask,
+                                          P.dcd, P.W, P.iters, P.tol_sq_coef,
+                                          red, bcast);
   write_result(P, 2, res);
 }
 

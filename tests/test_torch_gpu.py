@@ -207,3 +207,77 @@ def test_triple_solve_refuses_mixed_operands(card):
     operands[6] = operands[6].float()  # rhs_T
     with pytest.raises(ValueError, match="must match"):
         kernels.triple_solve(*operands, tol=1e-13, iters=4)
+
+
+def _edge_case(case, system):
+    """'zero_rhs': b = 0 (the solve ends before its first iteration);
+    'diagonal': A = c0·I (it ends on s_conv in iteration 1); 'dominant': the
+    system as it is."""
+    st, b, inv, mask = system
+    if case == "zero_rhs":
+        b = torch.zeros_like(b)
+    elif case == "diagonal":
+        st = type(st)(st[0], *(torch.zeros_like(c) for c in st[1:]))
+    return st, b, inv, mask
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize(
+    "case, shape",
+    [
+        ("zero_rhs", (65, 65)), ("diagonal", (65, 65)),
+        ("dominant", (9, 9)),  # fewer points than one block has threads
+        ("dominant", (130, 257)),  # ragged: 130 x 257 = 130.5 blocks
+        ("zero_rhs", (17, 19, 21)), ("diagonal", (17, 19, 21)),
+        ("dominant", (5, 5, 5)), ("dominant", (33, 20, 41)),
+    ],
+)
+def test_solve_kernels_edge_cases(card, dtype, case, shape):
+    """K1 (planes) and K5 (volumes) against their plain versions where the
+    schedule of the solve branches: no iteration, an exit on s_conv, grids
+    smaller than one block and ragged ones, a budget past convergence."""
+    if len(shape) == 2:
+        solve, plain = kernels.bicgstab_solve, kernels.bicgstab_solve_plain
+    else:
+        solve, plain = kernels.bicgstab_solve3, kernels.bicgstab_solve3_plain
+    st, b, inv, mask = _edge_case(case, _system(43, shape, dtype, card))
+    budget = 40
+    xk, ik = solve(st, b, inv, mask, tol=KRYLOV_TOL[dtype], iters=budget)
+    xp, ip = plain(st, b, inv, mask, tol=KRYLOV_TOL[dtype], iters=budget)
+    used = int(ik["iters"])
+    assert used == int(ip["iters"])
+    assert bool(ik["converged"]) and bool(ip["converged"])
+    if case == "zero_rhs":
+        assert used == 0 and float(xk.abs().max()) == 0.0
+    else:
+        assert_close(xk, xp, TOL[dtype])
+    if case == "diagonal":
+        assert used == 1
+    if case == "dominant":
+        assert 0 < used < budget
+
+
+@pytest.mark.parametrize(
+    "case, shape",
+    [("zero_rhs", (65, 65)), ("diagonal", (65, 65)), ("dominant", (9, 9)), ("dominant", (130, 257))],
+)
+def test_triple_solve_kernel_edge_cases(card, case, shape):
+    operands = list(_triple(44, shape, torch.float64, card))
+    if case == "zero_rhs":  # rhs_T, base_cl, base_cd
+        operands[6:9] = [torch.zeros_like(t) for t in operands[6:9]]
+    elif case == "diagonal":  # J_T, J_cl, J_cd
+        operands[:3] = [_edge_case(case, (J, None, None, None))[0] for J in operands[:3]]
+    *xk, ik = kernels.triple_solve(*operands, tol=1e-13, iters=40)
+    *xp, ip = kernels.triple_solve_plain(*operands, tol=1e-13, iters=40)
+    used = ik["iters"].tolist()
+    assert used == ip["iters"].tolist()
+    assert ik["converged"].tolist() == ip["converged"].tolist() == [True] * 3
+    if case == "zero_rhs":
+        assert used == [0] * 3 and all(float(x.abs().max()) == 0.0 for x in xk)
+    else:
+        for a, b in zip(xk, xp):
+            assert_close(a, b, 1e-12)
+    if case == "diagonal":
+        assert used == [1] * 3
+    if case == "dominant":
+        assert all(0 < u < 40 for u in used)

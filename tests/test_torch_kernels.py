@@ -359,3 +359,108 @@ def test_kernels_module_imports_without_nvcc_or_triton():
     )
     env = dict(os.environ, PATH=os.path.dirname(sys.executable))
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True, timeout=120)
+
+
+# ---------------------------------------------------------------------------
+# The solve kernel's pass schedule (csrc/bicgstab.cuh), replayed in torch
+# ---------------------------------------------------------------------------
+def _safe_div(num, den):
+    ok = bool(torch.abs(den) > torch.tensor(1e-300, dtype=den.dtype))
+    return (num / den if ok else torch.zeros_like(num)), ok
+
+
+def _three_pass_schedule(apply, b, inv, mask, *, tol, iters):
+    """BiCGStab from x0 = 0 in the order the CUDA solve runs it: iteration 0
+    specialised (p' = b + 0, b·b taken in its first pass), p' and v' in
+    ping-pong buffers, s recomputed in passes B and C and never stored, r
+    written only in pass C, x·mask written by every pass C.  Returns
+    (x·mask, iterations used, r·r at exit, whether the exit was on s_conv)."""
+    dot = lambda u, v: torch.sum(u * v)  # noqa: E731
+    P, V = [None, b + 0.0], [None, None]
+    V[1] = apply(P[1] * inv)  # pass A of iteration 0
+    rv, bb = dot(b, V[1]), dot(b, b)
+    tol_sq = tol * tol * bb
+    rr = rhat_r = bb
+    if rr <= tol_sq or iters <= 0:
+        return 0.0 * mask, 0, rr, False
+    rho = alpha = omega = torch.ones((), dtype=b.dtype)
+    r, x_work, used = b, None, 0
+    for it in range(iters):
+        rho1, ok1, ok2 = rhat_r, True, True
+        if it > 0:  # pass A
+            ratio, ok1 = _safe_div(rho1, rho)
+            aw, ok2 = _safe_div(alpha, omega)
+            beta = ratio * aw
+            P[(it + 1) % 2] = r + beta * (P[it % 2] - omega * V[it % 2])
+            V[(it + 1) % 2] = apply(P[(it + 1) % 2] * inv)
+            rv = dot(b, V[(it + 1) % 2])
+        p_new, v_new = P[(it + 1) % 2], V[(it + 1) % 2]
+        alpha_new, ok3 = _safe_div(rho1, rv)
+        s = r - alpha_new * v_new  # pass B
+        t = apply(s * inv)
+        s_conv = bool(dot(s, s) <= tol_sq)
+        omega_new, ok4 = _safe_div(dot(t, s), dot(t, t))
+        last = s_conv or not (ok1 and ok2 and ok3 and ok4) or it + 1 >= iters
+        s = r - alpha_new * v_new  # pass C
+        x_half = (0.0 if it == 0 else x_work) + alpha_new * (p_new * inv)
+        x = x_half if s_conv else x_half + omega_new * (s * inv)
+        r = s if s_conv else s - omega_new * t
+        out = x * mask
+        x_work = None if last else x
+        rr, rhat_r = dot(r, r), dot(b, r)
+        rho, alpha, omega = rho1, alpha_new, omega_new
+        used += 1
+        if last or bool(rr <= tol_sq):
+            break
+    return out, used, rr, s_conv
+
+
+def _schedule_case(case, shape):
+    """A system of the schedule tests: 'dominant' (random, diagonally
+    dominant), 'zero_rhs' (b = 0), 'diagonal' (A = c0·I, which exits on
+    s_conv in iteration 1)."""
+    planes, b, inv, mask = _system(61, shape, torch.float64)
+    if case == "zero_rhs":
+        b = np.zeros_like(b)
+    elif case == "diagonal":
+        planes = [planes[0]] + [np.zeros_like(p) for p in planes[1:]]
+    to_stencil = stencil5_from_numpy if len(shape) == 2 else stencil7_from_numpy
+    st = to_stencil(planes, device="cpu")
+    return st, *(tensor_from_numpy(a, device="cpu") for a in (b, inv, mask))
+
+
+@pytest.mark.parametrize(
+    "case, shape, iters",
+    [
+        ("dominant", (12, 17), 40),  # budget past convergence
+        ("dominant", (9, 9), 3),  # budget cut
+        ("dominant", (9, 8, 7), 24),
+        ("dominant", (5, 5, 5), 2),
+        ("zero_rhs", (9, 9), 5),
+        ("zero_rhs", (5, 5, 5), 5),
+        ("diagonal", (9, 9), 8),
+        ("diagonal", (5, 6, 7), 8),
+    ],
+)
+def test_three_pass_schedule_matches_bicgstab_unrolled(case, shape, iters):
+    """The kernel's schedule computes bicgstab_unrolled bit for bit: the same
+    x·mask, r·r and iteration count, in float64."""
+    st, b, inv, mask = _schedule_case(case, shape)
+    ops = kernels.LOCAL_OPS if len(shape) == 2 else kernels.LOCAL_OPS3
+    apply = lambda w: st.apply(ops, w)  # noqa: E731
+    x, used, rr, s_conv = _three_pass_schedule(apply, b, inv, mask, tol=1e-13, iters=iters)
+    ref_x, info = t_ls.bicgstab_unrolled(
+        apply, b, torch.zeros_like(b), dot=lambda u, v: torch.sum(u * v),
+        minv=lambda r: r * inv, tol=1e-13, iters=iters,
+    )
+    assert used == int(info["iters"])
+    assert float(rr) == float(info["resnorm_sq"])
+    assert torch.equal(x, ref_x * mask)  # the same operations in the same order
+    if case == "zero_rhs":
+        assert used == 0 and float(x.abs().max()) == 0.0
+    if case == "diagonal":
+        assert used == 1 and s_conv
+    if case == "dominant" and iters < 5:
+        assert used == iters  # the budget ends the solve
+    elif case == "dominant":
+        assert 2 < used < iters  # converged inside the budget
