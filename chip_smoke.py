@@ -23,8 +23,11 @@ version on the card, and drives the port's paths:
 It checks the errors against the reference values and the launch counts of
 each path's main level (counts set to 0 just before it, read just after),
 times the kernels (torch.profiler and CUDA events; K4 also beside the
-per-solve route on the same systems), profiles five steps of each main level, and prints one JSON line with every kernel's numbers, the
-card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+per-solve route on the same systems; K1/K5 also at 1 and 2 blocks a SM
+beside their grid rule, and capped at 1, 2, 4, 8 iterations for their fixed
+and per-iteration cost), profiles five steps of each main level, and prints
+one JSON line with every kernel's numbers, the card's name and power limit,
+and last ``{"ok": true, "device": {...}}``.
 Every check that fails stops the script with a nonzero exit code; without a
 card it exits nonzero at once.  Imports nothing of JAX.
 
@@ -805,8 +808,6 @@ def solve_costs(st, b, inv, mask, label, reps):
         + f" us; fixed {intercept:.2f} us, per iteration {slope:.2f} us, of which streaming "
         f"{stream:.2f} us ({PASSES[b.dim()][1]} arrays at the HBM rate); per barrier "
         f"{per_barrier:.2f} us")
-    return {"caps": caps, "us": us, "fixed_us": intercept, "per_iteration_us": slope,
-            "stream_us": stream, "per_barrier_us": per_barrier}
 
 
 def grid_table(st, b, inv, mask, iters, label, reps):
@@ -821,7 +822,6 @@ def grid_table(st, b, inv, mask, iters, label, reps):
     solve, prefix = solve_of(b)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     need = -(-b.numel() // 256)
-    rows = []
     for dtype in (torch.float64, torch.float32):
         st_d = type(st)(*(c.to(dtype) for c in st))
         b_d, inv_d, mask_d = (t.to(dtype) for t in (b, inv, mask))
@@ -838,12 +838,9 @@ def grid_table(st, b, inv, mask, iters, label, reps):
             used = int(run()[1]["iters"])
             ms = kernel_device_ms(run, reps, "bicgstab_kernel")
             check(ms is not None, f"{label}: no device time for the solve kernel")
-            rows.append({"dtype": str(dtype)[6:], "grid": name, "blocks": blocks,
-                         "us": ms * 1e3, "iters": used})
             log(f"[grid] {label} {str(dtype)[6:]}: {name} {blocks} blocks "
                 f"({blocks / sms:.2f} a SM): {ms * 1e3:.2f} us, {used} iterations")
         kernels._BLOCKS[key] = rule
-    return rows
 
 
 def timings_k1_1025(device):
@@ -873,13 +870,13 @@ def timings_k1_1025(device):
             st, b, inv, mask, tol=tol, iters=solver.iters), 5),
         nbytes=9 * n * item, ops=(2 * 9 + 6 * 2 + 14) * n * max(iters, 1))
     row["max_abs_err"] = err
-    row["grid"] = grid_table(st, b, inv, mask, solver.iters, "K1 1025x1025 step-1 T", 10)
+    grid_table(st, b, inv, mask, solver.iters, "K1 1025x1025 step-1 T", 10)
     grid_mask = make_uniform_grid(SCALE_N, SCALE_N, dtype=b.dtype, device=device).interior_mask
     st_r, b_r = random_planes(np.random.default_rng(1025), tuple(b.shape), b.dtype, device,
                               dominant=True)
     st_r = type(st_r)(*(c * grid_mask for c in st_r))
-    row["cost"] = solve_costs(st_r, b_r * grid_mask, jacobi(st_r, grid_mask), grid_mask,
-                              "K1 1025x1025 random dominant", 5)
+    solve_costs(st_r, b_r * grid_mask, jacobi(st_r, grid_mask), grid_mask,
+                "K1 1025x1025 random dominant", 5)
     return row
 
 
@@ -930,13 +927,11 @@ def phase_timings(device):
     log(f"[time] bicgstab_solve: {iters} iterations touch {first} + {later} x {max(iters, 1) - 1} "
         f"planes = {passes / 1e6:.2f} MB, {passes / HBM_BYTES_PER_S * 1e6:.2f} us at the HBM "
         f"rate; measured {res['bicgstab_solve']['ms'] * 1e3:.2f} us")
-    res["bicgstab_solve"]["grid"] = grid_table(st, b, inv, mask, solver.iters,
-                                               "K1 257x257 step-1 T", 50)
+    grid_table(st, b, inv, mask, solver.iters, "K1 257x257 step-1 T", 50)
     st_r, b_r = random_planes(np.random.default_rng(257), tuple(b.shape), b.dtype, device,
                               dominant=True)
     st_r = type(st_r)(*(c * mask for c in st_r))
-    res["bicgstab_solve"]["cost"] = solve_costs(st_r, b_r * mask, jacobi(st_r, mask), mask,
-                                                "K1 257x257 random dominant", 50)
+    solve_costs(st_r, b_r * mask, jacobi(st_r, mask), mask, "K1 257x257 random dominant", 50)
     del systems, st, b, mask, inv, st_r, b_r
     res["bicgstab_solve_1025"] = timings_k1_1025(device)
     torch.cuda.empty_cache()
@@ -1381,8 +1376,7 @@ def phase_timings3(device):
         if ms_r is not None:
             log(f"[time] bicgstab_solve3 {label} random dominant system: {it_r} iterations in "
                 f"{ms_r * 1e3:.2f} us on the device, {ms_r * 1e3 / it_r:.2f} us an iteration")
-        res[N]["bicgstab_solve3"]["cost"] = solve_costs(
-            st_r, b_r, inv_r, mask, f"K5 {label} random dominant", 20 // reps)
+        solve_costs(st_r, b_r, inv_r, mask, f"K5 {label} random dominant", 20 // reps)
         del st_r, b_r, inv_r
         first, later = PASSES[3]
         passes = (first + later * (max(iters, 1) - 1)) * n * item
@@ -1392,8 +1386,7 @@ def phase_timings3(device):
             f"{later} x {max(iters, 1) - 1} volumes = {passes / 1e6:.1f} MB, "
             f"{passes / HBM_BYTES_PER_S * 1e6:.1f} us at the HBM rate; measured "
             f"{res[N]['bicgstab_solve3']['ms'] * 1e3:.1f} us")
-        res[N]["bicgstab_solve3"]["grid"] = grid_table(
-            st, b, inv, mask, solver.iters, f"K5 {label} step-1 T", 20 // reps)
+        grid_table(st, b, inv, mask, solver.iters, f"K5 {label} step-1 T", 20 // reps)
         del st, b, mask, inv
         torch.cuda.empty_cache()
     return res
@@ -1429,101 +1422,8 @@ def phase_profile3(device):
     log(f"[profile3] one step_fn: {step_launches} launches; {breakdown}")
 
 
-FORMS = {0: "recompute", 1: "stored p^", 2: "recompute, L1 loads", 3: "stored p^, L1 loads"}
-
-
-def phase_forms(device):
-    """The solve's forms side by side on one card, f64: D^-1 p' recomputed
-    at the neighbours (three barriers an iteration) or p^ stored (four), each
-    with the work arrays read through L2 or through L1, on the step-1 T
-    system of each level that launches K1/K5 and on a random dominant system
-    capped at 8 iterations.  On a common grid the forms must agree bit for
-    bit; each is timed on its own occupancy grid, in the order 0 1 2 3 3 2 1 0."""
-    import ctypes
-
-    import torch
-
-    from na_dd_tpu_torch.ops import kernels
-    from na_dd_tpu_torch.ops.grid import make_uniform_grid
-    from na_dd_tpu_torch.three_d.grid import make_uniform_grid3
-
-    libs = kernels.build_kernels()
-    for prefix in ("bicgstab", "bicgstab3"):
-        lib = libs[prefix]
-        getattr(lib, f"{prefix}_blocks_form_f64").argtypes = [ctypes.c_int, ctypes.c_int,
-                                                              ctypes.POINTER(ctypes.c_int)]
-        fn = getattr(lib, f"{prefix}_solve_form_f64")
-        fn.argtypes = [ctypes.c_int] + list(getattr(lib, f"{prefix}_solve_f64").argtypes)
-        fn.restype = ctypes.c_int
-
-    def form_blocks(b, form):
-        prefix = "bicgstab" if b.dim() == 2 else "bicgstab3"
-        out = ctypes.c_int(0)
-        code = getattr(libs[prefix], f"{prefix}_blocks_form_f64")(form, b.numel(), ctypes.byref(out))
-        check(code == 0, f"occupancy of form {form}")
-        return out.value
-
-    def run(form, blocks, st, b, inv, mask, iters):
-        prefix = "bicgstab" if b.dim() == 2 else "bicgstab3"
-        lib, name = libs[prefix], f"{prefix}_solve_f64"
-        own, key = getattr(lib, name), (prefix, b.dtype, b.numel())
-        form_fn = getattr(lib, f"{prefix}_solve_form_f64")
-        setattr(lib, name, lambda *args: form_fn(form, *args))
-        kernels._BLOCKS[key] = blocks
-        try:
-            return solve_of(b)[0](st, b, inv, mask, tol=1e-13, iters=iters)
-        finally:
-            setattr(lib, name, own)
-            del kernels._BLOCKS[key]
-
-    def systems():
-        for N in (MAIN_N, SCALE_N):
-            sy, solver = step1_systems(torch.float64, device, N, None if N == MAIN_N else 0.25 / N)
-            st, b, mask = sy[0]
-            yield f"{N + 1}^2 step-1 T", st, b, mask, solver.iters
-            m = make_uniform_grid(N, N, dtype=b.dtype, device=device).interior_mask
-            st, b = random_planes(np.random.default_rng(N), tuple(b.shape), b.dtype, device, True)
-            yield f"{N + 1}^2 random, 8 iterations", type(st)(*(c * m for c in st)), b * m, m, 8
-        for N in (MAIN_N3, N128):
-            sy, solver = step1_systems3(N, torch.float64, device)
-            st, b, mask = sy[0]
-            del sy
-            yield f"{N + 1}^3 step-1 T", st, b, mask, solver.iters
-            m = make_uniform_grid3(N, N, N, dtype=b.dtype, device=device).interior_mask
-            st, b = random_planes(np.random.default_rng(N), tuple(b.shape), b.dtype, device, True)
-            yield f"{N + 1}^3 random, 8 iterations", type(st)(*(c * m for c in st)), b * m, m, 8
-
-    out = {}
-    for label, st, b, mask, iters in systems():
-        inv = jacobi(st, mask)
-        grids = {f: form_blocks(b, f) for f in FORMS}
-        common = min(grids.values())
-        ref = None
-        for f in FORMS:
-            x, info = run(f, common, st, b, inv, mask, iters)
-            torch.cuda.synchronize()
-            if ref is None:
-                ref = (x, int(info["iters"]))
-            same = bool(torch.equal(x, ref[0])) and int(info["iters"]) == ref[1]
-            check(same, f"forms {label}: form {f} disagrees with form 0 on {common} blocks")
-        reps = max(2, int(2e7 // b.numel()))
-        us = {f: [] for f in FORMS}
-        for f in (0, 1, 2, 3, 3, 2, 1, 0):
-            ms = kernel_device_ms(lambda: run(f, grids[f], st, b, inv, mask, iters), reps,
-                                  "bicgstab_kernel")
-            check(ms is not None, f"forms {label}: no device time")
-            us[f].append(ms * 1e3)
-        log(f"[forms] {label}: {ref[1]} iterations, bit for bit on {common} blocks; "
-            + "; ".join(f"{FORMS[f]} ({grids[f]} blocks) " + "/".join(f"{u:.2f}" for u in us[f])
-                        + " us" for f in FORMS))
-        out[label] = {FORMS[f]: min(us[f]) for f in FORMS}
-        del st, b, mask, inv, x, ref
-        torch.cuda.empty_cache()
-    return out
-
-
 PHASES = ("k2", "k1", "k3", "k4", "slice", "f32", "analytic", "scale", "timings", "profile",
-          "k6", "k5", "3d", "3d128", "3d_f32", "timings3", "profile3", "forms")
+          "k6", "k5", "3d", "3d128", "3d_f32", "timings3", "profile3")
 
 
 def main(argv=None) -> int:
@@ -1591,7 +1491,6 @@ def main(argv=None) -> int:
     phase("3d_f32", phase_three_d_f32, device)
     phase("timings3", phase_timings3, device)
     phase("profile3", phase_profile3, device)
-    phase("forms", phase_forms, device)
     if set(only) != set(PHASES):
         log(f"[done] phases {only}; total {time.perf_counter() - t_all:.1f} s (no result line)")
         return 0

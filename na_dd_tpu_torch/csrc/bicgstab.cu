@@ -13,9 +13,10 @@
 // three grid-wide barriers; iteration 0 touches 27 (p, v and x are zero).  At
 // N=256 a plane is 528 KB in f64: an iteration streams ~16.9 MB, 5.0 us at
 // the HBM rate, while the ~8.5 MB working set stays in the 50 MB L2; each
-// input must come from device memory once per solve (4.76 MB, 1.4 us).  At
-// the one to three iterations a main-path solve takes, the barriers and the
-// cooperative launch cost about as much as the streaming.
+// input must come from device memory once per solve (4.76 MB, 1.4 us).
+// Measured on the H100 (PERF.md): 12.5 us an iteration, of which ~2.5 us is
+// each barrier, and almost no fixed cost; at the one to three iterations a
+// main-path solve takes, the barriers cost about as much as the streaming.
 #include <cuda_runtime.h>
 
 #include "bicgstab.cuh"
@@ -23,13 +24,13 @@
 
 namespace {
 
-template <typename T, int kForm = 0>
+template <typename T>
 int solve(const T* b, const T* c0, const T* cxm, const T* cxp, const T* cym,
           const T* cyp, const T* inv_diag, const T* mask, T* x, int* iters_out,
           T* work, T* partials, int n0, int n1, int iters, double tol_sq_coef,
           int blocks, void* stream) {
   const Stencil5Op<T> A{c0, cxm, cxp, cym, cyp, n0, n1};
-  return bicgstab::launch<T, Stencil5Op<T>, kForm>(A, b, inv_diag, mask, x, iters_out, work,
+  return bicgstab::launch<T>(A, b, inv_diag, mask, x, iters_out, work,
                              partials, iters, tol_sq_coef, blocks, stream);
 }
 
@@ -69,29 +70,6 @@ int bicgstab_solve_f32(const float* b, const float* c0, const float* cxm,
   return solve<float>(b, c0, cxm, cxp, cym, cyp, inv_diag, mask, x, iters_out,
                       work, partials, n0, n1, iters, tol_sq_coef, blocks,
                       stream);
-}
-
-// Comparison forms (bit 0: p^ stored, four barriers; bit 1: L1-cacheable
-// loads of the work arrays), float64 only.
-int bicgstab_blocks_form_f64(int form, int n, int* blocks) {
-  switch (form) {
-    case 1: return bicgstab::grid_blocks<double, Stencil5Op<double>, 1>(n, blocks);
-    case 2: return bicgstab::grid_blocks<double, Stencil5Op<double>, 2>(n, blocks);
-    case 3: return bicgstab::grid_blocks<double, Stencil5Op<double>, 3>(n, blocks);
-    default: return bicgstab::grid_blocks<double, Stencil5Op<double>, 0>(n, blocks);
-  }
-}
-
-int bicgstab_solve_form_f64(int form, const double* b, const double* c0, const double* cxm, const double* cxp, const double* cym, const double* cyp,
-                         const double* inv_diag, const double* mask, double* x,
-                         int* iters_out, double* work, double* partials, int n0, int n1,
-                         int iters, double tol_sq_coef, int blocks, void* stream) {
-  switch (form) {
-    case 1: return solve<double, 1>(b, c0, cxm, cxp, cym, cyp, inv_diag, mask, x, iters_out, work, partials, n0, n1, iters, tol_sq_coef, blocks, stream);
-    case 2: return solve<double, 2>(b, c0, cxm, cxp, cym, cyp, inv_diag, mask, x, iters_out, work, partials, n0, n1, iters, tol_sq_coef, blocks, stream);
-    case 3: return solve<double, 3>(b, c0, cxm, cxp, cym, cyp, inv_diag, mask, x, iters_out, work, partials, n0, n1, iters, tol_sq_coef, blocks, stream);
-    default: return solve<double, 0>(b, c0, cxm, cxp, cym, cyp, inv_diag, mask, x, iters_out, work, partials, n0, n1, iters, tol_sq_coef, blocks, stream);
-  }
 }
 
 const char* error_string(int code) {

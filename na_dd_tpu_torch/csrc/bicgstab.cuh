@@ -33,9 +33,8 @@
 //      r = s (- omega t); r.r, r^.r partials.         barrier -> done
 // Own-point and neighbour values go through the same __forceinline__
 // functions (next_p, next_s), so they are the same floating-point
-// operations, and each thread sums its points in the same order as the
-// five-barrier form of earlier versions: iterates and partials are bit for
-// bit those of a solve that stores p^ = D^-1 p and s^ = D^-1 s.
+// operations: iterates and partials are bit for bit those of the same
+// schedule with p^ = D^-1 p' and s^ = D^-1 s stored.
 // Iteration 0 is specialised: with x0 = 0, p' = b + 0 exactly, so p, v, x
 // are not read and the b.b partial rides on pass A's barrier (no set-up
 // pass).  Pass C writes x * mask into the output every iteration, and the
@@ -46,11 +45,20 @@
 // slot; after the barrier warp 0 of every block sums all partials of the
 // barrier's slots in one loop, lane l adding blocks l, l + 32, ... in turn,
 // so all blocks hold bit-identical scalars and take the same `done` branch,
-// which makes a real `break` equal to the masked fixed budget.  Every array
-// this launch writes, and the rhs b (which K4 writes in the launch), is read
-// through L2 (__ldcg): another block may have written it, and a stale L1 line
-// must never shadow that.  Scratch (seven working arrays and the partials)
-// is allocated by the caller.
+// which makes a real `break` equal to the masked fixed budget.
+//
+// Loads.  No pass reads an array that the same pass writes at another point:
+// a value crosses between blocks only over a grid barrier, whose fence orders
+// the writes before every later read.  So the work arrays, and the rhs b
+// (which K4 writes in the launch), are read with plain loads that L1 may
+// serve, neighbours' values included; never through the read-only path,
+// which is not coherent within a launch.  On the H100 this form was the
+// fastest at every main-path shape (257^2, 1025^2, 65^3, 129^3) against the
+// same loads through L2 only (__ldcg) and against p^ stored with a fourth
+// barrier, through L2 or L1, all four bit for bit equal (PERF.md, Findings).
+// The partials are still read through L2.
+// Scratch (seven working arrays and the partials) is allocated by the
+// caller.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -62,7 +70,7 @@ namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kWorkArrays = 8;  // comparison form: + p^
+constexpr int kWorkArrays = 7;
 constexpr int kMaxSlotsPerBarrier = 3;
 
 // Dot-product slots in the partials array (slot * gridDim.x + block); the
@@ -77,7 +85,6 @@ struct Work {
   T* v[2];  // likewise v and v'
   T* t;
   T* x;  // the unmasked iterate, kept while another iteration may follow
-  T* phat;  // comparison form only: p^ = D^-1 p' stored
   T* partials;  // kNumSlots * gridDim.x
 };
 
@@ -89,7 +96,6 @@ Work<T> make_work(T* work, size_t n, T* partials) {
                  {work + 3 * n, work + 4 * n},
                  work + 5 * n,
                  work + 6 * n,
-                 work + 7 * n,
                  partials};
 }
 
@@ -192,11 +198,11 @@ __device__ __forceinline__ void grid_totals(const T* partials, int first,
   for (int s = 0; s < kS; ++s) out[s] = bcast[s];
 }
 
-// A value of an array that this launch writes, or may write (see above).
-template <typename T, bool kL1 = false>
+// A value of an array that this launch writes, or may write (see above): a
+// plain load, which L1 may serve.
+template <typename T>
 __device__ __forceinline__ T ld(const T* a, int k) {
-  if constexpr (kL1) return a[k];  // comparison form: L1-cacheable loads
-  return __ldcg(a + k);
+  return a[k];
 }
 
 // p' = r + beta (p - omega v) at one point, own or neighbour.
@@ -218,16 +224,13 @@ __device__ __forceinline__ T next_s(T r, T v, T alpha) {
 // (kMaxSlotsPerBarrier) are the block's shared scratch.  Ends without a grid
 // sync: a caller that reads x at a neighbour's point, or starts another solve
 // on the same work arrays, syncs first.
-template <typename T, class Op, int kForm = 0>
+template <typename T, class Op>
 __device__ __forceinline__ Result<T> solve(cg::grid_group& grid, const Op& A,
                                            const T* b, const T* inv_diag_in,
                                            const T* mask_in, T* x,
                                            const Work<T>& W, int iters,
                                            double tol_sq_coef, T* red,
                                            T* bcast) {
-  constexpr bool kStoredPhat = (kForm & 1) != 0;
-  constexpr bool kL1 = (kForm & 2) != 0;
-  const auto ld = [](const T* a, int k) { return bicgstab::ld<T, kL1>(a, k); };
   const int n = A.size();
   const int stride = gridDim.x * kThreads;
   const int first = blockIdx.x * kThreads + threadIdx.x;
@@ -244,20 +247,10 @@ __device__ __forceinline__ Result<T> solve(cg::grid_group& grid, const Op& A,
     const auto phat = [&](int j) {
       return (ld(b, j) + T(0)) * __ldg(inv_diag + j);
     };
-    const auto stored = [&](int j) { return ld(W.phat, j); };
-    if constexpr (kStoredPhat) {
-      for (int k = first; k < n; k += stride) W.phat[k] = phat(k);
-      grid.sync();
-    }
     for (int k = first; k < n; k += stride) {
       const T bk = ld(b, k);
       Pn[k] = bk + T(0);
-      T vk;
-      if constexpr (kStoredPhat) {
-        vk = A.apply_of(stored, k);
-      } else {
-        vk = A.apply_of(phat, k);
-      }
+      const T vk = A.apply_of(phat, k);
       Vn[k] = vk;
       acc[0] += bk * vk;
       acc[1] += bk * bk;
@@ -298,22 +291,9 @@ __device__ __forceinline__ Result<T> solve(cg::grid_group& grid, const Op& A,
                __ldg(inv_diag + j);
       };
       T acc[1] = {T(0)};  // r^.v'
-      const auto stored = [&](int j) { return ld(W.phat, j); };
-      if constexpr (kStoredPhat) {
-        for (int k = first; k < n; k += stride) {
-          Pn[k] = next_p(ld(r, k), ld(Pc, k), ld(Vc, k), beta, omega);
-          W.phat[k] = Pn[k] * __ldg(inv_diag + k);
-        }
-        grid.sync();
-      }
       for (int k = first; k < n; k += stride) {
-        T vk;
-        if constexpr (kStoredPhat) {
-          vk = A.apply_of(stored, k);
-        } else {
-          Pn[k] = next_p(ld(r, k), ld(Pc, k), ld(Vc, k), beta, omega);
-          vk = A.apply_of(phat, k);
-        }
+        Pn[k] = next_p(ld(r, k), ld(Pc, k), ld(Vc, k), beta, omega);
+        const T vk = A.apply_of(phat, k);
         Vn[k] = vk;
         acc[0] += ld(b, k) * vk;
       }
@@ -387,18 +367,21 @@ __device__ __forceinline__ Result<T> solve(cg::grid_group& grid, const Op& A,
   return Result<T>{used, rr, tol_sq};
 }
 
-template <typename T, class Op, int kForm = 0>
+template <typename T, class Op>
 __global__ void __launch_bounds__(kThreads) bicgstab_kernel(Params<T, Op> P) {
   cg::grid_group grid = cg::this_grid();
   __shared__ T red[kMaxSlotsPerBarrier * kWarps];
   __shared__ T bcast[kMaxSlotsPerBarrier];
-  const Result<T> res = solve<T, Op, kForm>(grid, P.A, P.b, P.inv_diag, P.mask, P.x,
+  const Result<T> res = solve<T, Op>(grid, P.A, P.b, P.inv_diag, P.mask, P.x,
                                      P.W, P.iters, P.tol_sq_coef, red, bcast);
   if (blockIdx.x == 0 && threadIdx.x == 0) *P.iters_out = res.used;
 }
 
 // Cooperative grid size of `kernel` for n points: the blocks that can be
-// co-resident, capped by the blocks n needs.
+// co-resident, capped by the blocks n needs.  On the H100 this rule was
+// within 5 % of the best of 1 block a SM, 2 a SM and itself at every
+// main-path shape, in f64 and f32, and up to 1.9x faster than 1 a SM where
+// the points fill the card (PERF.md, Findings).
 template <class Kernel>
 int grid_blocks_of(Kernel kernel, int n, int* blocks) {
   int dev = 0;
@@ -421,9 +404,9 @@ int grid_blocks_of(Kernel kernel, int n, int* blocks) {
   return static_cast<int>(cudaSuccess);
 }
 
-template <typename T, class Op, int kForm = 0>
+template <typename T, class Op>
 int grid_blocks(int n, int* blocks) {
-  return grid_blocks_of(bicgstab_kernel<T, Op, kForm>, n, blocks);
+  return grid_blocks_of(bicgstab_kernel<T, Op>, n, blocks);
 }
 
 // One cooperative launch of `kernel` on its one argument `params`.
@@ -438,7 +421,7 @@ int launch_cooperative(Kernel kernel, P& params, int blocks, void* stream) {
 }
 
 // `work` holds the seven working arrays of A.size() points each.
-template <typename T, class Op, int kForm = 0>
+template <typename T, class Op>
 int launch(const Op& A, const T* b, const T* inv_diag, const T* mask, T* x,
            int* iters_out, T* work, T* partials, int iters,
            double tol_sq_coef, int blocks, void* stream) {
@@ -451,8 +434,7 @@ int launch(const Op& A, const T* b, const T* inv_diag, const T* mask, T* x,
                   make_work(work, static_cast<size_t>(A.size()), partials),
                   iters,
                   tol_sq_coef};
-  return launch_cooperative(bicgstab_kernel<T, Op, kForm>, P, blocks,
-                            stream);
+  return launch_cooperative(bicgstab_kernel<T, Op>, P, blocks, stream);
 }
 
 }  // namespace bicgstab

@@ -16,11 +16,12 @@
 // Two regimes:
 //   N=64 (65^3, 2.2 MB a volume in f64): the 18 working volumes (~40 MB)
 //     fit the 50 MB L2, so an iteration is served mostly from L2 and the
-//     barriers weigh as much as the streaming;
+//     barriers weigh about a fifth of it (30 us an iteration on the H100,
+//     ~2.2 us a barrier; PERF.md);
 //   N=128 (129^3, 17.2 MB a volume): they do not (~310 MB), so each
 //     iteration streams its volumes from HBM (~620 MB, ~185 us at
-//     3.35 TB/s); the +-x neighbours, 133 KB apart, come from L2, since the
-//     grid sweeps a few x-planes at a time.
+//     3.35 TB/s; 235 us measured); the +-x neighbours, 133 KB apart, come
+//     from L2, since the grid sweeps a few x-planes at a time.
 // Each input must come from device memory once per solve: 11 volumes (b,
 // seven coefficients, inv_diag, mask, and x written), 24.2 MB at N=64 and
 // 188.9 MB at N=128.
@@ -54,14 +55,14 @@ struct Stencil7Op {
   }
 };
 
-template <typename T, int kForm = 0>
+template <typename T>
 int solve(const T* b, const T* c0, const T* cxm, const T* cxp, const T* cym,
           const T* cyp, const T* czm, const T* czp, const T* inv_diag,
           const T* mask, T* x, int* iters_out, T* work, T* partials, int n0,
           int n1, int n2, int iters, double tol_sq_coef, int blocks,
           void* stream) {
   const Stencil7Op<T> A{c0, cxm, cxp, cym, cyp, czm, czp, n0, n1, n2};
-  return bicgstab::launch<T, Stencil7Op<T>, kForm>(A, b, inv_diag, mask, x, iters_out, work,
+  return bicgstab::launch<T>(A, b, inv_diag, mask, x, iters_out, work,
                              partials, iters, tol_sq_coef, blocks, stream);
 }
 
@@ -104,29 +105,6 @@ int bicgstab3_solve_f32(const float* b, const float* c0, const float* cxm,
   return solve<float>(b, c0, cxm, cxp, cym, cyp, czm, czp, inv_diag, mask, x,
                       iters_out, work, partials, n0, n1, n2, iters,
                       tol_sq_coef, blocks, stream);
-}
-
-// Comparison forms (bit 0: p^ stored, four barriers; bit 1: L1-cacheable
-// loads of the work arrays), float64 only.
-int bicgstab3_blocks_form_f64(int form, int n, int* blocks) {
-  switch (form) {
-    case 1: return bicgstab::grid_blocks<double, Stencil7Op<double>, 1>(n, blocks);
-    case 2: return bicgstab::grid_blocks<double, Stencil7Op<double>, 2>(n, blocks);
-    case 3: return bicgstab::grid_blocks<double, Stencil7Op<double>, 3>(n, blocks);
-    default: return bicgstab::grid_blocks<double, Stencil7Op<double>, 0>(n, blocks);
-  }
-}
-
-int bicgstab3_solve_form_f64(int form, const double* b, const double* c0, const double* cxm, const double* cxp, const double* cym, const double* cyp, const double* czm, const double* czp,
-                         const double* inv_diag, const double* mask, double* x,
-                         int* iters_out, double* work, double* partials, int n0, int n1, int n2,
-                         int iters, double tol_sq_coef, int blocks, void* stream) {
-  switch (form) {
-    case 1: return solve<double, 1>(b, c0, cxm, cxp, cym, cyp, czm, czp, inv_diag, mask, x, iters_out, work, partials, n0, n1, n2, iters, tol_sq_coef, blocks, stream);
-    case 2: return solve<double, 2>(b, c0, cxm, cxp, cym, cyp, czm, czp, inv_diag, mask, x, iters_out, work, partials, n0, n1, n2, iters, tol_sq_coef, blocks, stream);
-    case 3: return solve<double, 3>(b, c0, cxm, cxp, cym, cyp, czm, czp, inv_diag, mask, x, iters_out, work, partials, n0, n1, n2, iters, tol_sq_coef, blocks, stream);
-    default: return solve<double, 0>(b, c0, cxm, cxp, cym, cyp, czm, czp, inv_diag, mask, x, iters_out, work, partials, n0, n1, n2, iters, tol_sq_coef, blocks, stream);
-  }
 }
 
 const char* error_string(int code) {

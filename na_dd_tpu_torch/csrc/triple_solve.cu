@@ -33,9 +33,9 @@
 // more grid sync comes before that pass (dT must be visible at the
 // neighbours' points, and the dot-product partials must be free), so a
 // solve's set-up costs the sync the solve itself no longer makes.  The
-// scratch plane is read through L2, never through the read-only path,
+// scratch plane is read with plain loads, never through the read-only path,
 // because this launch wrote it.  dT is read through the coupling stencils
-// with L2 loads (Stencil5Op), dcl only at the thread's own point.
+// with L2 loads (Stencil5Op::apply), dcl only at the thread's own point.
 #include <cuda_runtime.h>
 
 #include "bicgstab.cuh"
