@@ -270,7 +270,8 @@ def compare_triple(operands, *, tol, iters, xtol, stol, label):
     *xk, ik = kernels.triple_solve(*operands, tol=tol, iters=iters)
     *xp, ip = kernels.triple_solve_plain(*operands, tol=tol, iters=iters)
     torch.cuda.synchronize()
-    rels = [rel_to_max(a, b) for a, b in zip(xk, xp)]
+    tiny = torch.finfo(xk[0].dtype).tiny  # an increment that is 0 must come out 0
+    rels = [float((a - b).abs().max() / b.abs().max().clamp_min(tiny)) for a, b in zip(xk, xp)]
     itk, itp = ik["iters"].tolist(), ip["iters"].tolist()
     # The recurrence residual of a converged solve is what cancellation left
     # of r: once it nears the rounding floor (eps |b|)^2 of the iteration its
@@ -314,6 +315,13 @@ def phase_k4(device):
                                          xtol=xtol, stol=stol,
                                          label=f"{name} random {shape}, budget cut to 1")
                 check(not all(conv), "K4 budget cut: one iteration should not converge")
+    # the T solve ends before its first iteration and writes dT after its
+    # only barrier: cl's rhs must still see dT = 0 at every neighbour
+    operands = list(random_triple(rng, (257, 257), torch.float64, device))
+    operands[6] = torch.zeros_like(operands[6])  # rhs_T
+    _, conv = compare_triple(tuple(operands), tol=1e-13, iters=40, xtol=1e-12, stol=1e-10,
+                             label="float64 random (257, 257), rhs_T = 0")
+    check(all(conv), "K4 rhs_T = 0: a solve did not converge")
     main_err = None
     for dtype, xtol, stol in ((torch.float64, 1e-12, 1e-10), (torch.float32, 1e-5, 1e-4)):
         operands, solver = step1_triple(dtype, device)
@@ -1023,6 +1031,86 @@ def per_solve_route(operands, *, tol, iters):
     return dT, dcl, dcd
 
 
+def cast_triple(operands, dtype):
+    """K4's operands in another dtype."""
+    return tuple(
+        type(o)(*(c.to(dtype) for c in o)) if isinstance(o, tuple)
+        else (o.to(dtype) if hasattr(o, "to") else o)
+        for o in operands)
+
+
+def triple_costs(operands, label, reps):
+    """Fixed and per-iteration device time of K4 on one set of random
+    dominant operands: every solve capped at 1, 2, 4 and 8 iterations (tol
+    1e-13, so each runs its whole budget), the least-squares line through
+    them; per iteration = the slope over the three solves, per barrier = that
+    less the streaming of one iteration at the HBM rate, over the three
+    barriers an iteration makes."""
+    from na_dd_tpu_torch.ops import kernels
+
+    caps = (1, 2, 4, 8)
+    us = []
+    for cap in caps:
+        used = kernels.triple_solve(*operands, tol=1e-13, iters=cap)[3]["iters"].tolist()
+        check(used == [cap] * 3, f"{label}: solves capped at {cap} took {used} iterations")
+        ms = kernel_device_ms(lambda: kernels.triple_solve(*operands, tol=1e-13, iters=cap),
+                              reps, "triple_solve_kernel")
+        check(ms is not None, f"{label}: no device time for K4")
+        us.append(ms * 1e3)
+    slope, intercept = (float(v) for v in np.polyfit(caps, us, 1))
+    rhs = operands[6]
+    stream = PASSES[2][1] * rhs.numel() * rhs.element_size() / HBM_BYTES_PER_S * 1e6
+    per_iteration = slope / 3
+    per_barrier = (per_iteration - stream) / BARRIERS_PER_ITERATION
+    log(f"[cost] {label}: solves capped at {caps} iterations " + ", ".join(f"{u:.2f}" for u in us)
+        + f" us; fixed {intercept:.2f} us, per iteration of a solve {per_iteration:.2f} us, of "
+        f"which streaming {stream:.2f} us ({PASSES[2][1]} planes at the HBM rate); per barrier "
+        f"{per_barrier:.2f} us")
+    return {"us": us, "fixed": intercept, "per_iteration": per_iteration,
+            "per_barrier": per_barrier}
+
+
+def triple_grid_table(operands, iters, label, reps):
+    """K4's device time on one set of operands at its grid rule in clusters
+    of c = 1, 2, 4 and 8 blocks, and at 1 and 2 blocks a SM in clusters of
+    the kept size, in float64 and float32."""
+    import torch
+
+    from na_dd_tpu_torch.integrators.pc_trapezoidal import default_krylov_tol
+    from na_dd_tpu_torch.ops import kernels
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    kept = kernels.TRIPLE_CLUSTER
+    n = operands[6].numel()
+    try:
+        for dtype in (torch.float64, torch.float32):
+            ops_d = cast_triple(operands, dtype)
+            tol = default_krylov_tol(dtype)
+
+            def run():
+                return kernels.triple_solve(*ops_d, tol=tol, iters=iters)
+
+            for c in (1, 2, 4, 8):
+                kernels.TRIPLE_CLUSTER = c
+                run()
+                key = ("triple_solve", dtype, n, kernels.TRIPLE_FORM, c)
+                rule = kernels._BLOCKS[key]
+                need = -(-n // (256 * c)) * c  # the blocks n needs, in whole clusters
+                rows = [("rule", rule)]
+                if c == kept:
+                    rows += [("1/SM", min(need, sms // c * c)), ("2/SM", min(need, 2 * sms // c * c))]
+                for name, blocks in rows:
+                    kernels._BLOCKS[key] = blocks
+                    used = run()[3]["iters"].tolist()
+                    ms = kernel_device_ms(run, reps, "triple_solve_kernel")
+                    check(ms is not None, f"{label}: no device time for K4")
+                    log(f"[grid] {label} {str(dtype)[6:]}: clusters of {c}, {name} {blocks} blocks "
+                        f"({blocks / sms:.2f} a SM): {ms * 1e3:.2f} us, iterations {used}")
+                kernels._BLOCKS[key] = rule
+    finally:
+        kernels.TRIPLE_CLUSTER = kept
+
+
 def timings_k4_k3(device):
     """K4 on the step-1 systems of the N=256 level and on random systems at
     1025 x 1025, each beside the per-solve route on the same operands; K3 (the
@@ -1067,6 +1155,11 @@ def timings_k4_k3(device):
             f"{route_ms / res[key]['wrapper_ms']:.2f}x the K4 wrapper call; cooperative grid "
             f"{blocks} blocks of 256 threads; {res[key]['ms'] * 1e3 / max(sum(its), 1):.2f} us "
             "an iteration")
+    triple_grid_table(step1, solver.iters, f"K4 {MAIN_N + 1}x{MAIN_N + 1} step-1", 20)
+    triple_costs(random_triple(np.random.default_rng(257), (MAIN_N + 1, MAIN_N + 1),
+                               torch.float64, device),
+                 f"K4 {MAIN_N + 1}x{MAIN_N + 1} random dominant", 20)
+    triple_costs(big, f"K4 {SCALE_N + 1}x{SCALE_N + 1} random dominant", 2)
     del big, step1, operands, fused, k4_out
 
     st, u = random_planes(np.random.default_rng(33), (SCALE_N + 1, SCALE_N + 1), torch.float64,
@@ -1088,6 +1181,94 @@ def timings_k4_k3(device):
         log(f"[time] stencil5_apply f32 1025x1025: kernel (device) {ms32 * 1e3:.2f} us, bound "
             f"{7 * u32.numel() * 4 / HBM_BYTES_PER_S * 1e6:.3f} us (bytes)")
     return res
+
+
+# The forms of K4 compared in one call: (form, cluster size, what it is).
+K4_FORMS = (
+    (0, 1, "PR 4's kernel"),
+    (1, 1, "grid sync, rhs formed in pass A"),
+    (2, 1, "grid sync, coupled rhs by a pass + sync"),
+    (5, 1, "grid sync, coupled rhs by a pass + sync, 64 registers"),
+    (3, 1, "own barrier, no clusters, rhs in pass A"),
+    (3, 2, "cluster barrier c=2, rhs in pass A"),
+    (3, 4, "cluster barrier c=4, rhs in pass A"),
+    (4, 1, "own barrier, no clusters, rhs pass + sync"),
+    (4, 2, "cluster barrier c=2, rhs pass + sync"),
+    (4, 4, "cluster barrier c=4, rhs pass + sync"),
+    (4, 8, "cluster barrier c=8, rhs pass + sync"),
+    (6, 1, "own barrier, rhs pass + sync, 3 blocks a SM"),
+    (6, 2, "cluster barrier c=2, rhs pass + sync, 3 blocks a SM"),
+)
+
+
+def phase_forms(device):
+    """Every form of K4 on the step-1 systems of the N=256 analytic level and
+    on random 1025 x 1025 systems, float64 and float32, each against the
+    plain version, timed on the device; and each form's fixed and
+    per-iteration cost at 257 x 257."""
+    import torch
+
+    from na_dd_tpu_torch.integrators.pc_trapezoidal import default_krylov_tol
+    from na_dd_tpu_torch.ops import kernels
+
+    kept = (kernels.TRIPLE_FORM, kernels.TRIPLE_CLUSTER)
+    systems = []
+    for dtype, xtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        ops, solver = step1_triple(dtype, device)
+        systems.append((f"step-1 N={MAIN_N} {str(dtype)[6:]}", ops, solver.iters,
+                        default_krylov_tol(dtype), xtol, 20))
+    for dtype, xtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        ops = random_triple(np.random.default_rng(44), (SCALE_N + 1, SCALE_N + 1), dtype, device)
+        systems.append((f"random {SCALE_N + 1}^2 {str(dtype)[6:]}", ops, 40,
+                        default_krylov_tol(dtype), xtol, 3))
+    failed = []
+    table = {}
+    try:
+        for label, ops, iters, tol, xtol, reps in systems:
+            *xp, ip = kernels.triple_solve_plain(*ops, tol=tol, iters=iters)
+            n = ops[6].numel()
+            for form, c, name in K4_FORMS:
+                kernels.TRIPLE_FORM, kernels.TRIPLE_CLUSTER = form, c
+                try:
+                    *xk, ik = kernels.triple_solve(*ops, tol=tol, iters=iters)
+                    torch.cuda.synchronize()
+                    rel = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(xk, xp))
+                    same = (ik["iters"].tolist() == ip["iters"].tolist()
+                            and ik["converged"].tolist() == ip["converged"].tolist())
+                    ms = kernel_device_ms(lambda: kernels.triple_solve(*ops, tol=tol, iters=iters),
+                                          reps, "triple_solve_kernel")
+                    blocks = kernels._BLOCKS[("triple_solve", ops[6].dtype, n, form, c)]
+                    table[(label, form, c)] = ms * 1e3
+                    log(f"[forms] {label}: form {form} c={c} ({name}): {ms * 1e3:.2f} us, {blocks} "
+                        f"blocks, iterations {ik['iters'].tolist()}, max rel diff {rel:.3e} "
+                        f"(limit {xtol:g}){'' if same else ', ITERATIONS OR FLAGS DIFFER'}")
+                    if not (same and rel <= xtol):
+                        failed.append((label, form, c))
+                except Exception as exc:  # a measurement phase: report, fail at the end
+                    log(f"[forms] {label}: form {form} c={c} ({name}) FAILED: {exc!r}")
+                    failed.append((label, form, c))
+        cost_ops = random_triple(np.random.default_rng(257), (MAIN_N + 1, MAIN_N + 1),
+                                 torch.float64, device)
+        for form, c, name in K4_FORMS:
+            kernels.TRIPLE_FORM, kernels.TRIPLE_CLUSTER = form, c
+            try:
+                cost = triple_costs(cost_ops, f"K4 form {form} c={c} ({name}) 257x257", 20)
+                table[("cost", form, c)] = cost
+            except Exception as exc:
+                log(f"[forms] cost form {form} c={c} FAILED: {exc!r}")
+                failed.append(("cost", form, c))
+    finally:
+        kernels.TRIPLE_FORM, kernels.TRIPLE_CLUSTER = kept
+    log("[forms] table (us): " + " | ".join(label for label, *_ in systems)
+        + " | per barrier at 257^2")
+    for form, c, name in K4_FORMS:
+        cells = [table.get((label, form, c)) for label, *_ in systems]
+        cost = table.get(("cost", form, c))
+        log(f"[forms]   form {form} c={c} {name}: "
+            + " | ".join("-" if v is None else f"{v:.2f}" for v in cells)
+            + (" | -" if cost is None else f" | {cost['per_barrier']:.2f} "
+               f"(per iteration {cost['per_iteration']:.2f}, fixed {cost['fixed']:.2f})"))
+    check(not failed, f"K4 forms failed: {failed}")
 
 
 def phase_profile(device):
@@ -1489,7 +1670,38 @@ def phase_profile3(device):
     log(f"[profile3] one step_fn: {step_launches} launches; {breakdown}")
 
 
-PHASES = ("k2", "k1", "k3", "k4", "slice", "f32", "analytic", "scale", "timings", "profile",
+def ptxas_rows(text: str):
+    """(kernel, registers, stack frame bytes, spill store bytes, spill load
+    bytes) of each entry function in nvcc's ``-Xptxas -v`` report."""
+    import re
+
+    rows, name, frame = [], None, (0, 0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, frame = m.group(1), (0, 0, 0)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            frame = tuple(int(v) for v in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            rows.append((demangle(name), int(m.group(1)), *frame))
+            name = None
+    return rows
+
+
+def demangle(name: str) -> str:
+    try:
+        out = subprocess.run(["c++filt", name], capture_output=True, text=True, timeout=30)
+        return out.stdout.strip() or name
+    except OSError:
+        return name
+
+
+PHASES = ("k2", "k1", "k3", "forms", "k4", "slice", "f32", "analytic", "scale", "timings", "profile",
           "k6", "k5", "3d", "3d128", "3d_f32", "timings3", "profile3")
 
 
@@ -1527,9 +1739,9 @@ def main(argv=None) -> int:
         f"sources, built in parallel")
     for name, info in kernels.BUILD_INFO.items():
         log(f"[build] {name}: {info['seconds']:.1f} s (cached {info['cached']})")
-        for line in info["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build]   {line.strip()}")
+        for kernel, regs, stack, spill_st, spill_ld in ptxas_rows(info["ptxas"]):
+            log(f"[build]   {kernel}: {regs} registers, {stack} bytes stack frame, "
+                f"{spill_st} bytes spill stores, {spill_ld} bytes spill loads")
 
     done = {}
 
@@ -1542,6 +1754,7 @@ def main(argv=None) -> int:
     phase("k2", phase_apply5, device, "k2", K2_SHAPES, 2)
     phase("k1", phase_k1, device)
     phase("k3", phase_apply5, device, "k3", K3_SHAPES, 3)
+    phase("forms", phase_forms, device)
     phase("k4", phase_k4, device)
     phase("slice", phase_slice_f64, device)
     phase("f32", phase_slice_f32, device)

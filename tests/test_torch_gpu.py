@@ -281,3 +281,60 @@ def test_triple_solve_kernel_edge_cases(card, case, shape):
         assert used == [1] * 3
     if case == "dominant":
         assert all(0 < u < 40 for u in used)
+
+
+def _check_triple(operands, *, iters, tol=1e-13):
+    """K4 against its plain version: the same iteration counts and flags,
+    each increment within 1e-12 of the plain version's max-norm (exactly 0
+    where the plain one is 0).  Returns the iteration counts."""
+    *xk, ik = kernels.triple_solve(*operands, tol=tol, iters=iters)
+    *xp, ip = kernels.triple_solve_plain(*operands, tol=tol, iters=iters)
+    assert ik["iters"].tolist() == ip["iters"].tolist()
+    assert ik["converged"].tolist() == ip["converged"].tolist()
+    for a, b in zip(xk, xp):
+        if float(b.abs().max()) == 0.0:
+            assert float(a.abs().max()) == 0.0
+        else:
+            assert_close(a, b, 1e-12)
+    return ik["iters"].tolist()
+
+
+# 9 x 9 is one block; 130 x 257 needs 131 blocks and 33 x 20 three, neither a
+# whole number of clusters of 2, 4 or 8.
+RAGGED = [(9, 9), (130, 257), (33, 20)]
+
+
+@pytest.mark.parametrize("shape", RAGGED + [(257, 257)])
+def test_triple_solve_kernel_zero_rhs_T_alone(card, shape):
+    """rhs_T = 0: the T solve takes no iteration and writes dT after its only
+    barrier; cl and cd must read dT = 0 at every neighbour and run."""
+    operands = list(_triple(45, shape, torch.float64, card))
+    operands[6] = torch.zeros_like(operands[6])
+    used = _check_triple(operands, iters=40)
+    assert used[0] == 0 and min(used[1:]) > 0
+
+
+@pytest.mark.parametrize("shape", RAGGED + [(257, 257)])
+def test_triple_solve_kernel_T_exits_on_s_conv(card, shape):
+    """J_T = c0·I: the T solve ends on s_conv in its first iteration."""
+    operands = list(_triple(46, shape, torch.float64, card))
+    operands[0] = _edge_case("diagonal", (operands[0], None, None, None))[0]
+    used = _check_triple(operands, iters=40)
+    assert used[0] == 1 and min(used[1:]) > 0
+
+
+@pytest.mark.parametrize("iters", [0, 1])
+@pytest.mark.parametrize("shape", RAGGED)
+def test_triple_solve_kernel_budget_on_ragged_grids(card, shape, iters):
+    used = _check_triple(_triple(47, shape, torch.float64, card), iters=iters)
+    assert used == [iters] * 3
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("shape", [(9, 9), (130, 257)])
+def test_triple_solve_kernel_every_cluster_size(card, monkeypatch, shape, cluster):
+    """K4 launched in clusters of 1, 2, 4 and 8 blocks (chip_smoke.py's grid
+    table times each) agrees with the plain version at each."""
+    monkeypatch.setattr(kernels, "TRIPLE_CLUSTER", cluster)
+    used = _check_triple(_triple(48, shape, torch.float64, card), iters=40)
+    assert all(0 < u < 40 for u in used)

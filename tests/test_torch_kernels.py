@@ -369,15 +369,23 @@ def _safe_div(num, den):
     return (num / den if ok else torch.zeros_like(num)), ok
 
 
-def _three_pass_schedule(apply, b, inv, mask, *, tol, iters):
+def _three_pass_schedule(apply, b, inv, mask, *, tol, iters, form_b=None):
     """BiCGStab from x0 = 0 in the order the CUDA solve runs it: iteration 0
     specialised (p' = b + 0, b·b taken in its first pass), p' and v' in
     ping-pong buffers, s recomputed in passes B and C and never stored, r
-    written only in pass C, x·mask written by every pass C.  Returns
-    (x·mask, iterations used, r·r at exit, whether the exit was on s_conv)."""
+    written only in pass C, x·mask written by every pass C.  ``form_b``
+    (K4): the rhs is formed in iteration 0's pass A, once where the
+    neighbours' D⁻¹p' read it and once more at the own point, where it is
+    stored for the later passes (``b`` is then unused).  Returns (x·mask,
+    iterations used, r·r at exit, whether the exit was on s_conv)."""
     dot = lambda u, v: torch.sum(u * v)  # noqa: E731
+    if form_b is None:
+        phat0 = (b + 0.0) * inv
+    else:
+        phat0 = (form_b() + 0.0) * inv  # recomputed at the neighbours
+        b = form_b()  # formed at the own point and stored
     P, V = [None, b + 0.0], [None, None]
-    V[1] = apply(P[1] * inv)  # pass A of iteration 0
+    V[1] = apply(phat0)  # pass A of iteration 0
     rv, bb = dot(b, V[1]), dot(b, b)
     tol_sq = tol * tol * bb
     rr = rhat_r = bb
@@ -464,3 +472,114 @@ def test_three_pass_schedule_matches_bicgstab_unrolled(case, shape, iters):
         assert used == iters  # the budget ends the solve
     elif case == "dominant":
         assert 2 < used < iters  # converged inside the budget
+
+
+# ---------------------------------------------------------------------------
+# K4's sweep as the CUDA kernel runs it (csrc/triple_solve.cu), replayed
+# ---------------------------------------------------------------------------
+def _triple_schedule(operands, *, tol, iters):
+    """K4 in the order the kernel runs it: the T rhs read as rhs_T·m, each
+    coupled rhs formed in its solve's iteration-0 pass A (recomputed at the
+    neighbours, stored at the own point), no pass of K4's own between the
+    solves.  Returns what :func:`kernels.triple_solve_plain` returns."""
+    (J_T, J_cl, J_cd, C_clT, C_cdT, d_cdcl, rhs_T, base_cl, base_cd,
+     invd_T, invd_cl, invd_cd, mask, dt) = operands
+    infos = []
+
+    def solve(J, form_b, inv):
+        x, used, rr, _ = _three_pass_schedule(
+            lambda w: J.apply(kernels.LOCAL_OPS, w), None, inv, mask,
+            tol=tol, iters=iters, form_b=form_b)
+        b = form_b()
+        infos.append((torch.tensor(used, dtype=torch.int32), rr, tol * tol * torch.sum(b * b)))
+        return x
+
+    dT = solve(J_T, lambda: rhs_T * mask, invd_T)
+    dcl = solve(J_cl, lambda: (base_cl + dt * C_clT.apply(kernels.LOCAL_OPS, dT)) * mask, invd_cl)
+    dcd = solve(
+        J_cd,
+        lambda: (base_cd + dt * (C_cdT.apply(kernels.LOCAL_OPS, dT) + d_cdcl * dcl)) * mask,
+        invd_cd,
+    )
+    its, res, tol_sq = (torch.stack(v) for v in zip(*infos))
+    return dT, dcl, dcd, {"iters": its, "resnorm_sq": res, "tol_sq": tol_sq,
+                          "converged": res <= tol_sq}
+
+
+def _triple_case(case, shape, dtype):
+    """K4's operands (numpy) for the schedule tests: 'random', or
+    'zero_rhs_T' (rhs_T = 0 with base_cl, base_cd nonzero: the T solve takes
+    no iteration, the case that needs the kernel's sync after it), or
+    'diagonal_T' (J_T = c0·I: the T solve ends on s_conv)."""
+    Js, Cs, d_cdcl, rhs, invs, mask = _triple_operands(71, shape, dtype)
+    if case == "zero_rhs_T":
+        rhs = (np.zeros_like(rhs[0]), rhs[1], rhs[2])
+    elif case == "diagonal_T":
+        Js = [[Js[0][0]] + [np.zeros_like(p) for p in Js[0][1:]]] + Js[1:]
+    return Js, Cs, d_cdcl, rhs, invs, mask
+
+
+def _torch_triple(arrays, dtype, dt=0.05):
+    Js, Cs, d_cdcl, rhs, invs, mask = arrays
+    t = lambda a: tensor_from_numpy(a, dtype, "cpu")  # noqa: E731
+    return (*(stencil5_from_numpy(p, dtype, "cpu") for p in Js + Cs), t(d_cdcl),
+            *map(t, rhs), *map(t, invs), t(mask), dt)
+
+
+SCHEDULE_TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(17, 17), (33, 20)])
+@pytest.mark.parametrize(
+    "case, iters", [("random", 40), ("random", 1), ("zero_rhs_T", 40), ("diagonal_T", 40)]
+)
+def test_triple_schedule_matches_triple_solve_plain(case, iters, shape, dtype):
+    """The kernel's sweep computes triple_solve_plain bit for bit: the same
+    increments, iteration counts, recurrence residuals and tol_sq."""
+    operands = _torch_triple(_triple_case(case, shape, dtype), dtype)
+    tol = SCHEDULE_TOL[dtype]
+    *xs, info_s = _triple_schedule(operands, tol=tol, iters=iters)
+    *xp, info_p = kernels.triple_solve_plain(*operands, tol=tol, iters=iters)
+    for key in ("iters", "resnorm_sq", "tol_sq", "converged"):
+        assert torch.equal(info_s[key], info_p[key]), key
+    assert all(torch.equal(a, b) for a, b in zip(xs, xp))
+    used = info_s["iters"].tolist()
+    if case == "zero_rhs_T":
+        assert used[0] == 0 and float(xs[0].abs().max()) == 0.0 and min(used[1:]) > 0
+    elif case == "diagonal_T":
+        assert used[0] == 1 and min(used[1:]) > 1
+    elif iters == 1:
+        assert used == [1, 1, 1]
+
+
+@functools.lru_cache(maxsize=None)
+def _jitted_triple_pallas(tol, iters):
+    import jax
+
+    return jax.jit(functools.partial(triple_solve_pallas, tol=tol, iters=iters, interpret=True))
+
+
+@pytest.mark.parametrize("case", ["random", "zero_rhs_T"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(17, 17), (33, 20)])
+def test_triple_schedule_matches_pallas(shape, dtype, case):
+    """The kernel's sweep against triple_solve_pallas in interpret mode (a
+    budget of 6: float64 runs it out, float32 converges), same iteration
+    counts; increments within 1e-12 (float64) and 1e-5 (float32, whose sums
+    run in another order) of the reference's max-norm."""
+    arrays = _triple_case(case, shape, dtype)
+    tol, iters = SCHEDULE_TOL[dtype], 6
+    *xs, info_s = _triple_schedule(_torch_triple(arrays, dtype), tol=tol, iters=iters)
+    Js, Cs, d_cdcl, rhs, invs, mask = arrays
+    ref = _jitted_triple_pallas(tol, iters)(
+        *(j_ls.Stencil5(*map(jnp.asarray, p)) for p in Js + Cs), jnp.asarray(d_cdcl),
+        *map(jnp.asarray, rhs), *map(jnp.asarray, invs), jnp.asarray(mask), 0.05,
+    )
+    assert info_s["iters"].tolist() == np.asarray(ref[3]["iters"]).tolist()
+    assert info_s["converged"].tolist() == np.asarray(ref[3]["converged"]).tolist()
+    for x, r in zip(xs, ref[:3]):
+        if case == "zero_rhs_T" and x is xs[0]:
+            assert float(x.abs().max()) == float(np.abs(np.asarray(r)).max()) == 0.0
+        else:
+            assert_close(x, r, TOL[dtype])
