@@ -1183,35 +1183,35 @@ def timings_k4_k3(device):
     return res
 
 
-# The forms of K4 compared in one call: (form, cluster size, what it is).
+# The forms of K4 compared in one call: (form, what it is).
 K4_FORMS = (
-    (0, 1, "PR 4's kernel"),
-    (1, 1, "grid sync, rhs formed in pass A"),
-    (2, 1, "grid sync, coupled rhs by a pass + sync"),
-    (5, 1, "grid sync, coupled rhs by a pass + sync, 64 registers"),
-    (3, 1, "own barrier, no clusters, rhs in pass A"),
-    (3, 2, "cluster barrier c=2, rhs in pass A"),
-    (3, 4, "cluster barrier c=4, rhs in pass A"),
-    (4, 1, "own barrier, no clusters, rhs pass + sync"),
-    (4, 2, "cluster barrier c=2, rhs pass + sync"),
-    (4, 4, "cluster barrier c=4, rhs pass + sync"),
-    (4, 8, "cluster barrier c=8, rhs pass + sync"),
-    (6, 1, "own barrier, rhs pass + sync, 3 blocks a SM"),
-    (6, 2, "cluster barrier c=2, rhs pass + sync, 3 blocks a SM"),
+    (0, "PR 4's kernel"),
+    (1, "rhs in pass A, <=128 registers"),
+    (2, "rhs pass + sync, <=128 registers"),
+    (3, "rhs in pass A, <=85 registers"),
+    (4, "rhs pass + sync, <=85 registers"),
+    (5, "rhs in pass A, <=64 registers"),
+    (6, "rhs pass + sync, <=64 registers"),
 )
 
 
 def phase_forms(device):
     """Every form of K4 on the step-1 systems of the N=256 analytic level and
-    on random 1025 x 1025 systems, float64 and float32, each against the
-    plain version, timed on the device; and each form's fixed and
-    per-iteration cost at 257 x 257."""
+    on random 1025 x 1025 systems, float64 and float32, each at the grids of
+    1, 2, 3 and 4 blocks a SM, of two points a thread and of its rule
+    (capped by what is co-resident), each against the plain version, timed
+    on the device; and each form's fixed and per-iteration cost at 257 x 257
+    at 1 block a SM and at its rule."""
+    import ctypes
+
     import torch
 
     from na_dd_tpu_torch.integrators.pc_trapezoidal import default_krylov_tol
     from na_dd_tpu_torch.ops import kernels
 
-    kept = (kernels.TRIPLE_FORM, kernels.TRIPLE_CLUSTER)
+    kept = kernels.TRIPLE_FORM
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lib = kernels._lib("triple_solve")
     systems = []
     for dtype, xtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
         ops, solver = step1_triple(dtype, device)
@@ -1221,15 +1221,29 @@ def phase_forms(device):
         ops = random_triple(np.random.default_rng(44), (SCALE_N + 1, SCALE_N + 1), dtype, device)
         systems.append((f"random {SCALE_N + 1}^2 {str(dtype)[6:]}", ops, 40,
                         default_krylov_tol(dtype), xtol, 3))
-    failed = []
-    table = {}
+
+    def cap_of(form, dtype):
+        fn = lib.triple_solve_blocks_f64 if dtype == torch.float64 else lib.triple_solve_blocks_f32
+        blocks = ctypes.c_int(0)
+        check(fn(form, 1, 1 << 30, ctypes.byref(blocks)) == 0, "occupancy query failed")
+        return blocks.value
+
+    def grids(n, cap):
+        need = -(-n // 256)
+        return sorted({min(need, g, cap) for g in (sms, 2 * sms, 3 * sms, 4 * sms, -(-n // 512))})
+
+    failed, table = [], {}
     try:
         for label, ops, iters, tol, xtol, reps in systems:
             *xp, ip = kernels.triple_solve_plain(*ops, tol=tol, iters=iters)
-            n = ops[6].numel()
-            for form, c, name in K4_FORMS:
-                kernels.TRIPLE_FORM, kernels.TRIPLE_CLUSTER = form, c
-                try:
+            n, dtype = ops[6].numel(), ops[6].dtype
+            for form, name in K4_FORMS:
+                kernels.TRIPLE_FORM = form
+                key = ("triple_solve", dtype, n, form, 1)
+                kernels.triple_solve(*ops, tol=tol, iters=iters)
+                rule = kernels._BLOCKS[key]
+                for blocks in grids(n, cap_of(form, dtype)):
+                    kernels._BLOCKS[key] = blocks
                     *xk, ik = kernels.triple_solve(*ops, tol=tol, iters=iters)
                     torch.cuda.synchronize()
                     rel = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(xk, xp))
@@ -1237,37 +1251,28 @@ def phase_forms(device):
                             and ik["converged"].tolist() == ip["converged"].tolist())
                     ms = kernel_device_ms(lambda: kernels.triple_solve(*ops, tol=tol, iters=iters),
                                           reps, "triple_solve_kernel")
-                    blocks = kernels._BLOCKS[("triple_solve", ops[6].dtype, n, form, c)]
-                    table[(label, form, c)] = ms * 1e3
-                    log(f"[forms] {label}: form {form} c={c} ({name}): {ms * 1e3:.2f} us, {blocks} "
-                        f"blocks, iterations {ik['iters'].tolist()}, max rel diff {rel:.3e} "
-                        f"(limit {xtol:g}){'' if same else ', ITERATIONS OR FLAGS DIFFER'}")
+                    table[(label, form, blocks)] = ms * 1e3
+                    log(f"[forms] {label}: form {form} ({name}): {blocks} blocks "
+                        f"({'rule' if blocks == rule else f'{blocks / sms:.2f} a SM'}): "
+                        f"{ms * 1e3:.2f} us, iterations {ik['iters'].tolist()}, max rel diff "
+                        f"{rel:.3e} (limit {xtol:g}){'' if same else ', ITERATIONS OR FLAGS DIFFER'}")
                     if not (same and rel <= xtol):
-                        failed.append((label, form, c))
-                except Exception as exc:  # a measurement phase: report, fail at the end
-                    log(f"[forms] {label}: form {form} c={c} ({name}) FAILED: {exc!r}")
-                    failed.append((label, form, c))
+                        failed.append((label, form, blocks))
+                kernels._BLOCKS[key] = rule
         cost_ops = random_triple(np.random.default_rng(257), (MAIN_N + 1, MAIN_N + 1),
                                  torch.float64, device)
-        for form, c, name in K4_FORMS:
-            kernels.TRIPLE_FORM, kernels.TRIPLE_CLUSTER = form, c
-            try:
-                cost = triple_costs(cost_ops, f"K4 form {form} c={c} ({name}) 257x257", 20)
-                table[("cost", form, c)] = cost
-            except Exception as exc:
-                log(f"[forms] cost form {form} c={c} FAILED: {exc!r}")
-                failed.append(("cost", form, c))
+        n = cost_ops[6].numel()
+        for form, name in K4_FORMS:
+            kernels.TRIPLE_FORM = form
+            key = ("triple_solve", torch.float64, n, form, 1)
+            kernels.triple_solve(*cost_ops, tol=1e-13, iters=1)
+            rule = kernels._BLOCKS[key]
+            for blocks in sorted({sms, rule}):
+                kernels._BLOCKS[key] = blocks
+                triple_costs(cost_ops, f"K4 form {form} ({name}) 257x257, {blocks} blocks", 20)
+            kernels._BLOCKS[key] = rule
     finally:
-        kernels.TRIPLE_FORM, kernels.TRIPLE_CLUSTER = kept
-    log("[forms] table (us): " + " | ".join(label for label, *_ in systems)
-        + " | per barrier at 257^2")
-    for form, c, name in K4_FORMS:
-        cells = [table.get((label, form, c)) for label, *_ in systems]
-        cost = table.get(("cost", form, c))
-        log(f"[forms]   form {form} c={c} {name}: "
-            + " | ".join("-" if v is None else f"{v:.2f}" for v in cells)
-            + (" | -" if cost is None else f" | {cost['per_barrier']:.2f} "
-               f"(per iteration {cost['per_iteration']:.2f}, fixed {cost['fixed']:.2f})"))
+        kernels.TRIPLE_FORM = kept
     check(not failed, f"K4 forms failed: {failed}")
 
 

@@ -319,33 +319,34 @@ int cluster_grid_blocks(Kernel kernel, int n, int c, int* blocks) {
   return 0;
 }
 
-// The forms compared on the card: 0 PR 4's kernel; 1 the grid's sync,
-// coupled rhs formed in pass A; 2 the grid's sync, coupled rhs by a pass and
-// a sync; 3 the cluster barrier, rhs in pass A; 4 the cluster barrier, rhs
-// by a pass.
+// The forms compared on the card: 0 PR 4's kernel; then the grid's sync
+// with the coupled rhs formed in pass A (odd) or by a pass and a sync
+// (even), under a register cap of 2 (1, 2), 3 (3, 4) or 4 (5, 6) blocks
+// a SM.
 template <typename T>
 int blocks_of(int form, int c, int n, int* blocks) {
+  (void)c;
   switch (form) {
     case 0:
       return bicgstab::grid_blocks_of(triple_solve_kernel_pr4<T>, n, blocks);
     case 1:
-      return bicgstab::grid_blocks_of(triple_solve_kernel<T, false, true, 1>,
+      return bicgstab::grid_blocks_of(triple_solve_kernel<T, false, true, 2>,
                                       n, blocks);
     case 2:
-      return bicgstab::grid_blocks_of(triple_solve_kernel<T, false, false, 1>,
+      return bicgstab::grid_blocks_of(triple_solve_kernel<T, false, false, 2>,
                                       n, blocks);
     case 3:
-      return cluster_grid_blocks(triple_solve_kernel<T, true, true>, n, c,
-                                 blocks);
+      return bicgstab::grid_blocks_of(triple_solve_kernel<T, false, true, 3>,
+                                      n, blocks);
     case 4:
-      return cluster_grid_blocks(triple_solve_kernel<T, true, false>, n, c,
-                                 blocks);
+      return bicgstab::grid_blocks_of(triple_solve_kernel<T, false, false, 3>,
+                                      n, blocks);
     case 5:
-      return bicgstab::grid_blocks_of(triple_solve_kernel<T, false, false, 4>,
+      return bicgstab::grid_blocks_of(triple_solve_kernel<T, false, true, 4>,
                                       n, blocks);
     case 6:
-      return cluster_grid_blocks(triple_solve_kernel<T, true, false, 3>, n, c,
-                                 blocks);
+      return bicgstab::grid_blocks_of(triple_solve_kernel<T, false, false, 4>,
+                                      n, blocks);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -390,28 +391,29 @@ int launch(int form, int c, const void* const* in, void* const* out,
                     iters,
                     tol_sq_coef,
                     dt};
+  (void)c;
   switch (form) {
     case 0:
       return bicgstab::launch_cooperative(triple_solve_kernel_pr4<T>, P,
                                           blocks, stream);
     case 1:
       return bicgstab::launch_cooperative(
-          triple_solve_kernel<T, false, true, 1>, P, blocks, stream);
+          triple_solve_kernel<T, false, true, 2>, P, blocks, stream);
     case 2:
       return bicgstab::launch_cooperative(
-          triple_solve_kernel<T, false, false, 1>, P, blocks, stream);
+          triple_solve_kernel<T, false, false, 2>, P, blocks, stream);
     case 3:
-      return launch_clustered(triple_solve_kernel<T, true, true>, P, blocks,
-                              c, stream);
+      return bicgstab::launch_cooperative(
+          triple_solve_kernel<T, false, true, 3>, P, blocks, stream);
     case 4:
-      return launch_clustered(triple_solve_kernel<T, true, false>, P, blocks,
-                              c, stream);
+      return bicgstab::launch_cooperative(
+          triple_solve_kernel<T, false, false, 3>, P, blocks, stream);
     case 5:
       return bicgstab::launch_cooperative(
-          triple_solve_kernel<T, false, false, 4>, P, blocks, stream);
+          triple_solve_kernel<T, false, true, 4>, P, blocks, stream);
     case 6:
-      return launch_clustered(triple_solve_kernel<T, true, false, 3>, P,
-                              blocks, c, stream);
+      return bicgstab::launch_cooperative(
+          triple_solve_kernel<T, false, false, 4>, P, blocks, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

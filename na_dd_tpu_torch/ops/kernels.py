@@ -77,8 +77,8 @@ _BLOCKS: dict = {}
 _COUNTERS: dict = {}
 
 #: K4's form and cluster size (blocks a cluster of its cooperative launch)
-TRIPLE_FORM = 3
-TRIPLE_CLUSTER = 4
+TRIPLE_FORM = 1
+TRIPLE_CLUSTER = 1
 
 
 def reset_launch_counts() -> None:
