@@ -23,9 +23,10 @@ version on the card, and drives the port's paths:
 It checks the errors against the reference values and the launch counts of
 each path's main level (counts set to 0 just before it, read just after),
 times the kernels (torch.profiler and CUDA events; K4 also beside the
-per-solve route on the same systems; K1/K5 also at 1 and 2 blocks a SM
+per-solve route on the same systems; K1/K4/K5 also at 1 and 2 blocks a SM
 beside their grid rule, and capped at 1, 2, 4, 8 iterations for their fixed
-and per-iteration cost), profiles five steps of each main level, and prints
+and per-iteration cost), prints each kernel's registers and spills from
+ptxas, profiles five steps of each main level, and prints
 one JSON line with every kernel's numbers, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
 Every check that fails stops the script with a nonzero exit code; without a
@@ -1071,49 +1072,42 @@ def triple_costs(operands, label, reps):
 
 
 def triple_grid_table(operands, iters, label, reps):
-    """K4's device time on one set of operands at its grid rule in clusters
-    of c = 1, 2, 4 and 8 blocks, and at 1 and 2 blocks a SM in clusters of
-    the kept size, in float64 and float32."""
+    """K4's device time on one set of operands at its grid rule (two points
+    a thread, capped by what is co-resident) and at a grid of half a block,
+    1 and 2 blocks a SM, in float64 and float32."""
     import torch
 
     from na_dd_tpu_torch.integrators.pc_trapezoidal import default_krylov_tol
     from na_dd_tpu_torch.ops import kernels
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    kept = kernels.TRIPLE_CLUSTER
     n = operands[6].numel()
-    try:
-        for dtype in (torch.float64, torch.float32):
-            ops_d = cast_triple(operands, dtype)
-            tol = default_krylov_tol(dtype)
+    need = -(-n // 256)
+    for dtype in (torch.float64, torch.float32):
+        ops_d = cast_triple(operands, dtype)
+        tol = default_krylov_tol(dtype)
 
-            def run():
-                return kernels.triple_solve(*ops_d, tol=tol, iters=iters)
+        def run():
+            return kernels.triple_solve(*ops_d, tol=tol, iters=iters)
 
-            for c in (1, 2, 4, 8):
-                kernels.TRIPLE_CLUSTER = c
-                run()
-                key = ("triple_solve", dtype, n, kernels.TRIPLE_FORM, c)
-                rule = kernels._BLOCKS[key]
-                need = -(-n // (256 * c)) * c  # the blocks n needs, in whole clusters
-                rows = [("rule", rule)]
-                if c == kept:
-                    rows += [("1/SM", min(need, sms // c * c)), ("2/SM", min(need, 2 * sms // c * c))]
-                for name, blocks in rows:
-                    kernels._BLOCKS[key] = blocks
-                    used = run()[3]["iters"].tolist()
-                    ms = kernel_device_ms(run, reps, "triple_solve_kernel")
-                    check(ms is not None, f"{label}: no device time for K4")
-                    log(f"[grid] {label} {str(dtype)[6:]}: clusters of {c}, {name} {blocks} blocks "
-                        f"({blocks / sms:.2f} a SM): {ms * 1e3:.2f} us, iterations {used}")
-                kernels._BLOCKS[key] = rule
-    finally:
-        kernels.TRIPLE_CLUSTER = kept
+        run()
+        key = ("triple_solve", dtype, n)
+        rule = kernels._BLOCKS[key]
+        for name, blocks in (("rule", rule), ("1/2 a SM", min(need, sms // 2)),
+                             ("1/SM", min(need, sms)), ("2/SM", min(need, 2 * sms))):
+            kernels._BLOCKS[key] = blocks
+            used = run()[3]["iters"].tolist()
+            ms = kernel_device_ms(run, reps, "triple_solve_kernel")
+            check(ms is not None, f"{label}: no device time for K4")
+            log(f"[grid] {label} {str(dtype)[6:]}: {name} {blocks} blocks "
+                f"({blocks / sms:.2f} a SM): {ms * 1e3:.2f} us, iterations {used}")
+        kernels._BLOCKS[key] = rule
 
 
 def timings_k4_k3(device):
     """K4 on the step-1 systems of the N=256 level and on random systems at
-    1025 x 1025, each beside the per-solve route on the same operands; K3 (the
+    1025 x 1025, each beside the per-solve route on the same operands, with
+    its grid table and its fixed and per-iteration cost at both sizes; K3 (the
     5-point apply) at 1025 x 1025.  float64."""
     import torch
 
@@ -1181,99 +1175,6 @@ def timings_k4_k3(device):
         log(f"[time] stencil5_apply f32 1025x1025: kernel (device) {ms32 * 1e3:.2f} us, bound "
             f"{7 * u32.numel() * 4 / HBM_BYTES_PER_S * 1e6:.3f} us (bytes)")
     return res
-
-
-# The forms of K4 compared in one call: (form, what it is).
-K4_FORMS = (
-    (0, "PR 4's kernel"),
-    (1, "rhs in pass A, <=128 registers"),
-    (2, "rhs pass + sync, <=128 registers"),
-    (3, "rhs in pass A, <=85 registers"),
-    (4, "rhs pass + sync, <=85 registers"),
-    (5, "rhs in pass A, <=64 registers"),
-    (6, "rhs pass + sync, <=64 registers"),
-)
-
-
-def phase_forms(device):
-    """Every form of K4 on the step-1 systems of the N=256 analytic level and
-    on random 1025 x 1025 systems, float64 and float32, each at the grids of
-    1, 2, 3 and 4 blocks a SM, of two points a thread and of its rule
-    (capped by what is co-resident), each against the plain version, timed
-    on the device; and each form's fixed and per-iteration cost at 257 x 257
-    at 1 block a SM and at its rule."""
-    import ctypes
-
-    import torch
-
-    from na_dd_tpu_torch.integrators.pc_trapezoidal import default_krylov_tol
-    from na_dd_tpu_torch.ops import kernels
-
-    kept = kernels.TRIPLE_FORM
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    lib = kernels._lib("triple_solve")
-    systems = []
-    for dtype, xtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
-        ops, solver = step1_triple(dtype, device)
-        systems.append((f"step-1 N={MAIN_N} {str(dtype)[6:]}", ops, solver.iters,
-                        default_krylov_tol(dtype), xtol, 20))
-    for dtype, xtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
-        ops = random_triple(np.random.default_rng(44), (SCALE_N + 1, SCALE_N + 1), dtype, device)
-        systems.append((f"random {SCALE_N + 1}^2 {str(dtype)[6:]}", ops, 40,
-                        default_krylov_tol(dtype), xtol, 3))
-
-    def cap_of(form, dtype):
-        fn = lib.triple_solve_blocks_f64 if dtype == torch.float64 else lib.triple_solve_blocks_f32
-        blocks = ctypes.c_int(0)
-        check(fn(form, 1, 1 << 30, ctypes.byref(blocks)) == 0, "occupancy query failed")
-        return blocks.value
-
-    def grids(n, cap):
-        need = -(-n // 256)
-        return sorted({min(need, g, cap) for g in (sms, 2 * sms, 3 * sms, 4 * sms, -(-n // 512))})
-
-    failed, table = [], {}
-    try:
-        for label, ops, iters, tol, xtol, reps in systems:
-            *xp, ip = kernels.triple_solve_plain(*ops, tol=tol, iters=iters)
-            n, dtype = ops[6].numel(), ops[6].dtype
-            for form, name in K4_FORMS:
-                kernels.TRIPLE_FORM = form
-                key = ("triple_solve", dtype, n, form, 1)
-                kernels.triple_solve(*ops, tol=tol, iters=iters)
-                rule = kernels._BLOCKS[key]
-                for blocks in grids(n, cap_of(form, dtype)):
-                    kernels._BLOCKS[key] = blocks
-                    *xk, ik = kernels.triple_solve(*ops, tol=tol, iters=iters)
-                    torch.cuda.synchronize()
-                    rel = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(xk, xp))
-                    same = (ik["iters"].tolist() == ip["iters"].tolist()
-                            and ik["converged"].tolist() == ip["converged"].tolist())
-                    ms = kernel_device_ms(lambda: kernels.triple_solve(*ops, tol=tol, iters=iters),
-                                          reps, "triple_solve_kernel")
-                    table[(label, form, blocks)] = ms * 1e3
-                    log(f"[forms] {label}: form {form} ({name}): {blocks} blocks "
-                        f"({'rule' if blocks == rule else f'{blocks / sms:.2f} a SM'}): "
-                        f"{ms * 1e3:.2f} us, iterations {ik['iters'].tolist()}, max rel diff "
-                        f"{rel:.3e} (limit {xtol:g}){'' if same else ', ITERATIONS OR FLAGS DIFFER'}")
-                    if not (same and rel <= xtol):
-                        failed.append((label, form, blocks))
-                kernels._BLOCKS[key] = rule
-        cost_ops = random_triple(np.random.default_rng(257), (MAIN_N + 1, MAIN_N + 1),
-                                 torch.float64, device)
-        n = cost_ops[6].numel()
-        for form, name in K4_FORMS:
-            kernels.TRIPLE_FORM = form
-            key = ("triple_solve", torch.float64, n, form, 1)
-            kernels.triple_solve(*cost_ops, tol=1e-13, iters=1)
-            rule = kernels._BLOCKS[key]
-            for blocks in sorted({sms, rule}):
-                kernels._BLOCKS[key] = blocks
-                triple_costs(cost_ops, f"K4 form {form} ({name}) 257x257, {blocks} blocks", 20)
-            kernels._BLOCKS[key] = rule
-    finally:
-        kernels.TRIPLE_FORM = kept
-    check(not failed, f"K4 forms failed: {failed}")
 
 
 def phase_profile(device):
@@ -1706,7 +1607,7 @@ def demangle(name: str) -> str:
         return name
 
 
-PHASES = ("k2", "k1", "k3", "forms", "k4", "slice", "f32", "analytic", "scale", "timings", "profile",
+PHASES = ("k2", "k1", "k3", "k4", "slice", "f32", "analytic", "scale", "timings", "profile",
           "k6", "k5", "3d", "3d128", "3d_f32", "timings3", "profile3")
 
 
@@ -1759,7 +1660,6 @@ def main(argv=None) -> int:
     phase("k2", phase_apply5, device, "k2", K2_SHAPES, 2)
     phase("k1", phase_k1, device)
     phase("k3", phase_apply5, device, "k3", K3_SHAPES, 3)
-    phase("forms", phase_forms, device)
     phase("k4", phase_k4, device)
     phase("slice", phase_slice_f64, device)
     phase("f32", phase_slice_f32, device)

@@ -37,9 +37,11 @@
 // schedule with p^ = D^-1 p' and s^ = D^-1 s stored.
 // Iteration 0 is specialised: with x0 = 0, p' = b + 0 exactly, so p, v, x
 // are not read and the b.b partial rides on pass A's barrier (no set-up
-// pass).  Pass C writes x * mask into the output every iteration, and the
-// unmasked x into a work array only when another iteration may follow, so
-// there is no separate mask pass.
+// pass).  The rhs comes as an object (ArrayRhs for K1 and K5): K4 forms its
+// T rhs in that pass, at the own point and at the neighbours, and stores it
+// there for the later passes (triple_solve.cu).  Pass C writes x * mask into
+// the output every iteration, and the unmasked x into a work array only when
+// another iteration may follow, so there is no separate mask pass.
 //
 // Every dot product is deterministic: each block writes one partial per
 // slot; after the barrier warp 0 of every block sums all partials of the
@@ -217,11 +219,10 @@ __device__ __forceinline__ T next_s(T r, T v, T alpha) {
   return r - alpha * v;
 }
 
-// The right-hand side b of a solve, as the solve reads it: first(j) at any
-// point in iteration 0's pass A, own(k) at the thread's own point there, and
-// the array stored() from iteration 0's pass B on.  K1 and K5 pass an array
-// that is there before the launch; K4 forms its rhs in the launch
-// (triple_solve.cu), at the neighbours of pass A and stored at the own point.
+// The rhs b of a solve as the solve reads it: first(j) at any point in
+// iteration 0's pass A, own(k) at the thread's own point there, and the
+// array stored() from that pass's barrier on.  Here an array that is there
+// when the solve starts; K4 passes one that it forms in that pass.
 template <typename T>
 struct ArrayRhs {
   const T* b;
@@ -230,233 +231,23 @@ struct ArrayRhs {
   __device__ __forceinline__ const T* stored() const { return b; }
 };
 
-// The solve's grid barrier with sums, on the cooperative grid's own sync:
-// sum() writes the block's partials of kS slots, syncs the grid and sums the
-// slots over every block (store_partials, grid_totals); sync() syncs only.
-// `red` (kMaxSlotsPerBarrier * kWarps values) and `bcast`
-// (kMaxSlotsPerBarrier) are the block's shared scratch.
-template <typename T>
-struct GridBarrier {
-  cg::grid_group& grid;
-  T* partials;  // kNumSlots * gridDim.x
-  T* red;
-  T* bcast;
-
-  template <int kS>
-  __device__ __forceinline__ void sum(T (&v)[kS], int first, T (&out)[kS]) {
-    store_partials(v, partials, first, red);
-    grid.sync();
-    grid_totals(partials, first, out, bcast);
-  }
-  __device__ __forceinline__ void sync() { grid.sync(); }
-};
-
-// A grid barrier with sums for a cooperative launch in clusters of c
-// consecutive blocks (c = 1: a launch without clusters), on an arrival
-// counter of its own instead of the grid's sync.  At each barrier:
-//   1. each block sums its values of the kS slots (warp sums, then warp 0)
-//      into its shared `mine`, and the cluster syncs;
-//   2. in the cluster's leader (rank 0), lane q < c of warp 0 reads rank q's
-//      sums through distributed shared memory and lane 0 adds them in rank
-//      order, writes them as the cluster's partials, arrives on the counter
-//      with one release-add and spins on it with acquire loads until the
-//      last cluster has arrived;
-//   3. every thread of the leader loads its share of the clusters' partials
-//      (one load a slot while there are no more clusters than threads), the
-//      block sums them and warp 0 writes the totals into the `bcast` of each
-//      block of the cluster; the cluster syncs again.
-// One arrival a cluster where the grid's sync has one a block, and the
-// totals in one round of loads where warp 0 of every block made several.
-// The sums keep one fixed order (block, rank, thread), so every block holds
-// bit-identical totals and takes the same branch.
-// The counter: the leader of cluster 0 adds 2^31 - (clusters - 1), every
-// other leader 1, so its top bit flips when the last one arrives and its
-// lower 31 bits stay 0 (as cooperative_groups' grid sync does it).  The top
-// bit cannot flip before this cluster arrives, so each leader reads it once
-// at the start of the launch; the counter needs to be 0 only when first
-// allocated, and no launch leaves it otherwise.  Launches that share a
-// counter must not overlap.
-__device__ __forceinline__ void red_release_gpu(unsigned* p, unsigned v) {
-  asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(p), "r"(v)
-               : "memory");
-}
-
-__device__ __forceinline__ unsigned ld_acquire_gpu(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ unsigned ld_relaxed_gpu(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void fence_acq_rel_gpu() {
-  asm volatile("fence.acq_rel.gpu;" ::: "memory");
-}
-
-constexpr int kMaxCluster = 8;  // the portable cluster size
-constexpr int kLoadsPerLane = 4;  // partials a lane has in flight, per slot
-// Polls of the counter after which a barrier gives up and traps, so that a
-// grid that is not co-resident fails its launch instead of hanging the card.
-constexpr unsigned kMaxPolls = 1u << 25;
-
-template <typename T>
-struct ClusterBarrier {
-  T* partials;        // kNumSlots * clusters, slot-major
-  unsigned* counter;  // the arrival counter
-  T* red;             // shared, kMaxSlotsPerBarrier * kWarps
-  T* mine;            // shared, kMaxSlotsPerBarrier: the block's sums
-  T* bcast;           // shared, kMaxSlotsPerBarrier: the totals
-  int c;              // blocks a cluster
-  int rank;           // this block's rank in its cluster
-  int clusters;
-  int cluster;        // this block's cluster
-  unsigned phase;     // thread 0 of a leader: the counter's top bit
-
-  __device__ __forceinline__ ClusterBarrier(T* partials_, unsigned* counter_,
-                                            T* red_, T* mine_, T* bcast_)
-      : partials(partials_), counter(counter_), red(red_), mine(mine_),
-        bcast(bcast_), phase(0) {
-    cg::cluster_group cl = cg::this_cluster();
-    c = static_cast<int>(cl.num_blocks());
-    rank = static_cast<int>(cl.block_rank());
-    clusters = gridDim.x / c;
-    cluster = blockIdx.x / c;
-    if (rank == 0 && threadIdx.x == 0) phase = ld_acquire_gpu(counter) >> 31;
-  }
-
-  __device__ __forceinline__ void cluster_sync() {
-    if (c == 1) {
-      __syncthreads();
-    } else {
-      cg::this_cluster().sync();
-    }
-  }
-
-  // Warp 0 of a leader: the cluster's sums of slots first .. first+kS-1
-  // into the partials, the arrival, the wait for the last one (lane 0).
-  template <int kS>
-  __device__ __forceinline__ void arrive_and_wait(int first) {
-    const int lane = threadIdx.x & 31;
-    if constexpr (kS > 0) {
-      T v[kS] = {};
-      if (lane < c) {
-        const T* src =
-            lane == 0 ? mine : cg::this_cluster().map_shared_rank(mine, lane);
-#pragma unroll
-        for (int s = 0; s < kS; ++s) v[s] = src[s];
-      }
-#pragma unroll
-      for (int s = 0; s < kS; ++s) {
-        T acc = __shfl_sync(0xffffffffu, v[s], 0);
-#pragma unroll
-        for (int q = 1; q < kMaxCluster; ++q) {
-          const T w = __shfl_sync(0xffffffffu, v[s], q);
-          if (q < c) acc += w;
-        }
-        if (lane == 0) partials[(first + s) * clusters + cluster] = acc;
-      }
-    }
-    if (lane == 0) {
-      red_release_gpu(counter,
-                      cluster == 0 ? 0x80000000u - (clusters - 1) : 1u);
-      for (unsigned polls = 0; (ld_relaxed_gpu(counter) >> 31) == phase;) {
-        if (++polls == kMaxPolls) __trap();  // seconds: it cannot end
-      }
-      fence_acq_rel_gpu();  // the flip seen: acquire what came before it
-      phase ^= 1u;
-    }
-  }
-
-  template <int kS>
-  __device__ __forceinline__ void sum(T (&v)[kS], int first, T (&out)[kS]) {
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-#pragma unroll
-    for (int s = 0; s < kS; ++s) {
-      const T w = warp_sum(v[s]);
-      if (lane == 0) red[s * kWarps + warp] = w;
-    }
-    __syncthreads();
-    if (warp == 0) {
-#pragma unroll
-      for (int s = 0; s < kS; ++s) {
-        T w = lane < kWarps ? red[s * kWarps + lane] : T(0);
-        w = warp_sum(w);
-        if (lane == 0) mine[s] = w;
-      }
-    }
-    cluster_sync();
-    if (rank == 0 && warp == 0) {
-      arrive_and_wait<kS>(first);
-      __syncwarp();  // the wait is over for the whole warp
-      T acc[kS];
-#pragma unroll
-      for (int s = 0; s < kS; ++s) acc[s] = T(0);
-      for (int q0 = lane; q0 < clusters; q0 += 32 * kLoadsPerLane) {
-        T part[kS][kLoadsPerLane];
-#pragma unroll
-        for (int i = 0; i < kLoadsPerLane; ++i) {
-          const int q = q0 + 32 * i;
-#pragma unroll
-          for (int s = 0; s < kS; ++s)
-            part[s][i] = q < clusters
-                             ? __ldcg(partials + (first + s) * clusters + q)
-                             : T(0);
-        }
-#pragma unroll
-        for (int i = 0; i < kLoadsPerLane; ++i)
-#pragma unroll
-          for (int s = 0; s < kS; ++s) acc[s] += part[s][i];
-      }
-#pragma unroll
-      for (int s = 0; s < kS; ++s) {
-        const T w = __shfl_sync(0xffffffffu, warp_sum(acc[s]), 0);
-        if (lane < c) {
-          T* dst =
-              lane == 0 ? bcast : cg::this_cluster().map_shared_rank(bcast, lane);
-          dst[s] = w;
-        }
-      }
-    }
-    cluster_sync();
-#pragma unroll
-    for (int s = 0; s < kS; ++s) out[s] = bcast[s];
-  }
-
-  __device__ __forceinline__ void sync() {
-    cluster_sync();
-    if (rank == 0 && threadIdx.x < 32) arrive_and_wait<0>(0);
-    cluster_sync();
-  }
-};
-
 // One whole solve A x = b from x0 = 0 by every thread of the cooperative
-// grid, through the barrier `bar` (GridBarrier, or K4's ClusterBarrier) and
-// the rhs `B` (ArrayRhs, or K4's formed rhs); x comes out multiplied by
-// mask.  An array rhs is read at neighbours' points, so a caller that writes
-// it in the launch syncs the grid before the call.  The last barrier of a
-// solve that takes an iteration is pass C's: every write of x, r and the
-// partials before it is visible after it.  A solve that takes none ends
-// with the x it writes after its only barrier.  No sync follows either: a
-// caller that reads x at a neighbour's point after a solve that took no
-// iteration, or writes pass A's slots again, syncs first.
-template <typename T, class Op, class Rhs, class Barrier>
-__device__ __forceinline__ Result<T> solve_on(Barrier& bar, const Op& A,
-                                              const Rhs& B,
-                                              const T* inv_diag_in,
-                                              const T* mask_in, T* x,
-                                              const Work<T>& W, int iters,
-                                              double tol_sq_coef) {
+// grid; x comes out multiplied by mask.  An array rhs is read at
+// neighbours' points, so a caller that writes it in the launch syncs the
+// grid before the call.  `red` (kMaxSlotsPerBarrier * kWarps values) and
+// `bcast` (kMaxSlotsPerBarrier) are the block's shared scratch.  Ends
+// without a grid sync, on pass C's barrier when it took an iteration (x, r
+// and the partials written before it are visible after it), or with the x
+// it writes after its only barrier when it took none: a caller that reads x
+// at a neighbour's point after that, or starts another solve on the same
+// work arrays, syncs first.
+template <typename T, class Op, class Rhs>
+__device__ __forceinline__ Result<T> solve(cg::grid_group& grid, const Op& A,
+                                           const Rhs& B, const T* inv_diag_in,
+                                           const T* mask_in, T* x,
+                                           const Work<T>& W, int iters,
+                                           double tol_sq_coef, T* red,
+                                           T* bcast) {
   const int n = A.size();
   const int stride = gridDim.x * kThreads;
   const int first = blockIdx.x * kThreads + threadIdx.x;
@@ -466,7 +257,6 @@ __device__ __forceinline__ Result<T> solve_on(Barrier& bar, const Op& A,
   // Iteration 0, pass A: x0 = 0 gives r = r^ = b, p = v = 0, and
   // p' = b + beta (0 - 1 * 0) = b + 0 bit for bit.  Its barrier also brings
   // b.b, hence tol_sq and `done` at the start.
-  T first_totals[2];
   {
     T* Pn = W.p[1];
     T* Vn = W.v[1];
@@ -482,8 +272,11 @@ __device__ __forceinline__ Result<T> solve_on(Barrier& bar, const Op& A,
       acc[0] += bk * vk;
       acc[1] += bk * bk;
     }
-    bar.sum(acc, kRhatV, first_totals);
+    store_partials(acc, W.partials, kRhatV, red);
   }
+  grid.sync();
+  T first_totals[2];
+  grid_totals(W.partials, kRhatV, first_totals, bcast);
   const T* b = B.stored();
   T rv = first_totals[0];
   const T bb = first_totals[1];
@@ -522,14 +315,15 @@ __device__ __forceinline__ Result<T> solve_on(Barrier& bar, const Op& A,
         Vn[k] = vk;
         acc[0] += ld(b, k) * vk;
       }
+      store_partials(acc, W.partials, kRhatV, red);
+      grid.sync();
       T rhat_v[1];
-      bar.sum(acc, kRhatV, rhat_v);
+      grid_totals(W.partials, kRhatV, rhat_v, bcast);
       rv = rhat_v[0];
     }
     const T alpha_new = safe_div(rho1, rv, &ok3);
 
     // pass B: t = A D^-1 s, with s recomputed at every point it is read
-    T sts[3];  // s.s, t.s, t.t
     {
       const auto shat = [&](int j) {
         return next_s(ld(r, j), ld(Vn, j), alpha_new) * __ldg(inv_diag + j);
@@ -543,15 +337,17 @@ __device__ __forceinline__ Result<T> solve_on(Barrier& bar, const Op& A,
         acc[1] += tk * sk;
         acc[2] += tk * tk;
       }
-      bar.sum(acc, kSS, sts);
+      store_partials(acc, W.partials, kSS, red);
     }
+    grid.sync();
+    T sts[3];  // s.s, t.s, t.t
+    grid_totals(W.partials, kSS, sts, bcast);
     const bool s_conv = sts[0] <= tol_sq;
     const T omega_new = safe_div(sts[1], sts[2], &ok4);
     const bool breakdown = !(ok1 && ok2 && ok3 && ok4);
     const bool last = s_conv || breakdown || it + 1 >= iters;
 
     // pass C: x and r at the own point; x * mask into the output
-    T rrs[2];  // r.r, r^.r
     {
       T acc[2] = {T(0), T(0)};  // r.r, r^.r
       for (int k = first; k < n; k += stride) {
@@ -573,8 +369,11 @@ __device__ __forceinline__ Result<T> solve_on(Barrier& bar, const Op& A,
         acc[0] += rk * rk;
         acc[1] += ld(b, k) * rk;
       }
-      bar.sum(acc, kRR, rrs);
+      store_partials(acc, W.partials, kRR, red);
     }
+    grid.sync();
+    T rrs[2];  // r.r, r^.r
+    grid_totals(W.partials, kRR, rrs, bcast);
     rr = rrs[0];
     rhat_r = rrs[1];
     rho = rho1;
@@ -586,36 +385,25 @@ __device__ __forceinline__ Result<T> solve_on(Barrier& bar, const Op& A,
   return Result<T>{used, rr, tol_sq};
 }
 
-// The solve of K1 and K5: an array rhs b and the cooperative grid's sync.
-template <typename T, class Op>
-__device__ __forceinline__ Result<T> solve(cg::grid_group& grid, const Op& A,
-                                           const T* b, const T* inv_diag,
-                                           const T* mask, T* x,
-                                           const Work<T>& W, int iters,
-                                           double tol_sq_coef, T* red,
-                                           T* bcast) {
-  GridBarrier<T> bar{grid, W.partials, red, bcast};
-  return solve_on<T>(bar, A, ArrayRhs<T>{b}, inv_diag, mask, x, W, iters,
-                     tol_sq_coef);
-}
-
 template <typename T, class Op>
 __global__ void __launch_bounds__(kThreads) bicgstab_kernel(Params<T, Op> P) {
   cg::grid_group grid = cg::this_grid();
   __shared__ T red[kMaxSlotsPerBarrier * kWarps];
   __shared__ T bcast[kMaxSlotsPerBarrier];
-  const Result<T> res = solve<T, Op>(grid, P.A, P.b, P.inv_diag, P.mask, P.x,
-                                     P.W, P.iters, P.tol_sq_coef, red, bcast);
+  const Result<T> res =
+      solve<T, Op>(grid, P.A, ArrayRhs<T>{P.b}, P.inv_diag, P.mask, P.x, P.W,
+                   P.iters, P.tol_sq_coef, red, bcast);
   if (blockIdx.x == 0 && threadIdx.x == 0) *P.iters_out = res.used;
 }
 
 // Cooperative grid size of `kernel` for n points: the blocks that can be
-// co-resident, capped by the blocks n needs.  On the H100 this rule was
-// within 5 % of the best of 1 block a SM, 2 a SM and itself at every
-// main-path shape, in f64 and f32, and up to 1.9x faster than 1 a SM where
-// the points fill the card (PERF.md, Findings).
+// co-resident, capped by the blocks n needs at `points` a thread.  On the
+// H100, at one point a thread, this rule was within 5 % of the best of 1
+// block a SM, 2 a SM and itself at every main-path shape of K1 and K5, in
+// f64 and f32, and up to 1.9x faster than 1 a SM where the points fill the
+// card (PERF.md, Findings).
 template <class Kernel>
-int grid_blocks_of(Kernel kernel, int n, int* blocks) {
+int grid_blocks_of(Kernel kernel, int n, int* blocks, int points = 1) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -630,7 +418,7 @@ int grid_blocks_of(Kernel kernel, int n, int* blocks) {
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
                                                     0);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int need = (n + kThreads - 1) / kThreads;
+  const int need = (n + kThreads * points - 1) / (kThreads * points);
   const int cap = per_sm * sms;
   *blocks = need < cap ? need : cap;
   return static_cast<int>(cudaSuccess);

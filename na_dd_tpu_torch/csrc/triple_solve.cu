@@ -18,7 +18,8 @@
 // Bound on the card: bytes and latency.  33 input planes and 3 output planes
 // must cross device memory once (19.0 MB in f64 at 257 x 257, 5.7 us at
 // 3.35 TB/s); each iteration of each solve makes the 32 plane passes and
-// three grid barriers of K1 (bicgstab.cu).
+// three grid barriers of K1 (bicgstab.cu).  At 257 x 257 the working set
+// sits in L2 and the barriers cost about as much as the passes.
 //
 // Design: the TPU kernel kept all 40 planes in one core's VMEM; here a plane
 // (528 KB in f64 at N=256) exceeds an SM's shared memory, so what carries
@@ -27,15 +28,31 @@
 // N=256) resident in the 50 MB L2, and nothing returns to the host or waits
 // for a launch between the solves.  The solve is bicgstab::solve, the same
 // device function K1 wraps, called three times on the same seven working
-// arrays.  Before each solve, one grid-stride pass forms its right-hand side
-// into a scratch plane, and one grid sync follows it: the solve reads the
-// rhs at neighbours' points from its first pass on.  Between two solves one
-// more grid sync comes before that pass (dT must be visible at the
-// neighbours' points, and the dot-product partials must be free), so a
-// solve's set-up costs the sync the solve itself no longer makes.  The
-// scratch plane is read with plain loads, never through the read-only path,
-// because this launch wrote it.  dT is read through the coupling stencils
-// with L2 loads (Stencil5Op::apply), dcl only at the thread's own point.
+// arrays.  Grid syncs of K4's own, beyond the solves' three an iteration:
+//  - none before the T solve: its rhs rhs_T m is formed in the solve's
+//    first pass, where it is read (at the own point, stored for the later
+//    passes, and at the neighbours);
+//  - none between two solves: a solve that took an iteration ends on its
+//    pass C barrier, after which its x is visible everywhere and pass A's
+//    partial slots are free.  A T solve that took none wrote dT after its
+//    only barrier, so one sync follows it then (every block alike);
+//  - one after each coupled rhs, formed by a grid-stride pass into the
+//    scratch plane, since its solve reads it at neighbours' points from its
+//    first pass on.  Forming it in that pass instead, recomputed at the
+//    neighbours as the T rhs is, was slower at 257 x 257 on the H100: a
+//    second coupling stencil at each neighbour and more registers cost more
+//    than the sync (PERF.md, Findings).
+// Five syncs of its own become two.  Every form of the sums and the grid was
+// measured against each other on the H100 (PERF.md, Findings): a barrier of
+// K4's own on an arrival counter, and one reduced over thread block clusters
+// through distributed shared memory (clusters of 2, 4 and 8), were each
+// slower than the cooperative grid's sync; fewer blocks make each barrier
+// cheaper where the solve sits in L2, so the grid gives each thread at
+// least two points (130 blocks at 257 x 257, the co-resident limit at
+// 1025 x 1025), and at most 128 registers keep two blocks a SM.
+// The scratch plane and dT, dcl are read with plain loads, never through
+// the read-only path, because this launch wrote them; dcl only at the
+// thread's own point, which this thread wrote.
 #include <cuda_runtime.h>
 
 #include "bicgstab.cuh"
@@ -49,6 +66,8 @@ using bicgstab::kWarps;
 
 constexpr int kInputPlanes = 33;
 constexpr int kScratchPlanes = bicgstab::kWorkArrays + 1;  // + the rhs plane
+constexpr int kPointsPerThread = 2;  // at least, in the grid rule
+constexpr int kMinBlocksPerSM = 2;   // the register cap: 128 a thread
 
 template <typename T>
 struct TripleParams {
@@ -70,7 +89,6 @@ struct TripleParams {
   T* tolsq_out;    // [3]
   T* rhs;          // scratch: the masked (coupled) rhs of the running solve
   bicgstab::Work<T> W;
-  unsigned* counter;  // the cluster barrier's arrival counter
   int iters;
   double tol_sq_coef;  // tol * tol, cast to T in the kernel
   double dt;           // cast to T in the kernel
@@ -87,130 +105,37 @@ __device__ __forceinline__ void write_result(const TripleParams<T>& P, int k,
 }
 
 // x * m rounded on its own, never contracted into a following add, so a
-// value formed here equals the product the plain version stores; and
-// a * b + c as one fused operation, spelled out so that every point forms
-// its rhs with the same operations.
+// value formed here equals the product the plain version forms.
 __device__ __forceinline__ double mul_rn(double a, double b) {
   return __dmul_rn(a, b);
 }
 __device__ __forceinline__ float mul_rn(float a, float b) {
   return __fmul_rn(a, b);
 }
-__device__ __forceinline__ double fma_rn(double a, double b, double c) {
-  return __fma_rn(a, b, c);
-}
-__device__ __forceinline__ float fma_rn(float a, float b, float c) {
-  return __fmaf_rn(a, b, c);
-}
 
-// The rhs of one of K4's solves, formed where the solve first reads it:
-// value(j) from the inputs (and the increments of the solves before) at
-// every point iteration 0's pass A reads, stored into `plane` at the own
-// point there, and read from `plane` after that pass's barrier.  Own-point
-// and neighbour values are the same function, so they are bit for bit
-// equal.
-template <typename T, class F>
-struct FormedRhs {
-  F value;
+// The T solve's rhs, formed in the solve's first pass (bicgstab::ArrayRhs
+// has the contract): rhs_T m at every point that pass reads, stored into
+// `plane` at the own point for the later passes.  Own-point and neighbour
+// values are the same product, bit for bit.
+template <typename T>
+struct MaskedRhs {
+  const T* rhs;
+  const T* mask;
   T* plane;
-  __device__ __forceinline__ T first(int j) const { return value(j); }
+  __device__ __forceinline__ T first(int j) const {
+    return mul_rn(__ldg(rhs + j), __ldg(mask + j));
+  }
   __device__ __forceinline__ T own(int k) const {
-    const T v = value(k);
+    const T v = first(k);
     plane[k] = v;
     return v;
   }
   __device__ __forceinline__ const T* stored() const { return plane; }
 };
 
-// One coupled solve: its rhs formed in its first pass (kRecompute), or by a
-// pass of its own and a sync before the solve.
-template <bool kRecompute, typename T, class Bar, class F>
-__device__ __forceinline__ bicgstab::Result<T> solve_formed(
-    Bar& bar, const TripleParams<T>& P, const Stencil5Op<T>& J, F value,
-    const T* invd, T* x) {
-  if constexpr (kRecompute) {
-    return bicgstab::solve_on<T>(bar, J, FormedRhs<T, F>{value, P.rhs}, invd,
-                                 P.mask, x, P.W, P.iters, P.tol_sq_coef);
-  } else {
-    const int stride = gridDim.x * kThreads;
-    for (int k = blockIdx.x * kThreads + threadIdx.x; k < J.size();
-         k += stride)
-      P.rhs[k] = value(k);
-    bar.sync();
-    return bicgstab::solve_on<T>(bar, J, bicgstab::ArrayRhs<T>{P.rhs}, invd,
-                                 P.mask, x, P.W, P.iters, P.tol_sq_coef);
-  }
-}
-
-// The sweep.  A solve that took an iteration ended on its pass C barrier,
-// after which its x is visible at every point and pass A's partial slots are
-// free; one that took none wrote x after its only barrier, so a sync follows
-// it (every block takes that branch alike).
-template <typename T, bool kRecompute, class Bar>
-__device__ __forceinline__ void sweep(const TripleParams<T>& P, Bar& bar) {
-  const T dt = static_cast<T>(P.dt);
-  const T* __restrict__ mask = P.mask;
-  const T* rhs_T = P.rhs_T;
-  const T* base_cl = P.base_cl;
-  const T* base_cd = P.base_cd;
-  const T* d_cdcl = P.d_cdcl;
-  const T* dT = P.dT;
-  const T* dcl = P.dcl;
-  const Stencil5Op<T> C_clT = P.C_clT;
-  const Stencil5Op<T> C_cdT = P.C_cdT;
-  const auto dT_at = [dT](int m) { return bicgstab::ld(dT, m); };
-
-  // J_T dT = rhs_T m
-  const auto b_T = [=](int j) {
-    return mul_rn(__ldg(rhs_T + j), __ldg(mask + j));
-  };
-  bicgstab::Result<T> res = bicgstab::solve_on<T>(
-      bar, P.J_T, FormedRhs<T, decltype(b_T)>{b_T, P.rhs}, P.invd_T, mask,
-      P.dT, P.W, P.iters, P.tol_sq_coef);
-  write_result(P, 0, res);
-  if (res.used == 0) bar.sync();
-
-  // J_cl dcl = (base_cl + dt C_clT dT) m
-  const auto b_cl = [=](int j) {
-    return mul_rn(fma_rn(dt, C_clT.apply_of(dT_at, j), __ldg(base_cl + j)),
-                  __ldg(mask + j));
-  };
-  res = solve_formed<kRecompute>(bar, P, P.J_cl, b_cl, P.invd_cl, P.dcl);
-  write_result(P, 1, res);
-  if (res.used == 0) bar.sync();
-
-  // J_cd dcd = (base_cd + dt (C_cdT dT + d_cdcl dcl)) m
-  const auto b_cd = [=](int j) {
-    const T coup =
-        fma_rn(__ldg(d_cdcl + j), bicgstab::ld(dcl, j), C_cdT.apply_of(dT_at, j));
-    return mul_rn(fma_rn(dt, coup, __ldg(base_cd + j)), __ldg(mask + j));
-  };
-  res = solve_formed<kRecompute>(bar, P, P.J_cd, b_cd, P.invd_cd, P.dcd);
-  write_result(P, 2, res);
-}
-
-// At least two blocks a SM, so that the 257 x 257 grid (259-264 blocks) is
-// co-resident.
-template <typename T, bool kCluster, bool kRecompute, int kMinBlocks = 2>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-    triple_solve_kernel(TripleParams<T> P) {
-  __shared__ T red[bicgstab::kMaxSlotsPerBarrier * kWarps];
-  __shared__ T bcast[bicgstab::kMaxSlotsPerBarrier];
-  if constexpr (kCluster) {
-    __shared__ T mine[bicgstab::kMaxSlotsPerBarrier];
-    bicgstab::ClusterBarrier<T> bar(P.W.partials, P.counter, red, mine,
-                                    bcast);
-    sweep<T, kRecompute>(P, bar);
-  } else {
-    cg::grid_group grid = cg::this_grid();
-    bicgstab::GridBarrier<T> bar{grid, P.W.partials, red, bcast};
-    sweep<T, kRecompute>(P, bar);
-  }
-}
-
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    triple_solve_kernel_pr4(TripleParams<T> P) {
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSM)
+    triple_solve_kernel(TripleParams<T> P) {
   cg::grid_group grid = cg::this_grid();
   __shared__ T red[bicgstab::kMaxSlotsPerBarrier * kWarps];
   __shared__ T bcast[bicgstab::kMaxSlotsPerBarrier];
@@ -220,38 +145,37 @@ __global__ void __launch_bounds__(kThreads)
   const int first = blockIdx.x * kThreads + threadIdx.x;
   const T dt = static_cast<T>(P.dt);
   const T* __restrict__ mask = P.mask;
+  const T* dT = P.dT;
+  const auto dT_at = [dT](int m) { return bicgstab::ld(dT, m); };
 
-  // --- T solve ---
-  for (int k = first; k < n; k += stride)
-    P.rhs[k] = __ldg(P.rhs_T + k) * __ldg(mask + k);
-  grid.sync();
-  bicgstab::Result<T> res = bicgstab::solve<T, Stencil5Op<T>>(
-      grid, P.J_T, P.rhs, P.invd_T, mask, P.dT, P.W, P.iters, P.tol_sq_coef,
-      red, bcast);
+  // --- T solve, its rhs formed in its first pass ---
+  bicgstab::Result<T> res = bicgstab::solve<T>(
+      grid, P.J_T, MaskedRhs<T>{P.rhs_T, mask, P.rhs}, P.invd_T, mask, P.dT,
+      P.W, P.iters, P.tol_sq_coef, red, bcast);
   write_result(P, 0, res);
-  grid.sync();
+  if (res.used == 0) grid.sync();  // dT came after the solve's only barrier
 
   // --- cl rhs coupling + solve ---
   for (int k = first; k < n; k += stride) {
-    const T coup = P.C_clT.apply(P.dT, k);
+    const T coup = P.C_clT.apply_of(dT_at, k);
     P.rhs[k] = (__ldg(P.base_cl + k) + dt * coup) * __ldg(mask + k);
   }
   grid.sync();
-  res = bicgstab::solve<T, Stencil5Op<T>>(grid, P.J_cl, P.rhs, P.invd_cl, mask,
-                                          P.dcl, P.W, P.iters, P.tol_sq_coef,
-                                          red, bcast);
+  res = bicgstab::solve<T>(grid, P.J_cl, bicgstab::ArrayRhs<T>{P.rhs},
+                           P.invd_cl, mask, P.dcl, P.W, P.iters,
+                           P.tol_sq_coef, red, bcast);
   write_result(P, 1, res);
-  grid.sync();
 
   // --- cd rhs coupling + solve ---
   for (int k = first; k < n; k += stride) {
-    const T coup = P.C_cdT.apply(P.dT, k) + __ldg(P.d_cdcl + k) * P.dcl[k];
+    const T coup = P.C_cdT.apply_of(dT_at, k) +
+                   __ldg(P.d_cdcl + k) * bicgstab::ld(P.dcl, k);
     P.rhs[k] = (__ldg(P.base_cd + k) + dt * coup) * __ldg(mask + k);
   }
   grid.sync();
-  res = bicgstab::solve<T, Stencil5Op<T>>(grid, P.J_cd, P.rhs, P.invd_cd, mask,
-                                          P.dcd, P.W, P.iters, P.tol_sq_coef,
-                                          red, bcast);
+  res = bicgstab::solve<T>(grid, P.J_cd, bicgstab::ArrayRhs<T>{P.rhs},
+                           P.invd_cd, mask, P.dcd, P.W, P.iters,
+                           P.tol_sq_coef, red, bcast);
   write_result(P, 2, res);
 }
 
@@ -261,106 +185,15 @@ Stencil5Op<T> op_at(const void* const* planes, int first, int n0, int n1) {
   return Stencil5Op<T>{p[0], p[1], p[2], p[3], p[4], n0, n1};
 }
 
-// One cooperative launch of `kernel` in clusters of c blocks (c = 1: no
-// cluster attribute) through cudaLaunchKernelEx.  A refused launch returns
-// its error; nothing falls back to another form.
-template <class Kernel, class P>
-int launch_clustered(Kernel kernel, P& params, int blocks, int c,
-                     void* stream) {
-  cudaLaunchAttribute attrs[2];
-  attrs[0].id = cudaLaunchAttributeCooperative;
-  attrs[0].val.cooperative = 1;
-  attrs[1].id = cudaLaunchAttributeClusterDimension;
-  attrs[1].val.clusterDim.x = c;
-  attrs[1].val.clusterDim.y = 1;
-  attrs[1].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cfg.attrs = attrs;
-  cfg.numAttrs = c > 1 ? 2 : 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, params);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The grid of a clustered launch for n points: the blocks n needs, rounded
-// up to a whole cluster, capped by the clusters that can be co-resident.
-template <class Kernel>
-int cluster_grid_blocks(Kernel kernel, int n, int c, int* blocks) {
-  if (c < 1 || c > bicgstab::kMaxCluster) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  int cap = 0;
-  if (c == 1) {
-    const int e = bicgstab::grid_blocks_of(kernel, n, &cap);
-    if (e != 0) return e;
-    *blocks = cap;
-    return 0;
-  }
-  const int need = ((n + kThreads - 1) / kThreads + c - 1) / c * c;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = c;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(need);
-  cfg.blockDim = dim3(kThreads);
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  cap = clusters * c;
-  *blocks = need < cap ? need : cap;
-  return 0;
-}
-
-// The forms compared on the card: 0 PR 4's kernel; then the grid's sync
-// with the coupled rhs formed in pass A (odd) or by a pass and a sync
-// (even), under a register cap of 2 (1, 2), 3 (3, 4) or 4 (5, 6) blocks
-// a SM.
-template <typename T>
-int blocks_of(int form, int c, int n, int* blocks) {
-  (void)c;
-  switch (form) {
-    case 0:
-      return bicgstab::grid_blocks_of(triple_solve_kernel_pr4<T>, n, blocks);
-    case 1:
-      return bicgstab::grid_blocks_of(triple_solve_kernel<T, false, true, 2>,
-                                      n, blocks);
-    case 2:
-      return bicgstab::grid_blocks_of(triple_solve_kernel<T, false, false, 2>,
-                                      n, blocks);
-    case 3:
-      return bicgstab::grid_blocks_of(triple_solve_kernel<T, false, true, 3>,
-                                      n, blocks);
-    case 4:
-      return bicgstab::grid_blocks_of(triple_solve_kernel<T, false, false, 3>,
-                                      n, blocks);
-    case 5:
-      return bicgstab::grid_blocks_of(triple_solve_kernel<T, false, true, 4>,
-                                      n, blocks);
-    case 6:
-      return bicgstab::grid_blocks_of(triple_solve_kernel<T, false, false, 4>,
-                                      n, blocks);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 // `in` holds the 33 input planes in the TPU kernel's order: J_T, J_cl, J_cd,
 // C_clT, C_cdT (c0, cxm, cxp, cym, cyp each), d_cdcl, rhs_T, base_cl,
 // base_cd, invd_T, invd_cl, invd_cd, mask.  `out` holds dT, dcl, dcd;
-// `scalars` res[3] then tol_sq[3]; `work` the eight scratch planes;
-// `counter` the cluster barrier's arrival counter (0 when first allocated).
+// `scalars` res[3] then tol_sq[3]; `work` the seven scratch planes.
 template <typename T>
-int launch(int form, int c, const void* const* in, void* const* out,
-           int* iters_out, void* scalars, void* work, void* partials,
-           unsigned* counter, int n0, int n1, int iters, double tol_sq_coef,
-           double dt, int blocks, void* stream) {
+int launch(const void* const* in, void* const* out, int* iters_out,
+           void* scalars, void* work, void* partials, int n0, int n1,
+           int iters, double tol_sq_coef, double dt, int blocks,
+           void* stream) {
   const T* const* p = reinterpret_cast<const T* const*>(in);
   T* const* o = reinterpret_cast<T* const*>(out);
   const size_t n = static_cast<size_t>(n0) * n1;
@@ -387,35 +220,11 @@ int launch(int form, int c, const void* const* in, void* const* out,
                     s + 3,
                     w + bicgstab::kWorkArrays * n,
                     bicgstab::make_work(w, n, static_cast<T*>(partials)),
-                    counter,
                     iters,
                     tol_sq_coef,
                     dt};
-  (void)c;
-  switch (form) {
-    case 0:
-      return bicgstab::launch_cooperative(triple_solve_kernel_pr4<T>, P,
-                                          blocks, stream);
-    case 1:
-      return bicgstab::launch_cooperative(
-          triple_solve_kernel<T, false, true, 2>, P, blocks, stream);
-    case 2:
-      return bicgstab::launch_cooperative(
-          triple_solve_kernel<T, false, false, 2>, P, blocks, stream);
-    case 3:
-      return bicgstab::launch_cooperative(
-          triple_solve_kernel<T, false, true, 3>, P, blocks, stream);
-    case 4:
-      return bicgstab::launch_cooperative(
-          triple_solve_kernel<T, false, false, 3>, P, blocks, stream);
-    case 5:
-      return bicgstab::launch_cooperative(
-          triple_solve_kernel<T, false, true, 4>, P, blocks, stream);
-    case 6:
-      return bicgstab::launch_cooperative(
-          triple_solve_kernel<T, false, false, 4>, P, blocks, stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return bicgstab::launch_cooperative(triple_solve_kernel<T>, P, blocks,
+                                      stream);
 }
 
 }  // namespace
@@ -429,30 +238,31 @@ int triple_solve_num_slots() { return bicgstab::kNumSlots; }
 int triple_solve_work_planes() { return kScratchPlanes; }
 
 // The triple kernel holds more pointers and registers than K1, so its
-// cooperative grid comes from its own occupancy.
-int triple_solve_blocks_f64(int form, int c, int n, int* blocks) {
-  return blocks_of<double>(form, c, n, blocks);
+// cooperative grid comes from its own occupancy, at two points a thread.
+int triple_solve_blocks_f64(int n, int* blocks) {
+  return bicgstab::grid_blocks_of(triple_solve_kernel<double>, n, blocks,
+                                  kPointsPerThread);
 }
 
-int triple_solve_blocks_f32(int form, int c, int n, int* blocks) {
-  return blocks_of<float>(form, c, n, blocks);
+int triple_solve_blocks_f32(int n, int* blocks) {
+  return bicgstab::grid_blocks_of(triple_solve_kernel<float>, n, blocks,
+                                  kPointsPerThread);
 }
 
-int triple_solve_f64(int form, int c, const void* const* in, void* const* out,
-                     int* iters_out, void* scalars, void* work, void* partials,
-                     unsigned* counter, int n0, int n1, int iters,
-                     double tol_sq_coef, double dt, int blocks, void* stream) {
-  return launch<double>(form, c, in, out, iters_out, scalars, work, partials,
-                        counter, n0, n1, iters, tol_sq_coef, dt, blocks,
-                        stream);
+int triple_solve_f64(const void* const* in, void* const* out, int* iters_out,
+                     void* scalars, void* work, void* partials, int n0, int n1,
+                     int iters, double tol_sq_coef, double dt, int blocks,
+                     void* stream) {
+  return launch<double>(in, out, iters_out, scalars, work, partials, n0, n1,
+                        iters, tol_sq_coef, dt, blocks, stream);
 }
 
-int triple_solve_f32(int form, int c, const void* const* in, void* const* out,
-                     int* iters_out, void* scalars, void* work, void* partials,
-                     unsigned* counter, int n0, int n1, int iters,
-                     double tol_sq_coef, double dt, int blocks, void* stream) {
-  return launch<float>(form, c, in, out, iters_out, scalars, work, partials,
-                       counter, n0, n1, iters, tol_sq_coef, dt, blocks, stream);
+int triple_solve_f32(const void* const* in, void* const* out, int* iters_out,
+                     void* scalars, void* work, void* partials, int n0, int n1,
+                     int iters, double tol_sq_coef, double dt, int blocks,
+                     void* stream) {
+  return launch<float>(in, out, iters_out, scalars, work, partials, n0, n1,
+                       iters, tol_sq_coef, dt, blocks, stream);
 }
 
 const char* error_string(int code) {

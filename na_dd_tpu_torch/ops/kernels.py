@@ -74,11 +74,6 @@ BUILD_INFO: dict = {}
 _LIBS: dict = {}
 _LOCK = threading.Lock()
 _BLOCKS: dict = {}
-_COUNTERS: dict = {}
-
-#: K4's form and cluster size (blocks a cluster of its cooperative launch)
-TRIPLE_FORM = 1
-TRIPLE_CLUSTER = 1
 
 
 def reset_launch_counts() -> None:
@@ -223,10 +218,10 @@ def _declare(name: str, lib) -> None:
         lib.bicgstab3_work_volumes.restype = i32
     elif name == "triple_solve":
         for fn in (lib.triple_solve_blocks_f64, lib.triple_solve_blocks_f32):
-            fn.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]
+            fn.argtypes = [i32, ctypes.POINTER(i32)]
             fn.restype = i32
         for fn in (lib.triple_solve_f64, lib.triple_solve_f32):
-            fn.argtypes = [i32, i32] + [vp] * 7 + [i32, i32, i32, f64, f64, i32, vp]
+            fn.argtypes = [vp] * 6 + [i32, i32, i32, f64, f64, i32, vp]
             fn.restype = i32
         lib.triple_solve_input_planes.restype = i32
         lib.triple_solve_num_slots.restype = i32
@@ -346,30 +341,6 @@ def _bicgstab_blocks(lib, prefix: str, dtype, n: int) -> int:
     return _BLOCKS[key]
 
 
-def _triple_blocks(lib, dtype, n: int) -> int:
-    """K4's cooperative grid for n points at :data:`TRIPLE_FORM` and
-    :data:`TRIPLE_CLUSTER`: the blocks n needs, rounded up to whole clusters,
-    capped by the clusters that can be co-resident."""
-    key = ("triple_solve", dtype, n, TRIPLE_FORM, TRIPLE_CLUSTER)
-    if key not in _BLOCKS:
-        fn = lib.triple_solve_blocks_f64 if dtype == torch.float64 else lib.triple_solve_blocks_f32
-        blocks = ctypes.c_int(0)
-        code = fn(TRIPLE_FORM, TRIPLE_CLUSTER, n, ctypes.byref(blocks))
-        _check_launch(lib, code, "triple_solve occupancy")
-        _BLOCKS[key] = blocks.value
-    return _BLOCKS[key]
-
-
-def _arrival_counter(device, stream: int) -> torch.Tensor:
-    """K4's arrival counter for launches on ``stream``: zeroed once when it
-    is made; every launch leaves its lower 31 bits at 0 (csrc/bicgstab.cuh,
-    ClusterBarrier), so launches in stream order share it."""
-    key = (device, stream)
-    if key not in _COUNTERS:
-        _COUNTERS[key] = torch.zeros(1, dtype=torch.int32, device=device)
-    return _COUNTERS[key]
-
-
 def bicgstab_solve(stencil: Stencil5, b, inv_diag, mask, *, tol: float, iters: int):
     """K1: whole Jacobi-BiCGStab solve (x0 = 0, ``iters`` masked-early-exit
     iterations) of ``stencil · x = b``.
@@ -433,9 +404,7 @@ def triple_solve(
         raise ValueError(f"triple_solve: expected {lib.triple_solve_input_planes()} planes")
     n0, n1 = rhs_T.shape
     dtype, device = rhs_T.dtype, rhs_T.device
-    blocks = _triple_blocks(lib, dtype, n0 * n1)
-    stream = _stream(rhs_T)
-    counter = _arrival_counter(device, stream)
+    blocks = _bicgstab_blocks(lib, "triple_solve", dtype, n0 * n1)
     out = torch.empty((3, n0, n1), dtype=dtype, device=device)
     iters_out = torch.empty(3, dtype=torch.int32, device=device)
     scalars = torch.empty((2, 3), dtype=dtype, device=device)  # r·r, tol_sq
@@ -445,11 +414,9 @@ def triple_solve(
     out_ptrs = (ctypes.c_void_p * 3)(*(out[k].data_ptr() for k in range(3)))
     fn = lib.triple_solve_f64 if dtype == torch.float64 else lib.triple_solve_f32
     code = fn(
-        TRIPLE_FORM, TRIPLE_CLUSTER,
         ctypes.cast(in_ptrs, ctypes.c_void_p), ctypes.cast(out_ptrs, ctypes.c_void_p),
         iters_out.data_ptr(), scalars.data_ptr(), work.data_ptr(), partials.data_ptr(),
-        counter.data_ptr(), n0, n1, int(iters), float(tol) * float(tol), float(dt), blocks,
-        stream,
+        n0, n1, int(iters), float(tol) * float(tol), float(dt), blocks, _stream(rhs_T),
     )
     _check_launch(lib, code, "triple_solve")
     LAUNCHES["triple_solve"] += 1

@@ -189,9 +189,16 @@ def test_triple_solve_kernel_vs_plain(card, dtype, shape):
     assert float(rel.max()) <= (1e-10 if dtype == torch.float64 else 1e-4)
 
 
+# Grids that leave threads without points: 9 x 9 is one block; 130 x 257
+# takes 66 blocks at K4's two points a thread, the last one part full; 33 x 20
+# takes two.
+RAGGED = [(9, 9), (130, 257), (33, 20)]
+
+
 @pytest.mark.parametrize("iters", [0, 1, 2])
-def test_triple_solve_kernel_budget_cut(card, iters):
-    operands = _triple(41, (65, 65), torch.float64, card)
+@pytest.mark.parametrize("shape", [(65, 65)] + RAGGED)
+def test_triple_solve_kernel_budget_cut(card, shape, iters):
+    operands = _triple(41, shape, torch.float64, card)
     *xk, ik = kernels.triple_solve(*operands, tol=1e-13, iters=iters)
     *xp, ip = kernels.triple_solve_plain(*operands, tol=1e-13, iters=iters)
     assert ik["iters"].tolist() == ip["iters"].tolist() == [iters] * 3
@@ -259,14 +266,22 @@ def test_solve_kernels_edge_cases(card, dtype, case, shape):
 
 @pytest.mark.parametrize(
     "case, shape",
-    [("zero_rhs", (65, 65)), ("diagonal", (65, 65)), ("dominant", (9, 9)), ("dominant", (130, 257))],
+    [("zero_rhs", (65, 65)), ("diagonal", (65, 65)), ("dominant", (9, 9)), ("dominant", (130, 257))]
+    + [(case, shape) for case in ("zero_rhs_T", "diagonal_T") for shape in RAGGED + [(257, 257)]],
 )
 def test_triple_solve_kernel_edge_cases(card, case, shape):
+    """K4 against its plain version where its sweep branches.  'zero_rhs_T':
+    the T solve takes no iteration and writes dT after its only barrier, which
+    cl's rhs then reads at every neighbour; 'diagonal_T': it ends on s_conv."""
     operands = list(_triple(44, shape, torch.float64, card))
     if case == "zero_rhs":  # rhs_T, base_cl, base_cd
         operands[6:9] = [torch.zeros_like(t) for t in operands[6:9]]
+    elif case == "zero_rhs_T":
+        operands[6] = torch.zeros_like(operands[6])
     elif case == "diagonal":  # J_T, J_cl, J_cd
         operands[:3] = [_edge_case(case, (J, None, None, None))[0] for J in operands[:3]]
+    elif case == "diagonal_T":
+        operands[0] = _edge_case("diagonal", (operands[0], None, None, None))[0]
     *xk, ik = kernels.triple_solve(*operands, tol=1e-13, iters=40)
     *xp, ip = kernels.triple_solve_plain(*operands, tol=1e-13, iters=40)
     used = ik["iters"].tolist()
@@ -281,60 +296,29 @@ def test_triple_solve_kernel_edge_cases(card, case, shape):
         assert used == [1] * 3
     if case == "dominant":
         assert all(0 < u < 40 for u in used)
+    if case in ("zero_rhs_T", "diagonal_T"):
+        assert used[0] == (0 if case == "zero_rhs_T" else 1) and min(used[1:]) > 0
 
 
-def _check_triple(operands, *, iters, tol=1e-13):
-    """K4 against its plain version: the same iteration counts and flags,
-    each increment within 1e-12 of the plain version's max-norm (exactly 0
-    where the plain one is 0).  Returns the iteration counts."""
-    *xk, ik = kernels.triple_solve(*operands, tol=tol, iters=iters)
-    *xp, ip = kernels.triple_solve_plain(*operands, tol=tol, iters=iters)
+@pytest.mark.parametrize("grid", ["one block", "seven blocks", "one a SM", "rule"])
+@pytest.mark.parametrize("shape", [(33, 20), (130, 257)])
+def test_triple_solve_kernel_at_other_grids(card, monkeypatch, shape, grid):
+    """K4 on grids other than its rule's (chip_smoke.py's grid table times
+    them): the grid-stride passes and the sums over the blocks hold on any
+    co-resident grid."""
+    operands = _triple(48, shape, torch.float64, card)
+    n = shape[0] * shape[1]
+    kernels.triple_solve(*operands, tol=1e-13, iters=1)  # the rule's grid
+    key = ("triple_solve", torch.float64, n)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    need = -(-n // 256)
+    blocks = {"one block": 1, "seven blocks": min(7, need), "one a SM": min(sms, need),
+              "rule": kernels._BLOCKS[key]}[grid]
+    monkeypatch.setitem(kernels._BLOCKS, key, blocks)
+    *xk, ik = kernels.triple_solve(*operands, tol=1e-13, iters=40)
+    *xp, ip = kernels.triple_solve_plain(*operands, tol=1e-13, iters=40)
     assert ik["iters"].tolist() == ip["iters"].tolist()
-    assert ik["converged"].tolist() == ip["converged"].tolist()
+    assert all(0 < u < 40 for u in ik["iters"].tolist())
     for a, b in zip(xk, xp):
-        if float(b.abs().max()) == 0.0:
-            assert float(a.abs().max()) == 0.0
-        else:
-            assert_close(a, b, 1e-12)
-    return ik["iters"].tolist()
+        assert_close(a, b, 1e-12)
 
-
-# 9 x 9 is one block; 130 x 257 needs 131 blocks and 33 x 20 three, neither a
-# whole number of clusters of 2, 4 or 8.
-RAGGED = [(9, 9), (130, 257), (33, 20)]
-
-
-@pytest.mark.parametrize("shape", RAGGED + [(257, 257)])
-def test_triple_solve_kernel_zero_rhs_T_alone(card, shape):
-    """rhs_T = 0: the T solve takes no iteration and writes dT after its only
-    barrier; cl and cd must read dT = 0 at every neighbour and run."""
-    operands = list(_triple(45, shape, torch.float64, card))
-    operands[6] = torch.zeros_like(operands[6])
-    used = _check_triple(operands, iters=40)
-    assert used[0] == 0 and min(used[1:]) > 0
-
-
-@pytest.mark.parametrize("shape", RAGGED + [(257, 257)])
-def test_triple_solve_kernel_T_exits_on_s_conv(card, shape):
-    """J_T = c0·I: the T solve ends on s_conv in its first iteration."""
-    operands = list(_triple(46, shape, torch.float64, card))
-    operands[0] = _edge_case("diagonal", (operands[0], None, None, None))[0]
-    used = _check_triple(operands, iters=40)
-    assert used[0] == 1 and min(used[1:]) > 0
-
-
-@pytest.mark.parametrize("iters", [0, 1])
-@pytest.mark.parametrize("shape", RAGGED)
-def test_triple_solve_kernel_budget_on_ragged_grids(card, shape, iters):
-    used = _check_triple(_triple(47, shape, torch.float64, card), iters=iters)
-    assert used == [iters] * 3
-
-
-@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
-@pytest.mark.parametrize("shape", [(9, 9), (130, 257)])
-def test_triple_solve_kernel_every_cluster_size(card, monkeypatch, shape, cluster):
-    """K4 launched in clusters of 1, 2, 4 and 8 blocks (chip_smoke.py's grid
-    table times each) agrees with the plain version at each."""
-    monkeypatch.setattr(kernels, "TRIPLE_CLUSTER", cluster)
-    used = _check_triple(_triple(48, shape, torch.float64, card), iters=40)
-    assert all(0 < u < 40 for u in used)
