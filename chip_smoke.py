@@ -18,7 +18,15 @@ version on the card, and drives the port's paths:
 * 3-D: the three_d_study protocol (MMSCaseExpSin3, RegHCs, eta = 50,
   Tf = 0.02, two Newton sweeps, dt = 1e-2/2^k), N=4..64 and N=128 in float64
   and N=32 in float32, through ``make_setup3`` and ``run_trial3`` (kernels K5
-  ``bicgstab_solve3`` and K6/K7 ``stencil7_apply``).
+  ``bicgstab_solve3`` and K6/K7 ``stencil7_apply``);
+* 2-D, ExpSin: the ExpSin notebook's spatial study, N=2..256, on the jvp
+  route (K1/K2) and the N=256 level also fused through K4, held to the
+  notebook and to CPU-x64;
+* the goldens: every case of ``tests/test_parity_golden.py`` (the Cs, HCs,
+  RegHCs and forward-Euler variants, the case families, a non-uniform grid)
+  at that file's tolerances; and the 3-D Cs/HCs/RegHCs variants on
+  MMSCasePol3 and through MMSCaseCsZeroCrossing3 against the CPU plain
+  versions (K5/K6).
 
 It checks the errors against the reference values and the launch counts of
 each path's main level (counts set to 0 just before it, read just after),
@@ -77,6 +85,32 @@ POL_ANALYTIC_CPU_X64 = {
     32: 2.750060013224652e-07, 64: 6.960848974797674e-08,
 }
 SCALE_N, SCALE_STEPS = 1024, 5  # studies/scale_probe.py: dt = 0.25/N, Tf = 5 dt
+
+# The ExpSin notebook's spatial study (cell 9; studies/reference_values.py,
+# ("expsin", "spatial"), 13 digits), N = 2..256, and the JAX package's CPU-x64
+# value of its finest level (studies/results/expsin_cpu_check.json).
+EXPSIN_REFERENCE = {
+    2: 1.942652829989e-05, 4: 5.197056624911e-06, 8: 1.322695968641e-06,
+    16: 3.372248813359e-07, 32: 8.344194130557e-08, 64: 2.052209700229e-08,
+    128: 5.119616858484e-09, 256: 1.278782670173e-09,
+}
+EXPSIN_N256_CPU_X64 = 1.2787826717343696e-09
+# tests/test_parity_golden.py: the reference's own runs (16 digits)
+GOLDEN_EXPSIN = {
+    2: 1.9426528299885707e-05, 4: 5.1970566249110085e-06,
+    8: 1.3226959686374811e-06, 16: 3.3722488132093435e-07,
+}
+GOLDEN_CSTRIPLE = {8: 1.3027694406570663e-06, 16: 3.2704272907552362e-07}
+GOLDEN_HCS_ZERO_CROSSING = 3.5029545962258690e-03
+GOLDEN_NFSP = 7.7437919308797556e-07
+GOLDEN_FE = 5.4271963227677798e-06
+GOLDEN_FE_PER_VAR = {
+    "cp": 9.0169225197585734e-11, "T": 6.4097681890801875e-07,
+    "cl": 1.2030623521024432e-07, "cd": 5.3878692490357578e-06,
+    "cs": 2.0507711164165844e-11,
+}
+GOLDEN_NONUNIFORM = 1.1814023749544314e-05
+PARITY_RTOL = 1e-8
 
 # The 3-D study (studies/three_d_study.py protocol): CPU-x64 errors of the
 # JAX package's build_runner3 at N = 4..64, dt = 1e-2/2^k; N=128 has none (its
@@ -714,6 +748,288 @@ def phase_scale(device):
             f"({time.perf_counter() - t0:.1f} s); card vs CPU rel {rel:.3e} (limit {limit:g})")
         check(rel <= limit, f"scale {name}: the card and the CPU disagree")
     return out["float64"][1], out["float64"][2], out["float64"][0]
+
+
+# ---------------------------------------------------------------------------
+# the golden-parity family: ExpSin, the Cs/HCs/forward-Euler variants, 3-D
+# ---------------------------------------------------------------------------
+def study_model():
+    from na_dd_tpu_torch.models.coefficients import Model02
+    from na_dd_tpu_torch.models.consts import STUDY_MODEL_CONSTS
+
+    return Model02(STUDY_MODEL_CONSTS)
+
+
+def make_expsin_trial(N: int, dtype, device, **integrator_kw):
+    """The ExpSin notebook's spatial level N (cell 9): RegHCs, eta = 50,
+    Tf = 0.01, dt = h^1.5, the study constants and the budget
+    ``choose_krylov_unroll`` gives them."""
+    from na_dd_tpu_torch.core import FieldRegHCsTriple, MMSForcingRegHCsTriple
+    from na_dd_tpu_torch.harness.trial import MMSTrial, choose_krylov_unroll
+    from na_dd_tpu_torch.integrators import PCTrapezoidalRegHCsTriple
+    from na_dd_tpu_torch.mms.cases import MMSCaseExpSin
+    from na_dd_tpu_torch.models.consts import STUDY_MODEL_CONSTS
+    from na_dd_tpu_torch.ops.grid import make_uniform_grid
+
+    dt = (1.0 / N) ** 1.5
+    trial = MMSTrial(
+        make_uniform_grid(N, N, dtype=dtype, device=device), study_model(), MMSCaseExpSin,
+        FieldRegHCsTriple, MMSForcingRegHCsTriple, PCTrapezoidalRegHCsTriple,
+        forcing_terms_params=dict(regularization_factor=ETA),
+        field_params=dict(regularization_factor=ETA),
+        integrator_params=dict(
+            regularization_factor=ETA, track_residuals=False,
+            krylov_unroll=choose_krylov_unroll(N, dt, STUDY_MODEL_CONSTS), **integrator_kw,
+        ),
+    )
+    return trial, dt
+
+
+def expsin_main_level(device, route, **integrator_kw):
+    """The ExpSin N=256 level through one route, launch counts set to 0 just
+    before and read just after; held to the notebook and to CPU-x64."""
+    import torch
+
+    from na_dd_tpu_torch.ops import kernels
+
+    trial, dt = make_expsin_trial(MAIN_N, torch.float64, device, **integrator_kw)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    s = trial.run_for_errors(Tf=TF, dt=dt)
+    launches = dict(kernels.LAUNCHES)
+    err = s.overall_combined_error
+    nsteps = len(s.series.krylov_iters)
+    rel = abs(err - EXPSIN_REFERENCE[MAIN_N]) / EXPSIN_REFERENCE[MAIN_N]
+    rel_cpu = abs(err - EXPSIN_N256_CPU_X64) / EXPSIN_N256_CPU_X64
+    iters = s.series.krylov_iters.tolist()
+    log(f"[expsin] N={MAIN_N} {route}: error {err!r}, vs notebook {EXPSIN_REFERENCE[MAIN_N]!r} rel "
+        f"{rel:.3e}, vs CPU-x64 {EXPSIN_N256_CPU_X64!r} rel {rel_cpu:.3e} (limits 1e-8); steps "
+        f"{nsteps}; budget {trial.integrator.solver.iters}; launches {launches}; Krylov "
+        f"iterations {sum(iters)} (per step {iters})")
+    check(math.isfinite(err) and rel <= PARITY_RTOL, f"ExpSin N=256 {route} off the notebook")
+    check(rel_cpu <= PARITY_RTOL, f"ExpSin N=256 {route} off the CPU-x64 value")
+    check(nsteps == 41, "ExpSin N=256 should take 41 steps")
+    check(bool(s.series.krylov_converged.all()), f"ExpSin N=256 {route}: a solve did not converge")
+    for name in ("bicgstab_solve3", "stencil7_apply"):
+        check(launches[name] == 0, f"ExpSin N=256 {route} launched the 3-D kernel {name}")
+    return trial, dt, err, launches, nsteps
+
+
+def phase_expsin(device):
+    """The ExpSin notebook's spatial ladder N=2..256 (cell 9) on the card:
+    every level to the notebook at 1e-8, N=256 also to CPU-x64, the observed
+    rate against the notebook's; then the N=256 level through the fused
+    analytic route (one K4 launch a step); both routes' steady wall-clock in
+    turns, and five jvp steps under the profiler."""
+    import torch
+
+    from na_dd_tpu_torch.harness import calculate_observed_rates
+
+    errors = []
+    for N in (2, 4, 8, 16, 32, 64, 128):
+        trial, dt = make_expsin_trial(N, torch.float64, device)
+        s = trial.run_for_errors(Tf=TF, dt=dt)
+        err = s.overall_combined_error
+        rel = abs(err - EXPSIN_REFERENCE[N]) / EXPSIN_REFERENCE[N]
+        log(f"[expsin] N={N}: error {err!r}, vs notebook {EXPSIN_REFERENCE[N]!r} rel {rel:.3e}")
+        check(math.isfinite(err) and rel <= PARITY_RTOL, f"ExpSin N={N} off the notebook")
+        check(bool(s.series.krylov_converged.all()), f"ExpSin N={N}: a solve did not converge")
+        errors.append(err)
+
+    trial, dt, err, launches, nsteps = expsin_main_level(device, "jvp")
+    errors.append(err)
+    for name in ("bicgstab_solve", "stencil5_apply"):
+        check(launches[name] == 3 * nsteps,
+              f"ExpSin N=256: {name} launched {launches[name]} times, expected {3 * nsteps}")
+    check(launches["triple_solve"] == 0, "ExpSin N=256 jvp launched K4")
+
+    rate = calculate_observed_rates(errors)[-1][0]
+    rate_ref = calculate_observed_rates(list(EXPSIN_REFERENCE.values()))[-1][0]
+    log(f"[expsin] observed rate (3-point, N=64,128,256) {rate!r}, the notebook's {rate_ref!r}, "
+        f"difference {abs(rate - rate_ref):.3e} (limit 1e-6)")
+    check(abs(rate - rate_ref) <= 1e-6, "ExpSin observed rate off the notebook's")
+
+    trial_an, _, err_an, launches_an, _ = expsin_main_level(
+        device, "analytic fused", coupling_source="analytic")
+    check(launches_an["triple_solve"] == nsteps,
+          f"ExpSin analytic: triple_solve launched {launches_an['triple_solve']} times, expected {nsteps}")
+    for name in ("bicgstab_solve", "stencil5_apply"):
+        check(launches_an[name] == 0, f"ExpSin analytic fused launched {name}")
+
+    runs = steady_in_turns({"jvp": (trial, err), "analytic fused": (trial_an, err_an)}, dt)
+    for name, times in runs.items():
+        log(f"[expsin] N={MAIN_N} {name} steady wall-clock {min(times):.6f} s (min of 3 after a warm-up, "
+            "the routes in turns; runs " + ", ".join(f"{r:.6f}" for r in times) + " s)")
+
+    steps = 5
+    wall, found = profile_device(lambda: trial.run_for_errors(Tf=steps * dt, dt=dt))
+    busy_us = sum(us for _, us in found.values())
+    n_launch = sum(c for c, _ in found.values())
+    log(f"[expsin] {steps} steps of f64 N={MAIN_N} (jvp) under the profiler: wall {wall:.6f} s, device "
+        f"busy {busy_us / 1e6:.6f} s ({100 * busy_us / 1e6 / wall:.2f} %), idle "
+        f"{100 * (1 - busy_us / 1e6 / wall):.2f} %, {n_launch} kernel launches "
+        f"({n_launch / steps:.0f} per step)")
+    return {"jvp": (launches, min(runs["jvp"]), err),
+            "analytic": (launches_an, min(runs["analytic fused"]), err_an)}
+
+
+def run_golden(label, trial, golden, rtol, solves=True, **run_kw):
+    """One golden of tests/test_parity_golden.py on the card, with the launch
+    counts of its run."""
+    import torch
+
+    from na_dd_tpu_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    s = trial.run_for_errors(**run_kw)
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    err = s.overall_combined_error
+    rel = abs(err - golden) / golden
+    log(f"[golden] {label}: error {err!r}, vs golden {golden!r} rel {rel:.3e} (limit {rtol:g}); "
+        f"{len(s.series.krylov_iters)} steps in {wall:.2f} s; launches {launches}")
+    check(math.isfinite(err) and rel <= rtol, f"golden {label} missed")
+    check(bool(s.series.krylov_converged.all()), f"golden {label}: a solve did not converge")
+    if solves:
+        check(launches.get("bicgstab_solve", 0) > 0, f"golden {label}: K1 was launched no time")
+    else:
+        check(not launches, f"golden {label}: a solve-free run launched {launches}")
+    return s
+
+
+def phase_golden(device):
+    """Every case of tests/test_parity_golden.py through the port on the
+    card, at that file's own goldens and tolerances."""
+    from na_dd_tpu_torch.core import (
+        FieldCsTriple, FieldHCsTriple, FieldRegHCsTriple, MMSForcingCsTriple,
+        MMSForcingHCsTriple, MMSForcingRegHCsTriple,
+    )
+    from na_dd_tpu_torch.harness import MMSTrial, calculate_observed_rates
+    from na_dd_tpu_torch.integrators import (
+        ForwardEulerIntegrator, PCTrapezoidalCsTriple, PCTrapezoidalHCsTriple,
+        PCTrapezoidalRegHCsTriple,
+    )
+    from na_dd_tpu_torch.mms import cases
+    from na_dd_tpu_torch.ops.grid import make_grid, make_uniform_grid
+
+    model = study_model()
+    reg = dict(forcing_terms_params=dict(regularization_factor=ETA),
+               field_params=dict(regularization_factor=ETA),
+               integrator_params=dict(regularization_factor=ETA))
+
+    def grid(N):
+        return make_uniform_grid(N, N, device=device)
+
+    errors = []
+    for N, golden in GOLDEN_EXPSIN.items():
+        trial = MMSTrial(grid(N), model, cases.MMSCaseExpSin, FieldRegHCsTriple,
+                         MMSForcingRegHCsTriple, PCTrapezoidalRegHCsTriple, **reg)
+        s = run_golden(f"RegHCs ExpSin N={N}", trial, golden, PARITY_RTOL,
+                       Tf=0.01, dt=(1.0 / N) ** 1.5)
+        errors.append(s.overall_combined_error)
+    rate = calculate_observed_rates(errors)[-1][0]
+    log(f"[golden] RegHCs ExpSin rate {rate!r} (the test's 2 ± 0.35)")
+    check(abs(rate - 2.0) <= 0.35, "golden ExpSin ladder: rate off 2")
+
+    for N, golden in GOLDEN_CSTRIPLE.items():
+        trial = MMSTrial(grid(N), model, cases.MMSCaseExpSin, FieldCsTriple,
+                         MMSForcingCsTriple, PCTrapezoidalCsTriple)
+        run_golden(f"CsTriple ExpSin N={N}", trial, golden, PARITY_RTOL, Tf=0.01, dt=2e-3)
+
+    trial = MMSTrial(grid(8), model, cases.MMSCaseCsZeroCrossing, FieldHCsTriple,
+                     MMSForcingHCsTriple, PCTrapezoidalHCsTriple)
+    run_golden("HCsTriple zero crossing N=8", trial, GOLDEN_HCS_ZERO_CROSSING, PARITY_RTOL,
+               Tf=0.8, dt=1e-3)
+
+    trial = MMSTrial(grid(8), model, cases.MMSCaseNonFullySmoothPol_cpcsH2_TclcdH3,
+                     FieldRegHCsTriple, MMSForcingRegHCsTriple, PCTrapezoidalRegHCsTriple, **reg)
+    run_golden("NFSP |.|^gamma N=8", trial, GOLDEN_NFSP, PARITY_RTOL, Tf=0.05, dt=1e-3)
+
+    trial = MMSTrial(grid(8), model, cases.MMSCaseExpSin, FieldRegHCsTriple,
+                     MMSForcingRegHCsTriple, ForwardEulerIntegrator,
+                     forcing_terms_params=dict(regularization_factor=ETA),
+                     field_params=dict(regularization_factor=ETA))
+    s = run_golden("forward Euler ExpSin N=8", trial, GOLDEN_FE, PARITY_RTOL, solves=False,
+                   Tf=0.005, dt=1e-4)
+    for var, ref in GOLDEN_FE_PER_VAR.items():
+        got = s.per_variable_sup_errors[var]
+        rel = abs(got - ref) / ref
+        log(f"[golden]   forward Euler {var}: {got!r} vs {ref!r} rel {rel:.3e} (limit 1e-7)")
+        check(rel <= 1e-7, f"golden forward Euler {var} missed")
+
+    families = (
+        ("oscillating time", cases.make_MMSCasePolWithOscilatingTime_cls(ampl=0.8, speed=7.0), {},
+         dict(Tf=0.05, dt=2e-3), 7.7323703261406674e-05),
+        ("peaks Slow1e2", cases.MMSCaseSlowlyChangingPeaks_Slow1e2, {}, dict(Tf=0.02, dt=2e-3),
+         1.0868065366384929e-05),
+        ("stiff exp decay", cases.MMSCaseStiffExpDecay, dict(a_base=20.0),
+         dict(Tf=0.05, dt=1e-3), 8.7727711888787948e-07),
+    )
+    for label, case_cls, case_params, run_kw, golden in families:
+        trial = MMSTrial(grid(10), model, case_cls, FieldRegHCsTriple, MMSForcingRegHCsTriple,
+                         PCTrapezoidalRegHCsTriple, mms_case_params=case_params, **reg)
+        run_golden(f"{label} N=10", trial, golden, PARITY_RTOL, **run_kw)
+
+    rng = np.random.RandomState(77)
+    x = np.sort(np.concatenate([[0.0, 1.0], rng.rand(9)]))
+    y = np.sort(np.concatenate([[0.0, 1.0], rng.rand(7)]))
+    trial = MMSTrial(make_grid(x, y, device=device), model, cases.MMSCaseExpSin,
+                     FieldRegHCsTriple, MMSForcingRegHCsTriple, PCTrapezoidalRegHCsTriple, **reg)
+    run_golden("non-uniform grid (seed 77)", trial, GOLDEN_NONUNIFORM, 1e-7, Tf=0.01, dt=2e-3)
+
+
+def phase_variants3(device):
+    """The 3-D Cs and HCs variants on MMSCasePol3 (N=4..16, the 3-D study's
+    Tf and dt) and the HCs and RegHCs runs through MMSCaseCsZeroCrossing3
+    (cs_A = 0.005, Tf = 0.01, dt = 1e-3), each through K5/K6 on the card and
+    held to the port's CPU plain run of the same level at 1e-10."""
+    import torch
+
+    from na_dd_tpu_torch.models.coefficients import Model02
+    from na_dd_tpu_torch.models.consts import default_model_consts
+    from na_dd_tpu_torch.ops import kernels
+    from na_dd_tpu_torch.three_d import (
+        MMSCaseCsZeroCrossing3, MMSCasePol3, make_setup3, run_trial3,
+    )
+
+    model = Model02(default_model_consts._replace(**THREE_D_CONSTS))
+    runs = [(f"{v} Pol3 N={N}", v, MMSCasePol3, N, {}, dict(Tf=TF3, dt=dt3(N)))
+            for v in ("cs", "hcs") for N in (4, 8, 16)]
+    runs += [(f"{v} zero crossing3 N={N}", v, MMSCaseCsZeroCrossing3, N, dict(cs_A=0.005),
+              dict(Tf=0.01, dt=1e-3)) for v in ("hcs", "reghcs") for N in (8, 16)]
+    for label, variant, case_cls, N, case_params, run_kw in runs:
+        out = {}
+        for dev in (device, "cpu"):
+            g, case, _, integ = make_setup3(case_cls, N=N, model=model, variant=variant, eta=ETA,
+                                            case_params=case_params, device=dev)
+            if dev == device:
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+            out[dev] = run_trial3(g, case, integ, **run_kw)
+            if dev == device:
+                launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        card, cpu = out[device], out["cpu"]
+        state_rel = max(rel_to_max(getattr(card["state"], v).cpu(), getattr(cpu["state"], v))
+                        if getattr(cpu["state"], v).abs().max() > 0 else
+                        float(getattr(card["state"], v).abs().max())
+                        for v in ("cp", "T", "cl", "cd", "cs"))
+        # an error at the rounding floor (the RegHCs zero crossing integrates
+        # its solution to ~1e-20) is held by the state alone
+        if cpu["error"] > 1e-12:
+            err_ok = abs(card["error"] - cpu["error"]) <= 1e-10 * cpu["error"]
+        else:
+            err_ok = card["error"] <= 1e-12
+        log(f"[variants3] {label}: error {card['error']!r}, CPU plain {cpu['error']!r}; final state "
+            f"card vs CPU {state_rel:.3e} (limit 1e-10); launches {launches}")
+        check(err_ok and state_rel <= 1e-10, f"3-D {label}: the card and the CPU disagree")
+        check(card["krylov_converged"] and cpu["krylov_converged"],
+              f"3-D {label}: a solve did not converge")
+        check(launches.get("bicgstab_solve3", 0) > 0 and launches.get("stencil7_apply", 0) > 0,
+              f"3-D {label}: K5/K6 were launched no time")
+        check(not launches.get("bicgstab_solve") and not launches.get("triple_solve"),
+              f"3-D {label} launched a 2-D kernel")
 
 
 def phase_slice_f32(device):
@@ -1608,7 +1924,8 @@ def demangle(name: str) -> str:
 
 
 PHASES = ("k2", "k1", "k3", "k4", "slice", "f32", "analytic", "scale", "timings", "profile",
-          "k6", "k5", "3d", "3d128", "3d_f32", "timings3", "profile3")
+          "k6", "k5", "3d", "3d128", "3d_f32", "timings3", "profile3", "expsin", "golden",
+          "variants3")
 
 
 def main(argv=None) -> int:
@@ -1676,6 +1993,9 @@ def main(argv=None) -> int:
     phase("3d_f32", phase_three_d_f32, device)
     phase("timings3", phase_timings3, device)
     phase("profile3", phase_profile3, device)
+    phase("expsin", phase_expsin, device)
+    phase("golden", phase_golden, device)
+    phase("variants3", phase_variants3, device)
     if set(only) != set(PHASES):
         log(f"[done] phases {only}; total {time.perf_counter() - t_all:.1f} s (no result line)")
         return 0
@@ -1684,6 +2004,8 @@ def main(argv=None) -> int:
     launches_an, steady_an, err_an, steady_ps = done["analytic"]
     launches_sc, steady_sc, err_sc = done["scale"]
     launches3, steady3, err3 = done["3d"]
+    _, steady_ex, err_ex = done["expsin"]["jvp"]
+    _, steady_ex_an, err_ex_an = done["expsin"]["analytic"]
     t2, t3 = done["timings"], done["timings3"][MAIN_N3]
     pk = "na_dd_tpu/ops/pallas_kernels.py"
     entries = []
@@ -1716,7 +2038,9 @@ def main(argv=None) -> int:
     log(f"[done] 2-D N=256 steady {steady2:.6f} s, error {err2!r}; analytic fused steady "
         f"{steady_an:.6f} s (per-solve {steady_ps:.6f} s), error {err_an!r}; N={SCALE_N} "
         f"{SCALE_STEPS} steps {steady_sc:.6f} s, error {err_sc!r}; 3-D N=64 steady "
-        f"{steady3:.6f} s, error {err3!r}; total {time.perf_counter() - t_all:.1f} s")
+        f"{steady3:.6f} s, error {err3!r}; ExpSin N=256 steady {steady_ex:.6f} s, error "
+        f"{err_ex!r} (analytic fused {steady_ex_an:.6f} s, error {err_ex_an!r}); "
+        f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -222,6 +222,30 @@ class Field01Base:
             * g.interior_mask
         )
 
+    def all_fields(self, g: Grid, ops: Ops, s: State, t) -> State:
+        """All five right-hand sides as a State."""
+        return State(
+            cp=self.Fcp(g, ops, s, t),
+            T=self.FT(g, ops, s, t),
+            cl=self.Fcl(g, ops, s, t),
+            cd=self.Fcd(g, ops, s, t),
+            cs=self.Fcs(g, ops, s, t),
+        )
+
+
+class FieldCsTriple(Field01Base):
+    """[Cs-Cd-int] = Kd (Sd - cd)(1 + cl) cs."""
+
+    def cscd_reaction_cs(self, cs):
+        return self.model.Kd * cs
+
+
+class FieldHCsTriple(Field01Base):
+    """[Cs-Cd-int] = Kd (Sd - cd)(1 + cl) 1{cs>0}."""
+
+    def cscd_reaction_cs(self, cs):
+        return self.model.Kd * (cs > 0).to(cs.dtype)
+
 
 class FieldRegHCsTriple(Field01Base):
     """[Cs-Cd-int] = Kd (Sd - cd)(1 + cl) H_eta(cs) — the paper's headline

@@ -7,6 +7,8 @@ dual-cell averages by 3×3 Gauss–Legendre quadrature.
 
 from __future__ import annotations
 
+import torch
+
 from na_dd_tpu_torch.core.state import heaviside_regularized
 from na_dd_tpu_torch.models.coefficients import Model01
 from na_dd_tpu_torch.ops.grid import Grid
@@ -29,6 +31,18 @@ class ForcingBase:
 
     def fcs(self, g: Grid, ops: Ops, t):  # pragma: no cover - interface
         raise NotImplementedError
+
+
+class NoForcing(ForcingBase):
+    """All-zero forcing."""
+
+    def fcp(self, g, ops, t):
+        return torch.zeros_like(g.xx)
+
+    fT = fcp
+    fcl = fcp
+    fcd = fcp
+    fcs = fcp
 
 
 class MMSForcingCsTriple(ForcingBase):
@@ -115,6 +129,13 @@ class MMSForcingCsTriple(ForcingBase):
     def fcs(self, g, ops, t):
         _, reaction = self._fcd_fcs_core(g, t)
         return self.mms_case.dt_cs(t, g.xx, g.yy) + reaction
+
+
+class MMSForcingHCsTriple(MMSForcingCsTriple):
+    """Sharp-Heaviside reaction in fcd/fcs; fcp/fT/fcl as CsTriple."""
+
+    def _cs_reaction_factor(self, cs):
+        return (cs > 0).to(cs.dtype)
 
 
 class MMSForcingRegHCsTriple(MMSForcingCsTriple):

@@ -80,6 +80,25 @@ def _collect_errors(g: Grid, ops: Ops, mms_case, s: State, t, variable_names, in
     return _error_norms(g, ops, s, exact, variable_names, integral_vars)
 
 
+def _step_with_diagnostics(integrator, g: Grid, ops: Ops, s: State, t, dt):
+    """One step as ``(State, [hcs_ok, converged, resnorm_sq, iters])`` with
+    every diagnostic a device tensor.  An integrator whose ``step_fn``
+    returns a bare State (forward Euler) makes no solve: its step is
+    positive, converged, with residual 0 and 0 Krylov iterations."""
+    out = integrator.step_fn(g, ops, s, t, dt)
+    if isinstance(out, State):
+        ok = torch.ones((), dtype=torch.bool, device=g.device)
+        zero = torch.zeros((), dtype=g.dtype, device=g.device)
+        return out, [ok, ok, zero, zero]
+    s1, diag = out
+    return s1, [
+        diag.hcs_denominator_ok,
+        diag.krylov_converged,
+        diag.krylov_resnorm_sq,
+        diag.krylov_iters,
+    ]
+
+
 def run_simulation_collect_data(
     *,
     grid: Grid,
@@ -116,16 +135,9 @@ def run_simulation_collect_data(
     s = initial_state
     for k in range(num_steps):
         t_k = t0 + ks[k] * dt_adj
-        s, diag = integrator.step_fn(grid, ops, s, t_k, dt_adj)
+        s, diag = _step_with_diagnostics(integrator, grid, ops, s, t_k, dt_adj)
         rows.append(norms_row(s, t_k + dt_adj))
-        small.append(
-            [
-                diag.hcs_denominator_ok,
-                diag.krylov_converged,
-                diag.krylov_resnorm_sq,
-                diag.krylov_iters,
-            ]
-        )
+        small.append(diag)
 
     # the run's only host transfer
     norms = torch.stack([torch.stack(r) for r in rows], dim=1).to(torch.float64)

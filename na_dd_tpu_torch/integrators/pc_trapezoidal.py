@@ -11,8 +11,10 @@ Per step:
    couplings entering the right-hand sides as ``torch.func.jvp`` tangents
    (``coupling_source="jvp"``, the default) or as closed-form coupling
    planes (``coupling_source="analytic"``);
-3. cp corrected in closed form, cs by a pointwise regularized-Heaviside
-   Newton iteration.
+3. cp corrected in closed form; cs by the variant's corrector: in closed
+   form (:class:`PCTrapezoidalCsTriple`), by the sign-based exact solve
+   (:class:`PCTrapezoidalHCsTriple`) or by a pointwise regularized-Heaviside
+   Newton iteration (:class:`PCTrapezoidalRegHCsTriple`).
 
 The linear solves go through one solver-backend object
 (:class:`KrylovBackend`): the hand-written BiCGStab kernel of the stencil's
@@ -31,7 +33,8 @@ solves with the coupling planes applied between them.
 
 The step is dimension-agnostic: the
 3-D integrators (:mod:`na_dd_tpu_torch.three_d.integrator`) override only
-:meth:`PCTrapezoidalBase._newton_planes`.
+:meth:`PCTrapezoidalBase._newton_planes` and the ops provider of the eager
+:meth:`PCTrapezoidalBase.step`.
 
 Boundary semantics are the reference's: T's boundary is
 re-zeroed by each sweep, cl and cd keep theirs, the correctors zero cp and
@@ -42,17 +45,23 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from na_dd_tpu_torch.core.state import State, heaviside_regularized
 from na_dd_tpu_torch.ops import kernels, linsolve
 from na_dd_tpu_torch.ops.grid import Grid
-from na_dd_tpu_torch.ops.shifts import Ops
+from na_dd_tpu_torch.ops.shifts import LOCAL_OPS, Ops
 from na_dd_tpu_torch.three_d.diffusion import Stencil7
 
 
 class HCsCorrectorPositivityError(ValueError):
     """Raised when 2 - dt·Kd(Sd - cd1)(1 + cl1) loses positivity."""
+
+
+#: The HCs corrector's sign threshold, 100 ulp of 1 in float64 whatever the
+#: working dtype, as in the JAX package.
+_ESSENTIALLY_ZERO = float(np.finfo(np.float64).eps) * 100
 
 
 class StepDiagnostics(NamedTuple):
@@ -128,6 +137,9 @@ class KrylovBackend:
 class PCTrapezoidalBase:
     """Shared PC machinery; subclasses provide the cs predictor/corrector."""
 
+    #: ops provider of the eager :meth:`step`; the 3-D integrators override it
+    _local_ops: Ops = LOCAL_OPS
+
     def __init__(
         self,
         semi_discrete_field,
@@ -161,6 +173,8 @@ class PCTrapezoidalBase:
         self.num_newton_steps = int(num_newton_steps)
         self.track_residuals = bool(track_residuals)
         self.solver = KrylovBackend(iters=krylov_unroll)
+        # filled by the eager step()
+        self.last_residual = {}
 
     # cp predictor / corrector
     def initial_cp_pred(self, g: Grid, ops: Ops, at_t: State, t, *, dt):
@@ -346,6 +360,77 @@ class PCTrapezoidalBase:
             hcs_denominator_ok=hcs_ok,
         )
         return new_state, diag
+
+
+    def step(self, at_t0: State, *, t0, dt) -> State:
+        """Eager single step on the field's grid, the reference integrator's
+        API: keeps the Newton residuals in ``last_residual`` and raises
+        :class:`HCsCorrectorPositivityError` (one host sync) when the HCs
+        corrector lost positivity."""
+        g = self.semi_discrete_field.grid
+        new_state, diag = self.step_fn(g, self._local_ops, at_t0, t0, dt)
+        self.last_residual = {
+            "T": diag.residual_T,
+            "cl": diag.residual_cl,
+            "cd": diag.residual_cd,
+        }
+        if not bool(diag.hcs_denominator_ok):
+            raise HCsCorrectorPositivityError(
+                "Denominator 2 - dt Kd (Sd - Cd1) (1 + Cl1) below positiveness threshold."
+            )
+        return new_state
+
+
+class PCTrapezoidalCsTriple(PCTrapezoidalBase):
+    """cs handled linearly: Heun predictor and closed-form trapezoidal
+    corrector."""
+
+    def initial_cs_pred(self, g, ops, at_t, t, *, dt):
+        return self._heun_cs(g, ops, at_t, t, dt=dt)
+
+    def corrector_cs_step(self, g, ops, _T1, cl1, cd1, *, at_t0, t0, dt):
+        m = self._model
+        fcs = self.semi_discrete_field.forcing.fcs
+        t1 = t0 + dt
+        src0 = fcs(g, ops, t0)
+        src1 = fcs(g, ops, t1)
+        alpha0 = -m.Kd * (m.Sd - at_t0.cd) * (1.0 + at_t0.cl)
+        alpha1 = -m.Kd * (m.Sd - cd1) * (1.0 + cl1)
+        num = (1.0 + 0.5 * dt * alpha0) * at_t0.cs + 0.5 * dt * (src0 + src1)
+        den = 1.0 - 0.5 * dt * alpha1
+        ok = torch.ones((), dtype=torch.bool, device=num.device)
+        return g.interior_mask * num / den, ok
+
+
+class PCTrapezoidalHCsTriple(PCTrapezoidalBase):
+    """Sharp-Heaviside cs corrector: exact sign-based solve of
+    2x - dt R1 H(x) = Y0 with R1 = Kd (Sd - cd1)(1 + cl1); valid only while
+    2 - dt R1 stays positive, which the step reports as a device boolean
+    (``hcs_denominator_ok``) for the harness to raise on once a run."""
+
+    def initial_cs_pred(self, g, ops, at_t, t, *, dt):
+        return self._heun_cs(g, ops, at_t, t, dt=dt) * g.interior_mask
+
+    def corrector_cs_step(self, g, ops, _T1, cl1, cd1, *, at_t0, t0, dt):
+        m = self._model
+        field = self.semi_discrete_field
+        t1 = t0 + dt
+        fcs1 = field.forcing.fcs(g, ops, t1)
+
+        R1 = (m.Sd - cd1) * (1.0 + cl1) * m.Kd
+        del_Y1 = 2.0 - dt * R1
+        # through the ops reduction: the verdict over the whole grid
+        ok = ops.amax(-del_Y1) <= -_ESSENTIALLY_ZERO
+
+        Y0 = 2.0 * at_t0.cs + dt * field.Fcs(g, ops, at_t0, t0) + dt * fcs1
+        # the divisions only where the sign test picks them, in the JAX
+        # package's order
+        cs1 = torch.where(
+            Y0 > _ESSENTIALLY_ZERO,
+            Y0 / del_Y1,
+            torch.where(Y0 < -_ESSENTIALLY_ZERO, Y0 / 2.0, torch.zeros_like(Y0)),
+        )
+        return cs1 * g.interior_mask, ok
 
 
 class PCTrapezoidalRegHCsTriple(PCTrapezoidalBase):

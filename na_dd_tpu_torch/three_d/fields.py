@@ -1,5 +1,4 @@
-"""3-D semi-discrete fields (counterpart of :mod:`na_dd_tpu.three_d.fields`,
-the parts on the RegHCs study path).
+"""3-D semi-discrete fields (counterpart of :mod:`na_dd_tpu.three_d.fields`).
 
     FT  = ∇·(DT ∇T) − K3 cp T                                     + fT
     Fcl = ∇·(Dl(M cp) ∇cl − M(V(T)(cl+1))) − K4 cp (cl+1)          + fcl
@@ -7,9 +6,10 @@ the parts on the RegHCs study path).
 
 with V(T) = (V1(T), V2(T), V3(T)) and every ∇ the mimetic staggered triple
 of :mod:`na_dd_tpu_torch.three_d.stencils`.  Everything pointwise — Fcp,
-Fcs, the reaction factorization and the regularized Heaviside — is inherited
-unchanged from :class:`na_dd_tpu_torch.core.fields.Field01Base`; the 3-D
-class overrides only the methods that touch spatial operators, and its
+Fcs, the reaction factorization, ``all_fields`` and the variants' cs factor
+(linear, sharp or regularized Heaviside) — is inherited unchanged from
+:mod:`na_dd_tpu_torch.core.fields`; the 3-D base class overrides only the
+methods that touch spatial operators, and its
 self- and cross-coupling Jacobians are :class:`Stencil7` planes
 (``diag_dFcd_dcl`` is pointwise and inherited).
 """
@@ -18,7 +18,12 @@ from __future__ import annotations
 
 import torch
 
-from na_dd_tpu_torch.core.fields import Field01Base, FieldRegHCsTriple
+from na_dd_tpu_torch.core.fields import (
+    Field01Base,
+    FieldCsTriple,
+    FieldHCsTriple,
+    FieldRegHCsTriple,
+)
 from na_dd_tpu_torch.core.state import State
 from na_dd_tpu_torch.three_d.diffusion import (
     Stencil7,
@@ -163,6 +168,14 @@ class Field3Base(Field01Base):
         if a_T == 0.0:
             return st
         return stencil_add_diag3(st, self._dreac_dT(g, s, a_T))
+
+
+class FieldCsTriple3(Field3Base, FieldCsTriple):
+    """[Cs-Cd-int] = Kd (Sd − cd)(1 + cl) cs, in 3-D."""
+
+
+class FieldHCsTriple3(Field3Base, FieldHCsTriple):
+    """[Cs-Cd-int] = Kd (Sd − cd)(1 + cl) 1{cs>0}, in 3-D."""
 
 
 class FieldRegHCsTriple3(Field3Base, FieldRegHCsTriple):

@@ -9,6 +9,7 @@ onto dual-cell averages by 3×3×3 Gauss–Legendre quadrature
 
 from __future__ import annotations
 
+from na_dd_tpu_torch.core.forcing import NoForcing
 from na_dd_tpu_torch.core.state import heaviside_regularized
 from na_dd_tpu_torch.models.coefficients import Model01
 from na_dd_tpu_torch.three_d.grid import Grid3
@@ -31,6 +32,10 @@ class Forcing3Base:
 
     def fcs(self, g: Grid3, ops: Ops3, t):  # pragma: no cover - interface
         raise NotImplementedError
+
+
+#: the all-zero forcing: the 2-D class, whose zeros take the grid's shape
+NoForcing3 = NoForcing
 
 
 class MMSForcingCsTriple3(Forcing3Base):
@@ -134,6 +139,13 @@ class MMSForcingCsTriple3(Forcing3Base):
     def fcs(self, g, ops, t):
         _, reaction = self._fcd_fcs_core(g, t)
         return self.mms_case.dt_cs(t, g.xx, g.yy, g.zz) + reaction
+
+
+class MMSForcingHCsTriple3(MMSForcingCsTriple3):
+    """Sharp-Heaviside reaction in fcd/fcs; fcp/fT/fcl as CsTriple."""
+
+    def _cs_reaction_factor(self, cs):
+        return (cs > 0).to(cs.dtype)
 
 
 class MMSForcingRegHCsTriple3(MMSForcingCsTriple3):

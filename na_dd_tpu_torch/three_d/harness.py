@@ -1,5 +1,6 @@
-"""3-D MMS trial harness (counterpart of :mod:`na_dd_tpu.three_d.harness`, the
-RegHCs study path).
+"""3-D MMS trial harness (counterpart of :mod:`na_dd_tpu.three_d.harness`):
+the Cs, HCs and RegHCs variants (``make_setup3(..., variant=...)``) and the
+forcing-free integrator of :func:`make_integrator3`.
 
 The JAX package runs the whole simulation as one ``lax.scan``.  Here the
 time loop is a Python loop over eager device work that carries the same
@@ -24,11 +25,20 @@ import torch
 
 from na_dd_tpu_torch.core.state import State
 from na_dd_tpu_torch.integrators.pc_trapezoidal import HCsCorrectorPositivityError
-from na_dd_tpu_torch.three_d.fields import FieldRegHCsTriple3
-from na_dd_tpu_torch.three_d.forcing import MMSForcingRegHCsTriple3
+from na_dd_tpu_torch.three_d.fields import FieldCsTriple3, FieldHCsTriple3, FieldRegHCsTriple3
+from na_dd_tpu_torch.three_d.forcing import (
+    MMSForcingCsTriple3,
+    MMSForcingHCsTriple3,
+    MMSForcingRegHCsTriple3,
+    NoForcing3,
+)
 from na_dd_tpu_torch.three_d.grid import Grid3, make_uniform_grid3
 from na_dd_tpu_torch.three_d.inner_products import inner_H3, inner_p3
-from na_dd_tpu_torch.three_d.integrator import PCTrapezoidalRegHCsTriple3
+from na_dd_tpu_torch.three_d.integrator import (
+    PCTrapezoidalCsTriple3,
+    PCTrapezoidalHCsTriple3,
+    PCTrapezoidalRegHCsTriple3,
+)
 from na_dd_tpu_torch.three_d.mms import state_from_mms_when3
 from na_dd_tpu_torch.three_d.shifts import LOCAL_OPS3, Ops3
 from na_dd_tpu_torch.three_d.stencils import grad_H3
@@ -38,11 +48,19 @@ from na_dd_tpu_torch.three_d.stencils import grad_H3
 KRYLOV_BUDGET3 = 24
 
 
+_VARIANTS = {
+    "cs": (FieldCsTriple3, MMSForcingCsTriple3, PCTrapezoidalCsTriple3),
+    "hcs": (FieldHCsTriple3, MMSForcingHCsTriple3, PCTrapezoidalHCsTriple3),
+    "reghcs": (FieldRegHCsTriple3, MMSForcingRegHCsTriple3, PCTrapezoidalRegHCsTriple3),
+}
+
+
 def make_setup3(
     case_cls,
     *,
     model,
     N: int | None = None,
+    variant: str = "reghcs",
     eta: float = 50.0,
     grid: Grid3 | None = None,
     case_params: Dict | None = None,
@@ -50,8 +68,9 @@ def make_setup3(
     dtype=None,
     device=None,
 ):
-    """Assemble (grid, case, field, integrator) for a 3-D RegHCs MMS trial
-    (the Cs/HCs variants of the JAX package are not ported).
+    """Assemble (grid, case, field, integrator) for a 3-D MMS trial of the
+    ``variant`` "cs", "hcs" or "reghcs" (``eta`` is the regularization factor
+    of the last).
 
     Exactly one of ``N`` (uniform N³ grid in ``dtype`` on ``device``) or
     ``grid`` must be given.  The integrator takes a Krylov budget of
@@ -60,14 +79,38 @@ def make_setup3(
     """
     if (N is None) == (grid is None):
         raise ValueError("pass exactly one of N (uniform grid) or grid")
+    field_cls, forcing_cls, integ_cls = _VARIANTS[variant]
     g = grid if grid is not None else make_uniform_grid3(N, N, N, dtype=dtype, device=device)
     case = case_cls(g, model, **(case_params or {}))
-    forcing = MMSForcingRegHCsTriple3(mms_case=case, model=model, regularization_factor=eta)
-    field = FieldRegHCsTriple3(grid=g, model=model, forcing=forcing, regularization_factor=eta)
+    reg = dict(regularization_factor=eta) if variant == "reghcs" else {}
+    forcing = forcing_cls(mms_case=case, model=model, **reg)
+    field = field_cls(grid=g, model=model, forcing=forcing, **reg)
     params = dict(krylov_unroll=KRYLOV_BUDGET3, track_residuals=False)
     params.update(integrator_params or {})
-    integ = PCTrapezoidalRegHCsTriple3(field, regularization_factor=eta, **params)
+    integ = integ_cls(field, **reg, **params)
     return g, case, field, integ
+
+
+def make_integrator3(
+    grid: Grid3,
+    model,
+    *,
+    variant: str = "reghcs",
+    regularization_factor: float = 50.0,
+    forcing=None,
+    **integrator_params,
+):
+    """Field and 3-D PC integrator of ``variant`` with a physical forcing
+    (none by default), a Krylov budget of :data:`KRYLOV_BUDGET3` and no
+    residual tracking."""
+    field_cls, _forcing_cls, integ_cls = _VARIANTS[variant]
+    field_kwargs = dict(grid=grid, model=model, forcing=forcing if forcing is not None else NoForcing3())
+    integ_kwargs = dict(krylov_unroll=KRYLOV_BUDGET3)
+    integ_kwargs.update(integrator_params)
+    if variant == "reghcs":
+        field_kwargs["regularization_factor"] = regularization_factor
+        integ_kwargs["regularization_factor"] = regularization_factor
+    return integ_cls(field_cls(**field_kwargs), track_residuals=False, **integ_kwargs)
 
 
 def build_runner3(
@@ -177,6 +220,7 @@ def mms_error3(
     model,
     Tf: float,
     dt: float,
+    variant: str = "reghcs",
     eta: float = 50.0,
     case_params: Dict | None = None,
     integrator_params: Dict | None = None,
@@ -188,6 +232,7 @@ def mms_error3(
         case_cls,
         N=N,
         model=model,
+        variant=variant,
         eta=eta,
         case_params=case_params,
         integrator_params=integrator_params,

@@ -2,39 +2,34 @@
 closures (counterpart of :mod:`na_dd_tpu.three_d.mms`).
 
 The symbolic differentiation is the JAX package's; lambdification targets
-torch, as the 2-D engine (:mod:`na_dd_tpu_torch.mms.engine`) does: ``t``
-becomes a 0-d tensor of the grid's dtype and device, and an expression free
-of x, y and z (a derivative that is 0, say) is broadcast to the grid.  The
+torch through the 2-D engine's printer (:mod:`na_dd_tpu_torch.mms.engine`,
+:func:`~na_dd_tpu_torch.mms.engine.lambdify_torch`): ``t`` becomes a 0-d
+tensor of the grid's dtype and device, and an expression free of x, y and z
+(a derivative that is 0, say) is broadcast to the grid.  The
 JAX package's TPU guards (the ``optimization_barrier`` on time and the
 separable dispatch) are not carried over.
 """
 
 from __future__ import annotations
 
-import operator
 from typing import Callable, Dict
 
 import sympy
 import torch
 
 from na_dd_tpu_torch.core.state import State
-from na_dd_tpu_torch.mms.engine import _TORCH_MODULES, as_time, t_sym, x_sym, y_sym
+from na_dd_tpu_torch.mms.engine import as_time, lambdify_torch, t_sym, x_sym, y_sym
 from na_dd_tpu_torch.three_d.grid import Grid3
 
 #: third spatial symbol; t, x and y are shared with the 2-D engine
 z_sym = sympy.Symbol("z", negative=False, real=True)
-
-# SymPy prints a constant power such as pi**2 as pow(3.14159..., 2), which
-# torch.pow refuses for two Python numbers; operator.pow takes both numbers
-# and tensors.
-_TORCH_MODULES3 = [{**_TORCH_MODULES[0], "pow": operator.pow}, *_TORCH_MODULES[1:]]
 
 
 def _wrap_shape3(raw: Callable) -> Callable:
     def wrapped(t, xx, yy, zz):
         res = raw(as_time(t, xx), xx, yy, zz)
         res = torch.as_tensor(res, dtype=xx.dtype, device=xx.device)
-        return torch.broadcast_to(res, xx.shape)
+        return torch.broadcast_to(res, xx.shape).contiguous()
 
     return wrapped
 
@@ -64,9 +59,7 @@ def pack_symbolic_txyz_with_derivatives(
     exprs["dzz"] = sympy.diff(exprs["dz"], z_var)
     exprs["lap"] = exprs["dxx"] + exprs["dyy"] + exprs["dzz"]
     return {
-        name: _wrap_shape3(
-            sympy.lambdify([t_var, x_var, y_var, z_var], expr, modules=_TORCH_MODULES3)
-        )
+        name: _wrap_shape3(lambdify_torch([t_var, x_var, y_var, z_var], expr))
         for name, expr in exprs.items()
     }
 
@@ -167,6 +160,24 @@ class MMSCasePol3(MMSCaseSymbolic3):
             cl_sym_expr=profile,
             cd_sym_expr=profile,
             cs_sym_expr=profile,
+        )
+
+
+class MMSCaseCsZeroCrossing3(MMSCaseSymbolic3):
+    """cp = T = cl = cd = 0; cs = (A − B t) W crosses zero — exercises the
+    Heaviside switching in 3-D."""
+
+    def __init__(self, grid, model, *, cs_A: float = 0.5, cs_B: float = 1.0):
+        zero = sympy.S(0)
+        cs = (sympy.Float(cs_A) - sympy.Float(cs_B) * t_sym) * _W_POLY3
+        super().__init__(
+            grid=grid,
+            model=model,
+            cp_sym_expr=zero,
+            T_sym_expr=zero,
+            cl_sym_expr=zero,
+            cd_sym_expr=zero,
+            cs_sym_expr=cs,
         )
 
 

@@ -322,3 +322,33 @@ def test_triple_solve_kernel_at_other_grids(card, monkeypatch, shape, grid):
     for a, b in zip(xk, xp):
         assert_close(a, b, 1e-12)
 
+
+@pytest.mark.parametrize("golden", ["cstriple N=8", "hcstriple zero crossing"])
+def test_golden_on_the_card(card, golden):
+    """The CsTriple ExpSin N=8 golden (dt = 2e-3, Tf = 0.01) and the HCs
+    zero-crossing golden (N=8, dt = 1e-3, Tf = 0.8) through K1/K2, at the
+    golden file's 1e-8 (the reference's runs, tests/test_parity_golden.py)."""
+    from na_dd_tpu_torch.core import (
+        FieldCsTriple, FieldHCsTriple, MMSForcingCsTriple, MMSForcingHCsTriple,
+    )
+    from na_dd_tpu_torch.harness import MMSTrial
+    from na_dd_tpu_torch.integrators import PCTrapezoidalCsTriple, PCTrapezoidalHCsTriple
+    from na_dd_tpu_torch.mms.cases import MMSCaseCsZeroCrossing, MMSCaseExpSin
+    from na_dd_tpu_torch.models.coefficients import Model02
+    from na_dd_tpu_torch.models.consts import STUDY_MODEL_CONSTS
+    from na_dd_tpu_torch.ops.grid import make_uniform_grid
+
+    model = Model02(STUDY_MODEL_CONSTS)
+    grid = make_uniform_grid(8, 8, device=card)
+    if golden == "cstriple N=8":
+        classes = (MMSCaseExpSin, FieldCsTriple, MMSForcingCsTriple, PCTrapezoidalCsTriple)
+        run, ref = dict(Tf=0.01, dt=2e-3), 1.3027694406570663e-06
+    else:
+        classes = (MMSCaseCsZeroCrossing, FieldHCsTriple, MMSForcingHCsTriple, PCTrapezoidalHCsTriple)
+        run, ref = dict(Tf=0.8, dt=1e-3), 3.5029545962258690e-03
+    kernels.reset_launch_counts()
+    summary = MMSTrial(grid, model, *classes).run_for_errors(**run)
+    err = summary.overall_combined_error
+    assert abs(err - ref) / ref <= 1e-8, (err, ref)
+    assert kernels.LAUNCHES["bicgstab_solve"] > 0
+    assert summary.series.krylov_converged.all()

@@ -20,7 +20,7 @@ from na_dd_tpu_torch.ops import kernels
 from na_dd_tpu_torch.ops.grid import make_grid, make_uniform_grid
 from na_dd_tpu_torch.three_d.grid import make_grid3, make_uniform_grid3
 from na_dd_tpu_torch.three_d.harness import make_setup3, mms_error3
-from na_dd_tpu_torch.three_d.mms import MMSCaseExpSin3
+from na_dd_tpu_torch.three_d.mms import MMSCaseCsZeroCrossing3, MMSCaseExpSin3, MMSCasePol3
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "na_dd_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -118,6 +118,9 @@ def no_card(monkeypatch):
         lambda: grid3_from_nodes([0.0, 0.5, 1.0], [0.0, 0.5, 1.0], [0.0, 0.5, 1.0]),
         lambda: make_setup3(MMSCaseExpSin3, N=2, model=Model02(STUDY_MODEL_CONSTS)),
         lambda: mms_error3(MMSCaseExpSin3, N=2, model=Model02(STUDY_MODEL_CONSTS), Tf=0.01, dt=0.01),
+        lambda: make_setup3(MMSCaseCsZeroCrossing3, N=2, model=Model02(STUDY_MODEL_CONSTS), variant="hcs"),
+        lambda: mms_error3(MMSCasePol3, N=2, model=Model02(STUDY_MODEL_CONSTS), Tf=0.01, dt=0.01,
+                           variant="cs"),
     ],
 )
 def test_entry_points_without_a_card_raise(no_card, entry):
