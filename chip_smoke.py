@@ -26,7 +26,14 @@ version on the card, and drives the port's paths:
   RegHCs and forward-Euler variants, the case families, a non-uniform grid)
   at that file's tolerances; and the 3-D Cs/HCs/RegHCs variants on
   MMSCasePol3 and through MMSCaseCsZeroCrossing3 against the CPU plain
-  versions (K5/K6).
+  versions (K5/K6);
+* the JAX package's production modes on the pol N=256 level, built by the
+  studies module's ``_make_trial``: ``precision="mixed"`` (float32 K1 under
+  f64 refinement), ``mixed_fast`` (refine 1, no final check, the float32
+  error tail, time tables), ``mixed`` with fused analytic couplings (float32
+  K4 under block refinement), float32 and f64 with time tables; the study
+  module's spatial and temporal pol ladders against CPU-x64; and the 3-D
+  ExpSin3 N=64 level with ``precision="mixed"`` (float32 K5).
 
 It checks the errors against the reference values and the launch counts of
 each path's main level (counts set to 0 just before it, read just after),
@@ -77,6 +84,27 @@ N256_F64 = 4.382843255135883e-09
 # agree to 7e-15); the kernels of later slices must leave it bit for bit.
 N256_F64_PORT = 4.3828432027479154e-09
 N256_F32 = 3.7049e-07  # f32 + kernel error floor
+# The JAX package's CPU-x64 values of the pol study (exact f64 arithmetic;
+# studies/results/pol_cpu_x64.json, made by studies/pol_cpu_x64.py): the
+# spatial ladder N=2..256 at dt = h^1.5 and the temporal ladder at N=256,
+# dt = 1e-2/2^k.
+POL_SPATIAL_CPU_X64 = {
+    2: 4.934519423367602e-05, 4: 1.596157861382319e-05, 8: 4.282692732192525e-06,
+    16: 1.087998167311069e-06, 32: 2.750060013224652e-07, 64: 6.960848974797674e-08,
+    128: 1.7480232865543962e-08, 256: 4.382843202899936e-09,
+}
+POL_TEMPORAL_CPU_X64 = {
+    0.01: 3.601005705979531e-08, 0.005: 8.498535472736817e-09,
+    0.0025: 4.019800984460384e-09, 0.00125: 4.181994727996142e-09,
+}
+N256_CPU_X64 = POL_SPATIAL_CPU_X64[256]
+# bench.py MODE_REFERENCE: the JAX package's production modes on a TPU
+# (emulated f64), printed beside the port's values and never gated on.
+BENCH_TPU = {
+    "f64": 4.382843255135883e-09, "mixed": 4.382843255135106e-09,
+    "mixed_pallas": 4.382843255136001e-09, "mixed_fast": 4.382843254823708e-09,
+    "f32_pallas_fast": 3.704867759636057e-07,
+}
 TF, ETA, MAIN_N = 0.01, 50.0, 256
 # CPU-x64 runs of the JAX package with coupling_source="analytic" (pol,
 # dt = h^1.5, Tf = 0.01, krylov_unroll=8).
@@ -162,7 +190,8 @@ def make_trial(N: int, dtype, device, dt=None, **integrator_kw):
     goes to the integrator."""
     from na_dd_tpu_torch.core.fields import FieldRegHCsTriple
     from na_dd_tpu_torch.core.forcing import MMSForcingRegHCsTriple
-    from na_dd_tpu_torch.harness.trial import MMSTrial, choose_krylov_unroll
+    from na_dd_tpu_torch.harness.studies import choose_krylov_unroll
+    from na_dd_tpu_torch.harness.trial import MMSTrial
     from na_dd_tpu_torch.integrators.pc_trapezoidal import PCTrapezoidalRegHCsTriple
     from na_dd_tpu_torch.mms.cases import MMSCasePol
     from na_dd_tpu_torch.models.coefficients import Model02
@@ -219,9 +248,9 @@ class RecordingSolver:
         self.systems = []
         self.triples = []
 
-    def solve(self, st, rhs, mask):
+    def solve(self, st, rhs, mask, *noise_sq):
         self.systems.append((st, rhs * mask, mask))
-        return self.inner.solve(st, rhs, mask)
+        return self.inner.solve(st, rhs, mask, *noise_sq)
 
     def solve_triple(self, *args):
         self.triples.append(args)
@@ -269,7 +298,7 @@ def step1_triple(dtype, device):
     integ.solver = rec.inner
     check(len(rec.triples) == 1 and not rec.systems,
           "step 1 with analytic couplings should make one fused triple solve")
-    *planes, mask, dt_ = rec.triples[0]
+    *planes, mask, dt_ = rec.triples[0][:11]  # less the rhs noise floors
     J_T, J_cl, J_cd = planes[:3]
     operands = (*planes, jacobi(J_T, mask), jacobi(J_cl, mask), jacobi(J_cd, mask), mask, dt_)
     return operands, rec.inner
@@ -541,6 +570,9 @@ def phase_slice_f64(device):
         f"{int(s.series.krylov_iters.sum())} (per step {s.series.krylov_iters.tolist()})")
     check(math.isfinite(err) and rel <= 1e-7, "N=256 f64 off the archived value")
     check(err == N256_F64_PORT, f"N=256 f64 moved from the port's {N256_F64_PORT!r}")
+    rel_x64 = abs(err - N256_CPU_X64) / N256_CPU_X64
+    log(f"[f64] N=256 vs CPU-x64 {N256_CPU_X64!r}: rel {rel_x64:.3e} (limit 1e-8)")
+    check(rel_x64 <= 1e-8, "N=256 f64 off the CPU-x64 value")
 
     # the same level through the plain versions on this machine's CPU
     t0 = time.perf_counter()
@@ -566,20 +598,22 @@ def phase_slice_f64(device):
     return launches, steady, err, s.series.krylov_iters.tolist()
 
 
-def steady_in_turns(routes, dt):
-    """Three timed runs of each ``{name: (trial, error)}`` after a warm-up of
-    each, taken in turns (a, b, c, a, b, c, ...) so that drift of the host
-    falls on all alike; each run must repeat its error."""
+def steady_in_turns(routes, dt, repeats=3):
+    """``repeats`` timed runs of each ``{name: (trial, error[, run
+    kwargs])}`` after a warm-up of each, taken in turns (a, b, c, a, b, c,
+    ...) so that drift of the host falls on all alike; each run must repeat
+    its error."""
     import torch
 
-    for trial, _ in routes.values():
-        trial.run_for_errors(Tf=TF, dt=dt)
+    routes = {name: (r + ({},))[:3] for name, r in routes.items()}
+    for trial, _, run_kw in routes.values():
+        trial.run_for_errors(Tf=TF, dt=dt, **run_kw)
     runs = {name: [] for name in routes}
-    for _ in range(3):
-        for name, (trial, err) in routes.items():
+    for _ in range(repeats):
+        for name, (trial, err, run_kw) in routes.items():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            s = trial.run_for_errors(Tf=TF, dt=dt)
+            s = trial.run_for_errors(Tf=TF, dt=dt, **run_kw)
             runs[name].append(time.perf_counter() - t0)
             check(s.overall_combined_error == err, f"repeat {name} run changed the error")
     return runs
@@ -765,7 +799,8 @@ def make_expsin_trial(N: int, dtype, device, **integrator_kw):
     Tf = 0.01, dt = h^1.5, the study constants and the budget
     ``choose_krylov_unroll`` gives them."""
     from na_dd_tpu_torch.core import FieldRegHCsTriple, MMSForcingRegHCsTriple
-    from na_dd_tpu_torch.harness.trial import MMSTrial, choose_krylov_unroll
+    from na_dd_tpu_torch.harness.studies import choose_krylov_unroll
+    from na_dd_tpu_torch.harness.trial import MMSTrial
     from na_dd_tpu_torch.integrators import PCTrapezoidalRegHCsTriple
     from na_dd_tpu_torch.mms.cases import MMSCaseExpSin
     from na_dd_tpu_torch.models.consts import STUDY_MODEL_CONSTS
@@ -1564,8 +1599,9 @@ def dt3(N: int) -> float:
     return 1e-2 / (N // 4)
 
 
-def make_trial3(N: int, dtype, device):
-    """The three_d_study level N through the user entry point make_setup3."""
+def make_trial3(N: int, dtype, device, **integrator_kw):
+    """The three_d_study level N through the user entry point make_setup3;
+    ``integrator_kw`` (precision, ...) goes to the integrator."""
     from na_dd_tpu_torch.models.coefficients import Model02
     from na_dd_tpu_torch.models.consts import default_model_consts
     from na_dd_tpu_torch.three_d.harness import make_setup3
@@ -1574,7 +1610,7 @@ def make_trial3(N: int, dtype, device):
     model = Model02(default_model_consts._replace(**THREE_D_CONSTS))
     g, case, _field, integ = make_setup3(
         MMSCaseExpSin3, N=N, model=model, eta=ETA,
-        integrator_params=dict(num_newton_steps=2), dtype=dtype, device=device,
+        integrator_params=dict(num_newton_steps=2, **integrator_kw), dtype=dtype, device=device,
     )
     return g, case, integ
 
@@ -1587,8 +1623,8 @@ class IterTally:
         self.inner = inner
         self.iters = []
 
-    def solve(self, st, rhs, mask):
-        x, info = self.inner.solve(st, rhs, mask)
+    def solve(self, st, rhs, mask, *noise_sq):
+        x, info = self.inner.solve(st, rhs, mask, *noise_sq)
         self.iters.append(info["iters"])
         return x, info
 
@@ -1892,6 +1928,292 @@ def phase_profile3(device):
     log(f"[profile3] one step_fn: {step_launches} launches; {breakdown}")
 
 
+# ---------------------------------------------------------------------------
+# the JAX package's production modes and the convergence studies
+# ---------------------------------------------------------------------------
+def production_modes():
+    """The pol N=256 level in each production mode: {name: (dtype,
+    integrator kwargs, run kwargs, expected launches a run of (K1, K2, K4),
+    of those on float32 operands)}.  41 steps of three solves: the
+    per-solve mixed route makes refine + 1 float32 K1 solves a solve, each
+    with its wrapper's K2 residual, and refine f64 K2 residuals plus one
+    for the final check; the fused mixed route one float32 K4 launch a pass
+    and five f64 K2 applies a residual (refine passes and the check)."""
+    import torch
+
+    f64, f32 = torch.float64, torch.float32
+    mixed_fast = dict(precision="mixed", mixed_refine=1, mixed_final_check=False)
+    tables = dict(collect_precompute=True)
+    return {
+        "f64": (f64, {}, {}, (123, 123, 0), (0, 0, 0)),
+        "mixed": (f64, dict(precision="mixed"), {}, (369, 738, 0), (369, 369, 0)),
+        "mixed_fast": (f64, mixed_fast, dict(collect_tail="f32", **tables),
+                       (246, 369, 0), (246, 246, 0)),
+        "mixed fused": (f64, dict(precision="mixed", coupling_source="analytic"), {},
+                        (0, 615, 123), (0, 0, 123)),
+        "f32_fast": (f32, {}, tables, (123, 123, 0), (123, 123, 0)),
+        "f64 + tables": (f64, {}, tables, (123, 123, 0), (0, 0, 0)),
+    }
+
+
+def make_study_trial(N, dtype, device, **integrator_kw):
+    """The pol level N through the studies module's ``_make_trial``, the
+    budget its ``_study_unroll`` gives."""
+    from na_dd_tpu_torch.harness import studies
+    from na_dd_tpu_torch.mms.cases import MMSCasePol
+
+    cfg, mc = studies.STUDIES["pol"], studies.study_consts("pol")
+    dt = (1.0 / N) ** 1.5
+    trial = studies._make_trial(
+        MMSCasePol, N, ETA, mc=mc, dtype=dtype, device=device,
+        krylov_unroll=studies._study_unroll(cfg, N, dt, mc), **integrator_kw)
+    return trial, dt
+
+
+def phase_production(device):
+    """The pol N=256 level in the JAX package's production modes: each
+    mode's launch counts (set to 0 just before its run, read just after),
+    its error against the f64 level and CPU-x64 (bench.py's TPU values
+    printed beside), the time tables' build time, the steady wall-clock of
+    every mode in turns, five steps of mixed_fast and of f64 + tables under
+    the profiler; then the studies module's spatial ladder N=2..256 and the
+    temporal ladder at N=256 against CPU-x64."""
+    import torch
+
+    from na_dd_tpu_torch.harness import studies
+    from na_dd_tpu_torch.harness.trial import build_time_tables
+    from na_dd_tpu_torch.ops import kernels
+
+    names = ("bicgstab_solve", "stencil5_apply", "triple_solve")
+    routes, counts = {}, {}
+    for mode, (dtype, integ_kw, run_kw, want, want32) in production_modes().items():
+        trial, dt = make_study_trial(MAIN_N, dtype, device, **integ_kw)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        s = trial.run_for_errors(Tf=TF, dt=dt, **run_kw)
+        first = time.perf_counter() - t0
+        launches, launches32 = dict(kernels.LAUNCHES), dict(kernels.LAUNCHES_F32)
+        err = s.overall_combined_error
+        got = tuple(launches[k] for k in names)
+        got32 = tuple(launches32[k] for k in names)
+        iters = s.series.krylov_iters.tolist()
+        if dtype == torch.float32:
+            ref, limit, what = N256_F32, 1e-2, f"{N256_F32:g}"
+        elif mode == "f64 + tables":
+            ref, limit, what = N256_F64_PORT, 1e-10, "the f64 level"
+        else:
+            ref, limit, what = N256_F64_PORT, 1e-8, "the f64 level"
+        rel = abs(err - ref) / ref
+        rel_x64 = abs(err - N256_CPU_X64) / N256_CPU_X64
+        tpu = BENCH_TPU.get("f32_pallas_fast" if mode == "f32_fast" else mode.split(" ")[0])
+        log(f"[production] {mode}: error {err!r}, vs {what} rel {rel:.3e} (limit {limit:g}), vs "
+            f"CPU-x64 rel {rel_x64:.3e}; bench.py's TPU value {tpu!r} (rel "
+            f"{abs(err - tpu) / tpu:.3e}, not gated); first run {first:.3f} s; K1/K2/K4 launches "
+            f"{got} (float32 {got32}); Krylov iterations {sum(iters)}; converged "
+            f"{bool(s.series.krylov_converged.all())}")
+        check(math.isfinite(err) and rel <= limit, f"production {mode} off {what}")
+        if dtype == torch.float64 and mode != "f64 + tables" and mode != "f64":
+            check(rel_x64 <= 1e-8, f"production {mode} off the CPU-x64 value")
+        if mode in ("mixed", "mixed fused", "f64", "f64 + tables"):
+            check(bool(s.series.krylov_converged.all()), f"production {mode}: a solve did not converge")
+        check(len(iters) == 41, "N=256 should take 41 steps")
+        check(got == want and got32 == want32,
+              f"production {mode}: K1/K2/K4 launches {got} (float32 {got32}), expected {want} "
+              f"(float32 {want32})")
+        for name in ("bicgstab_solve3", "stencil7_apply"):
+            check(launches[name] == 0, f"production {mode} launched the 3-D kernel {name}")
+        routes[mode] = (trial, err, run_kw)
+        counts[mode] = (launches, launches32)
+
+    # the time tables' build alone (exact states and forcing at the 42 grid times)
+    trial, _, run_kw = routes["mixed_fast"]
+    nsteps = 41
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tabled, exact = build_time_tables(
+        grid=trial.grid, forcing=trial.integrator.semi_discrete_field.forcing,
+        exact_sol_pack=trial.mms_case, ops=trial.ops, t0=0.0, dt=TF / nsteps, num=nsteps)
+    torch.cuda.synchronize()
+    build = time.perf_counter() - t0
+    nbytes = sum(t.numel() * t.element_size() for t in (*tabled._tables.values(), *exact))
+    log(f"[production] time tables of the N=256 level (f64): built in {build:.3f} s, "
+        f"{nbytes / 1e6:.1f} MB on the card")
+    del tabled, exact
+
+    dt = (1.0 / MAIN_N) ** 1.5
+    runs = steady_in_turns(routes, dt, repeats=2)
+    steady = {}
+    for mode, times in runs.items():
+        steady[mode] = min(times)
+        log(f"[production] {mode} steady wall-clock {min(times):.6f} s (min of 2 after a "
+            "warm-up, the modes in turns; runs " + ", ".join(f"{r:.6f}" for r in times) + " s)")
+
+    steps = 5
+    for mode in ("mixed_fast", "f64 + tables"):
+        trial, _, run_kw = routes[mode]
+        wall, found = profile_device(lambda: trial.run_for_errors(Tf=steps * dt, dt=dt, **run_kw))
+        busy_us = sum(us for _, us in found.values())
+        n_launch = sum(c for c, _ in found.values())
+        log(f"[production] {steps} steps of {mode} under the profiler: wall {wall:.6f} s, device "
+            f"busy {busy_us / 1e6:.6f} s ({100 * busy_us / 1e6 / wall:.2f} %), idle "
+            f"{100 * (1 - busy_us / 1e6 / wall):.2f} %, {n_launch} kernel launches "
+            f"({n_launch / steps:.0f} per step)")
+        top = sorted(found.items(), key=lambda kv: -kv[1][1])[:4]
+        for name, (calls, us) in top:
+            log(f"[production]   {us / 1e3:9.3f} ms in {calls:6d} calls: {name[:90]}")
+    del routes
+
+    t0 = time.perf_counter()
+    sp = studies.run_spatial_study("pol", levels=8, verbose=False, device=device)
+    for N, err in zip(sp["Ns"], sp["errors"]):
+        rel = abs(err - POL_REFERENCE[N]) / POL_REFERENCE[N]
+        rel_x64 = abs(err - POL_SPATIAL_CPU_X64[N]) / POL_SPATIAL_CPU_X64[N]
+        log(f"[studies] spatial pol N={N}: error {err!r}, vs notebook rel {rel:.3e} (limit 1e-5), "
+            f"vs CPU-x64 rel {rel_x64:.3e} (limit 1e-8)")
+        check(math.isfinite(err) and rel <= 1e-5, f"spatial study N={N} off the notebook")
+        check(rel_x64 <= 1e-8, f"spatial study N={N} off the CPU-x64 value")
+    log(f"[studies] run_spatial_study('pol', levels=8): {time.perf_counter() - t0:.1f} s; rates "
+        f"{sp['rates']}")
+    t0 = time.perf_counter()
+    tp = studies.run_temporal_study("pol", verbose=False, device=device)
+    for dt_k, err in zip(tp["dts"], tp["errors"]):
+        ref = POL_TEMPORAL_CPU_X64[dt_k]
+        rel = abs(err - ref) / ref
+        log(f"[studies] temporal pol N=256 dt={dt_k:g}: error {err!r}, vs CPU-x64 rel {rel:.3e} "
+            "(limit 1e-8)")
+        check(math.isfinite(err) and rel <= 1e-8, f"temporal study dt={dt_k} off the CPU-x64 value")
+    log(f"[studies] run_temporal_study('pol'): {time.perf_counter() - t0:.1f} s")
+    return counts, steady
+
+
+def phase_mixed3(device, err64=None):
+    """The 3-D ExpSin3 N=64 level with precision="mixed" (float32 K5 under
+    f64 refinement on Stencil7 planes): error against the port's f64 value
+    and CPU-x64, K5's float32 launches, steady wall-clock beside f64."""
+    import torch
+
+    from na_dd_tpu_torch.ops import kernels
+    from na_dd_tpu_torch.three_d.harness import run_trial3
+
+    N, dt = MAIN_N3, dt3(MAIN_N3)
+    nsteps = round(TF3 / dt)
+    g, case, integ = make_trial3(N, torch.float64, device, precision="mixed")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    r = run_trial3(g, case, integ, Tf=TF3, dt=dt)
+    launches, launches32 = dict(kernels.LAUNCHES), dict(kernels.LAUNCHES_F32)
+    err = r["error"]
+    g64, case64, integ64 = make_trial3(N, torch.float64, device)
+    r64 = run_trial3(g64, case64, integ64, Tf=TF3, dt=dt)
+    if err64 is not None:
+        check(r64["error"] == err64, "3-D f64 N=64 changed between phases")
+    err64 = r64["error"]
+    rel = abs(err - err64) / err64
+    rel_x64 = abs(err - THREE_D_CPU_X64[N]) / THREE_D_CPU_X64[N]
+    want = 3 * 6 * nsteps  # three passes of six solves a step
+    log(f"[mixed3] N={N}: error {err!r}, vs the port's f64 {err64!r} rel {rel:.3e} (limit 1e-8), "
+        f"vs CPU-x64 rel {rel_x64:.3e}; launches {launches} (float32 {launches32}); converged "
+        f"{r['krylov_converged']}")
+    check(math.isfinite(err) and rel <= 1e-8, "3-D mixed N=64 off the f64 level")
+    check(rel_x64 <= 1e-8, "3-D mixed N=64 off the CPU-x64 value")
+    check(r["krylov_converged"], "3-D mixed N=64: a solve did not converge")
+    check(launches["bicgstab_solve3"] == launches32["bicgstab_solve3"] == want,
+          f"3-D mixed: K5 launched {launches['bicgstab_solve3']} times "
+          f"({launches32['bicgstab_solve3']} float32), expected {want} float32")
+    check(launches["stencil7_apply"] == 2 * want and launches32["stencil7_apply"] == want,
+          "3-D mixed: expected one float32 K6 residual a K5 solve and one f64 K6 residual a pass")
+    for name in ("bicgstab_solve", "stencil5_apply", "triple_solve"):
+        check(launches[name] == 0, f"the 3-D mixed path launched the 2-D kernel {name}")
+    runs = {"f64": [], "mixed": []}
+    for _ in range(2):
+        for name, (g_, c_, i_) in (("f64", (g64, case64, integ64)), ("mixed", (g, case, integ))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r_ = run_trial3(g_, c_, i_, Tf=TF3, dt=dt)
+            runs[name].append(time.perf_counter() - t0)
+            check(r_["error"] == (err if name == "mixed" else err64), f"repeat 3-D {name} changed")
+    for name, times in runs.items():
+        log(f"[mixed3] N={N} {name} steady wall-clock {min(times):.6f} s (min of 2 after a run, "
+            "in turns; runs " + ", ".join(f"{x:.6f}" for x in times) + " s)")
+    return launches32, min(runs["mixed"]), err
+
+
+def timings_mixed(device):
+    """The float32 solves of the mixed path, each against its plain version
+    and timed: K1 on the first inner solve of the step-1 T system of the
+    N=256 level (its f64 inverse diagonal downcast), K4 on the step-1
+    operands of the fused route in float32 (the inverse diagonals of the
+    float32 planes), K5 on the first inner solve of the step-1 T system of
+    the 3-D N=64 level; the inner tolerance MIXED_INNER_TOL."""
+    import torch
+
+    from na_dd_tpu_torch.integrators.pc_trapezoidal import MIXED_INNER_TOL
+    from na_dd_tpu_torch.ops import kernels
+
+    f32, tol = torch.float32, MIXED_INNER_TOL
+    res = {}
+    systems, solver = step1_systems(torch.float64, device)
+    st, b, mask = systems[0]
+    st32, b32 = type(st)(*(c.to(f32) for c in st)), b.to(f32)
+    inv32, m32 = jacobi(st, mask).to(f32), mask.to(f32)
+    del systems
+    err, iters = compare_solve(st32, b32, inv32, m32, tol=tol, iters=solver.iters, xtol=1e-4,
+                               label="f32 mixed inner solve, step-1 T plane")
+    n = b32.numel()
+
+    def k1():
+        return kernels.bicgstab_solve(st32, b32, inv32, m32, tol=tol, iters=solver.iters)
+
+    res["bicgstab_solve"] = kernel_row(
+        "bicgstab_solve", f32, label=f"f32 257x257 mixed inner ({iters} iterations)",
+        device_ms=kernel_device_ms(k1, 100, "bicgstab_kernel"), wrapper_ms=time_ms(k1, 500),
+        plain_ms=time_ms(lambda: kernels.bicgstab_solve_plain(
+            st32, b32, inv32, m32, tol=tol, iters=solver.iters), 50),
+        nbytes=9 * n * 4, ops=(2 * 9 + 6 * 2 + 14) * n * max(iters, 1))
+    res["bicgstab_solve"]["max_abs_err"] = err
+
+    operands, solver = step1_triple(torch.float64, device)
+    ops32 = cast_triple(operands, f32)
+    mask32 = ops32[12]
+    ops32 = (*ops32[:9], *(jacobi(J, mask32) for J in ops32[:3]), *ops32[12:])
+    err4, _ = compare_triple(ops32, tol=tol, iters=solver.iters, xtol=1e-4, stol=1e-4,
+                             label="f32 mixed fused, step-1 operands")
+    its = kernels.triple_solve(*ops32, tol=tol, iters=solver.iters)[3]["iters"].tolist()
+
+    def k4():
+        return kernels.triple_solve(*ops32, tol=tol, iters=solver.iters)
+
+    res["triple_solve"] = kernel_row(
+        "triple_solve", f32, label=f"f32 257x257 mixed fused (iterations {its})",
+        device_ms=kernel_device_ms(k4, 100, "triple_solve_kernel"), wrapper_ms=time_ms(k4, 200),
+        plain_ms=time_ms(lambda: kernels.triple_solve_plain(*ops32, tol=tol, iters=solver.iters), 5),
+        nbytes=36 * n * 4, ops=(44 * max(sum(its), 1) + 29) * n)
+    res["triple_solve"]["max_abs_err"] = err4
+    del operands, ops32
+
+    systems, solver = step1_systems3(MAIN_N3, torch.float64, device)
+    st, b, mask = systems[0]
+    st32, b32 = type(st)(*(c.to(f32) for c in st)), b.to(f32)
+    inv32, m32 = jacobi(st, mask).to(f32), mask.to(f32)
+    del systems
+    err5, iters5 = compare_solve(st32, b32, inv32, m32, tol=tol, iters=solver.iters, xtol=1e-4,
+                                 label="f32 mixed inner solve, 3-D N=64 step-1 T volume")
+    n3 = b32.numel()
+
+    def k5():
+        return kernels.bicgstab_solve3(st32, b32, inv32, m32, tol=tol, iters=solver.iters)
+
+    res["bicgstab_solve3"] = kernel_row(
+        "bicgstab_solve3", f32, label=f"f32 65^3 mixed inner ({iters5} iterations)",
+        device_ms=kernel_device_ms(k5, 50, "bicgstab_kernel"), wrapper_ms=time_ms(k5, 200),
+        plain_ms=time_ms(lambda: kernels.bicgstab_solve3_plain(
+            st32, b32, inv32, m32, tol=tol, iters=solver.iters), 20),
+        nbytes=11 * n3 * 4, ops=(2 * 13 + 6 * 2 + 14) * n3 * max(iters5, 1))
+    res["bicgstab_solve3"]["max_abs_err"] = err5
+    return res
+
+
 def ptxas_rows(text: str):
     """(kernel, registers, stack frame bytes, spill store bytes, spill load
     bytes) of each entry function in nvcc's ``-Xptxas -v`` report."""
@@ -1925,7 +2247,7 @@ def demangle(name: str) -> str:
 
 PHASES = ("k2", "k1", "k3", "k4", "slice", "f32", "analytic", "scale", "timings", "profile",
           "k6", "k5", "3d", "3d128", "3d_f32", "timings3", "profile3", "expsin", "golden",
-          "variants3")
+          "variants3", "production", "mixed3", "timings_mixed")
 
 
 def main(argv=None) -> int:
@@ -1996,6 +2318,9 @@ def main(argv=None) -> int:
     phase("expsin", phase_expsin, device)
     phase("golden", phase_golden, device)
     phase("variants3", phase_variants3, device)
+    phase("production", phase_production, device)
+    phase("mixed3", phase_mixed3, device, done["3d"][2] if "3d" in done else None)
+    phase("timings_mixed", timings_mixed, device)
     if set(only) != set(PHASES):
         log(f"[done] phases {only}; total {time.perf_counter() - t_all:.1f} s (no result line)")
         return 0
@@ -2007,6 +2332,9 @@ def main(argv=None) -> int:
     _, steady_ex, err_ex = done["expsin"]["jvp"]
     _, steady_ex_an, err_ex_an = done["expsin"]["analytic"]
     t2, t3 = done["timings"], done["timings3"][MAIN_N3]
+    counts_prod, steady_prod = done["production"]
+    launches3_32, steady_m3, err_m3 = done["mixed3"]
+    tm = done["timings_mixed"]
     pk = "na_dd_tpu/ops/pallas_kernels.py"
     entries = []
     # (wrapper, source, TPU kernel, shape, error against the plain version,
@@ -2027,6 +2355,13 @@ def main(argv=None) -> int:
          t3["bicgstab_solve3"]),
         ("stencil7_apply", "stencil7", f"{pk}:615, {pk}:834", "65x65x65", done["k6"], launches3,
          t3["stencil7_apply"]),
+        # the float32 solves of the mixed path, with their float32 launches
+        ("bicgstab_solve", "bicgstab", f"{pk}:342", "257x257 f32 (mixed)",
+         tm["bicgstab_solve"]["max_abs_err"], counts_prod["mixed"][1], tm["bicgstab_solve"]),
+        ("triple_solve", "triple_solve", f"{pk}:263", "257x257 f32 (mixed fused)",
+         tm["triple_solve"]["max_abs_err"], counts_prod["mixed fused"][1], tm["triple_solve"]),
+        ("bicgstab_solve3", "bicgstab3", f"{pk}:702", "65x65x65 f32 (mixed)",
+         tm["bicgstab_solve3"]["max_abs_err"], launches3_32, tm["bicgstab_solve3"]),
     ):
         entries.append({
             "name": name, "route": "cuda", "source": f"na_dd_tpu_torch/csrc/{src}.cu",
@@ -2039,7 +2374,9 @@ def main(argv=None) -> int:
         f"{steady_an:.6f} s (per-solve {steady_ps:.6f} s), error {err_an!r}; N={SCALE_N} "
         f"{SCALE_STEPS} steps {steady_sc:.6f} s, error {err_sc!r}; 3-D N=64 steady "
         f"{steady3:.6f} s, error {err3!r}; ExpSin N=256 steady {steady_ex:.6f} s, error "
-        f"{err_ex!r} (analytic fused {steady_ex_an:.6f} s, error {err_ex_an!r}); "
+        f"{err_ex!r} (analytic fused {steady_ex_an:.6f} s, error {err_ex_an!r}); production "
+        "steady " + ", ".join(f"{k} {v:.6f} s" for k, v in steady_prod.items())
+        + f"; 3-D mixed N=64 steady {steady_m3:.6f} s, error {err_m3!r}; "
         f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(nvidia_smi_line())

@@ -7,6 +7,8 @@ from na_dd_tpu_torch.core.fields import (
     FieldRegHCsTriple,
 )
 from na_dd_tpu_torch.core.forcing import (
+    ForcingFromCallables,
+    ForcingFromTimeGrid,
     MMSForcingCsTriple,
     MMSForcingHCsTriple,
     MMSForcingRegHCsTriple,
@@ -22,6 +24,8 @@ __all__ = [
     "FieldHCsTriple",
     "FieldRegHCsTriple",
     "NoForcing",
+    "ForcingFromCallables",
+    "ForcingFromTimeGrid",
     "MMSForcingCsTriple",
     "MMSForcingHCsTriple",
     "MMSForcingRegHCsTriple",

@@ -3,6 +3,8 @@
 Residual insertion: for each field, ``f = d/dt u_exact - RHS(u_exact)`` from
 the MMS case's analytic derivatives; the cp forcing is projected onto
 dual-cell averages by 3×3 Gauss–Legendre quadrature.
+:class:`ForcingFromTimeGrid` serves any forcing from tables built once on
+a uniform time grid.
 """
 
 from __future__ import annotations
@@ -33,6 +35,65 @@ class ForcingBase:
         raise NotImplementedError
 
 
+class ForcingFromTimeGrid(ForcingBase):
+    """Forcing tabulated on the uniform time grid ``t0 + j·dt``, j = 0..num.
+
+    The integrators evaluate the state-independent forcing terms only at the
+    grid times t_k and t_{k+1} of each step.  This wrapper holds device
+    tables of all five terms of ``inner``, built once (:meth:`build_tables`,
+    then :meth:`bind`), and serves ``f(t)`` as the table row
+    ``j = round((t − t0)/dt)`` clipped to [0, num].  The row index stays a
+    device tensor (``index_select``), so a lookup never synchronises with
+    the host.  The values are the inner forcing's own outputs at the grid
+    times.
+    """
+
+    _KEYS = ("fcp", "fT", "fcl", "fcd", "fcs")
+
+    def __init__(self, inner, *, t0: float, dt: float, num: int):
+        self.inner = inner
+        self.t0 = float(t0)
+        self.dt = float(dt)
+        self.num = int(num)
+        self._tables = None
+
+    def build_tables(self, g: Grid, ops: Ops):
+        """All five terms at the num+1 grid times, each stacked into a
+        (num+1, *plane) tensor; one evaluation per time, run once."""
+        ts = self.t0 + self.dt * torch.arange(self.num + 1, dtype=g.dtype, device=g.device)
+        return {
+            k: torch.stack([getattr(self.inner, k)(g, ops, ts[j]) for j in range(self.num + 1)])
+            for k in self._KEYS
+        }
+
+    def bind(self, tables) -> None:
+        """Attach the tables :meth:`build_tables` made."""
+        self._tables = tables
+
+    def _lookup(self, key, t):
+        if self._tables is None:
+            raise RuntimeError("ForcingFromTimeGrid used before bind(): build and bind its tables")
+        table = self._tables[key]
+        t = torch.as_tensor(t, dtype=table.dtype, device=table.device)
+        j = torch.clamp(torch.round((t - self.t0) / self.dt).to(torch.int64), 0, self.num)
+        return table.index_select(0, j.reshape(1)).squeeze(0)
+
+    def fcp(self, g, ops, t):
+        return self._lookup("fcp", t)
+
+    def fT(self, g, ops, t):
+        return self._lookup("fT", t)
+
+    def fcl(self, g, ops, t):
+        return self._lookup("fcl", t)
+
+    def fcd(self, g, ops, t):
+        return self._lookup("fcd", t)
+
+    def fcs(self, g, ops, t):
+        return self._lookup("fcs", t)
+
+
 class NoForcing(ForcingBase):
     """All-zero forcing."""
 
@@ -43,6 +104,29 @@ class NoForcing(ForcingBase):
     fcl = fcp
     fcd = fcp
     fcs = fcp
+
+
+class ForcingFromCallables(ForcingBase):
+    """User callables ``f(t, xx, yy)``, one per term, in a dict keyed
+    "fcp", "fT", "fcl", "fcd", "fcs"."""
+
+    def __init__(self, terms: dict):
+        self._terms = terms
+
+    def fcp(self, g, ops, t):
+        return self._terms["fcp"](t, g.xx, g.yy)
+
+    def fT(self, g, ops, t):
+        return self._terms["fT"](t, g.xx, g.yy)
+
+    def fcl(self, g, ops, t):
+        return self._terms["fcl"](t, g.xx, g.yy)
+
+    def fcd(self, g, ops, t):
+        return self._terms["fcd"](t, g.xx, g.yy)
+
+    def fcs(self, g, ops, t):
+        return self._terms["fcs"](t, g.xx, g.yy)
 
 
 class MMSForcingCsTriple(ForcingBase):

@@ -3,7 +3,10 @@ PC-trapezoidal family."""
 
 from na_dd_tpu_torch.integrators.forward_euler import ForwardEulerIntegrator
 from na_dd_tpu_torch.integrators.pc_trapezoidal import (
+    MIXED_INNER_TOL,
     HCsCorrectorPositivityError,
+    KrylovBackend,
+    MixedBackend,
     PCTrapezoidalBase,
     PCTrapezoidalCsTriple,
     PCTrapezoidalHCsTriple,
@@ -17,4 +20,7 @@ __all__ = [
     "PCTrapezoidalHCsTriple",
     "PCTrapezoidalRegHCsTriple",
     "HCsCorrectorPositivityError",
+    "KrylovBackend",
+    "MixedBackend",
+    "MIXED_INNER_TOL",
 ]

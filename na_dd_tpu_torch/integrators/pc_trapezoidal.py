@@ -16,10 +16,12 @@ Per step:
    (:class:`PCTrapezoidalHCsTriple`) or by a pointwise regularized-Heaviside
    Newton iteration (:class:`PCTrapezoidalRegHCsTriple`).
 
-The linear solves go through one solver-backend object
-(:class:`KrylovBackend`): the hand-written BiCGStab kernel of the stencil's
-dimension on CUDA tensors, its plain twin on CPU tensors.  Later precisions
-and solvers plug in as other backends.
+The linear solves go through one solver-backend object:
+:class:`KrylovBackend` (``precision="full"``) runs the hand-written BiCGStab
+kernel of the stencil's dimension in the working dtype on CUDA tensors, its
+plain twin on CPU tensors; :class:`MixedBackend` (``precision="mixed"``)
+runs the same kernels on float32 copies of the planes under float64
+iterative refinement.
 
 With analytic couplings the whole sweep is stencil algebra, so in 2-D
 ``fused_triple=True`` (the default) hands the three solves and the coupling
@@ -80,6 +82,13 @@ def default_krylov_tol(dtype: torch.dtype) -> float:
     return 1e-13 if dtype == torch.float64 else 1e-5
 
 
+#: Relative tolerance of the float32 inner solves of ``precision="mixed"``:
+#: ~10·eps(f32), reachable by an f32 BiCGStab on these systems, so each
+#: refinement pass contracts the f64 residual by ~1e-6 and two refinement
+#: passes reach the f64 target.
+MIXED_INNER_TOL = 1e-6
+
+
 class KrylovBackend:
     """Jacobi-BiCGStab on assembled Newton planes, ``iters`` masked
     early-exit iterations from x0 = 0, to the dtype's
@@ -105,16 +114,27 @@ class KrylovBackend:
             torch.zeros_like(st.c0),
         )
 
-    def solve(self, st, rhs, mask):
-        tol = default_krylov_tol(rhs.dtype)
-        bicgstab = kernels.bicgstab_solve3 if isinstance(st, Stencil7) else kernels.bicgstab_solve
+    @staticmethod
+    def _kernels(st):
+        """(solve, apply) wrappers of the stencil's dimension."""
+        if isinstance(st, Stencil7):
+            return kernels.bicgstab_solve3, kernels.stencil7_apply
+        return kernels.bicgstab_solve, kernels.stencil5_apply
+
+    def solve(self, st, rhs, mask, noise_sq=0.0):
+        """``st·x = rhs·mask`` on the interior; returns ``(x, info)``.
+        ``noise_sq`` (the rhs's squared rounding floor) is for the backends
+        that judge a true residual; this one's kernel judges its own."""
+        bicgstab, _ = self._kernels(st)
         x, info = bicgstab(
-            st, rhs * mask, self._inv_diag(st, mask), mask, tol=tol, iters=self.iters
+            st, rhs * mask, self._inv_diag(st, mask), mask,
+            tol=default_krylov_tol(rhs.dtype), iters=self.iters,
         )
         return x * mask, info
 
     def solve_triple(
-        self, J_T, J_cl, J_cd, C_clT, C_cdT, d_cdcl, rhs_T, base_cl, base_cd, mask, dt
+        self, J_T, J_cl, J_cd, C_clT, C_cdT, d_cdcl, rhs_T, base_cl, base_cd, mask, dt,
+        noise_sq=(0.0, 0.0, 0.0),
     ):
         """The whole triangular sweep's linear algebra in one call of
         :func:`kernels.triple_solve` (2-D ``Stencil5`` systems):
@@ -134,6 +154,120 @@ class KrylovBackend:
         return dT, dcl, dcd, infos
 
 
+class MixedBackend(KrylovBackend):
+    """``precision="mixed"``: float64 planes and rhs, float32 Krylov.
+
+    Classical iterative refinement: ``refine + 1`` passes of (f64 true
+    residual → float32 solve by the stencil's solve kernel on the
+    downcast planes, to :data:`MIXED_INNER_TOL` → f64 accumulate).  Each
+    pass contracts the f64 residual by about the inner tolerance.  The f64
+    residuals are applied by the 5-/7-point apply kernels (K2/K6 on CUDA
+    tensors; the JAX package applies ``st.apply``, the same sum).
+
+    ``final_check=True``: one more f64 residual ``b − A·x`` gives the
+    verdict, ``resnorm_sq ≤ max(tol²·‖b‖², noise_sq)`` with tol the f64
+    :func:`default_krylov_tol`.  ``False`` skips it: the solution is the
+    same, and the verdict is the last inner solve's own (residual on the
+    last pass's rhs).  ``info["iters"]`` sums every pass.
+    """
+
+    def __init__(self, *, iters: int, refine: int = 2, final_check: bool = True):
+        super().__init__(iters=iters)
+        self.refine = int(refine)
+        self.final_check = bool(final_check)
+
+    @staticmethod
+    def _f32(st):
+        return type(st)(*(p.to(torch.float32) for p in st))
+
+    @staticmethod
+    def _verdict(r, b, iters, noise_sq):
+        rsq = torch.sum(r * r)
+        tol = default_krylov_tol(b.dtype)
+        floor = torch.clamp_min(tol * tol * torch.sum(b * b), noise_sq)
+        return {"iters": iters, "resnorm_sq": rsq, "converged": rsq <= floor}
+
+    def solve(self, st, rhs, mask, noise_sq=0.0):
+        bicgstab, apply = self._kernels(st)
+        f32 = torch.float32
+        st32 = self._f32(st)
+        # the f64 inverse diagonal, downcast (not the inverse of the f32 planes)
+        inv32 = self._inv_diag(st, mask).to(f32)
+        mask32 = mask.to(f32)
+        b = rhs * mask
+        x = torch.zeros_like(b)
+        for k in range(self.refine + 1):
+            r = b if k == 0 else (b - apply(st, x)) * mask
+            e32, info = bicgstab(st32, r.to(f32), inv32, mask32, tol=MIXED_INNER_TOL, iters=self.iters)
+            x = x + e32.to(b.dtype) * mask
+            iters = info["iters"] if k == 0 else iters + info["iters"]
+        if not self.final_check:
+            return x, {
+                "iters": iters,
+                "resnorm_sq": info["resnorm_sq"].to(b.dtype),
+                "converged": info["converged"],
+            }
+        return x, self._verdict((b - apply(st, x)) * mask, b, iters, noise_sq)
+
+    def solve_triple(
+        self, J_T, J_cl, J_cd, C_clT, C_cdT, d_cdcl, rhs_T, base_cl, base_cd, mask, dt,
+        noise_sq=(0.0, 0.0, 0.0),
+    ):
+        """Block-triangular refinement around the float32 triple solve: the
+        sweep is the lower-triangular block system M z = w,
+
+            M = [[J_T, 0, 0], [-dt C_clT, J_cl, 0], [-dt C_cdT, -dt diag(d_cdcl), J_cd]],
+            w = (rhs_T, base_cl, base_cd)·mask,
+
+        which one :func:`kernels.triple_solve` on a residual solves in that
+        form, so ``z ← z + triple(w − M z)`` refines all three rows at once,
+        one launch a pass.  The inverse diagonals are those of the float32
+        planes.  Verdicts per row as :meth:`solve` gives them, each row's rhs
+        being ``w`` plus its coupling to the rows above."""
+        apply = kernels.stencil5_apply
+        f32 = torch.float32
+        J_T32, J_cl32, J_cd32 = self._f32(J_T), self._f32(J_cl), self._f32(J_cd)
+        C_clT32, C_cdT32 = self._f32(C_clT), self._f32(C_cdT)
+        d32 = d_cdcl.to(f32)
+        m32 = mask.to(f32)
+        inv_T32, inv_cl32, inv_cd32 = (
+            self._inv_diag(J_T32, mask), self._inv_diag(J_cl32, mask), self._inv_diag(J_cd32, mask)
+        )
+        wT, wcl, wcd = rhs_T * mask, base_cl * mask, base_cd * mask
+        zT, zcl, zcd = torch.zeros_like(wT), torch.zeros_like(wcl), torch.zeros_like(wcd)
+        for k in range(self.refine + 1):
+            if k == 0:
+                rT, rcl, rcd = wT, wcl, wcd
+            else:
+                rT = wT - apply(J_T, zT)
+                rcl = wcl + dt * apply(C_clT, zT) - apply(J_cl, zcl)
+                rcd = wcd + dt * (apply(C_cdT, zT) + d_cdcl * zcl) - apply(J_cd, zcd)
+            eT, ecl, ecd, info3 = kernels.triple_solve(
+                J_T32, J_cl32, J_cd32, C_clT32, C_cdT32, d32,
+                (rT * mask).to(f32), (rcl * mask).to(f32), (rcd * mask).to(f32),
+                inv_T32, inv_cl32, inv_cd32, m32, dt, tol=MIXED_INNER_TOL, iters=self.iters,
+            )
+            zT = zT + eT.to(wT.dtype) * mask
+            zcl = zcl + ecl.to(wT.dtype) * mask
+            zcd = zcd + ecd.to(wT.dtype) * mask
+            iters3 = info3["iters"] if k == 0 else iters3 + info3["iters"]
+        if self.final_check:
+            bcl = wcl + dt * apply(C_clT, zT)
+            bcd = wcd + dt * (apply(C_cdT, zT) + d_cdcl * zcl)
+            infos = (
+                self._verdict((wT - apply(J_T, zT)) * mask, wT, iters3[0], noise_sq[0]),
+                self._verdict((bcl - apply(J_cl, zcl)) * mask, bcl, iters3[1], noise_sq[1]),
+                self._verdict((bcd - apply(J_cd, zcd)) * mask, bcd, iters3[2], noise_sq[2]),
+            )
+        else:
+            infos = tuple(
+                {"iters": iters3[k], "resnorm_sq": info3["resnorm_sq"][k].to(wT.dtype),
+                 "converged": info3["converged"][k]}
+                for k in range(3)
+            )
+        return zT, zcl, zcd, infos
+
+
 class PCTrapezoidalBase:
     """Shared PC machinery; subclasses provide the cs predictor/corrector."""
 
@@ -150,21 +284,44 @@ class PCTrapezoidalBase:
         track_residuals: bool = True,
         coupling_source: str = "jvp",
         fused_triple: bool = True,
+        precision: str = "full",
+        mixed_refine: int = 2,
+        mixed_final_check: bool = True,
     ):
         """krylov_unroll: BiCGStab iteration budget per solve (masked early
         exit, so any sufficient budget gives the same answer).  The solves go
-        through ``self.solver``, an object with ``solve(stencil, rhs, mask)
-        -> (x, info)`` and ``solve_triple(...)``: the :class:`KrylovBackend`
-        here.
+        through ``self.solver``, an object with ``solve(stencil, rhs, mask,
+        noise_sq) -> (x, info)`` and ``solve_triple(...)``: the
+        :class:`KrylovBackend` or, with ``precision="mixed"``, the
+        :class:`MixedBackend`.
 
         coupling_source: "jvp" — the cross couplings as ``torch.func.jvp``
         tangents; "analytic" — as closed-form coupling planes
         (``field.stencil_dFcl_dT`` etc.).  fused_triple: with analytic
-        couplings in 2-D, the whole sweep through ``solver.solve_triple``."""
+        couplings in 2-D, the whole sweep through ``solver.solve_triple``.
+
+        precision: "full" — the solves in the grid's dtype
+        (:class:`KrylovBackend`); "mixed" — float32 Krylov under float64
+        iterative refinement (:class:`MixedBackend`, a float64 grid
+        required), ``mixed_refine`` refinement passes after the first and,
+        with ``mixed_final_check``, one more f64 residual for an honest
+        per-solve verdict.  With fused analytic couplings the refinement is
+        the block-triangular one around the float32 triple solve."""
         if coupling_source not in ("jvp", "analytic"):
             raise ValueError(
                 f"coupling_source must be 'jvp' or 'analytic', got {coupling_source!r}"
             )
+        if precision not in ("full", "mixed"):
+            raise ValueError(f"precision must be 'full' or 'mixed'; got {precision!r}")
+        if precision == "mixed" and semi_discrete_field.grid.dtype != torch.float64:
+            raise ValueError(
+                "precision='mixed' requires a float64 grid (the refinement residuals are f64)"
+            )
+        if int(mixed_refine) < 0:
+            raise ValueError(f"mixed_refine must be >= 0; got {mixed_refine!r}")
+        self.precision = precision
+        self.mixed_refine = int(mixed_refine)
+        self.mixed_final_check = bool(mixed_final_check)
         self.coupling_source = coupling_source
         self.fused_triple = bool(fused_triple)
         self.semi_discrete_field = semi_discrete_field
@@ -172,7 +329,12 @@ class PCTrapezoidalBase:
         self.num_pc_steps = int(num_pc_steps)
         self.num_newton_steps = int(num_newton_steps)
         self.track_residuals = bool(track_residuals)
-        self.solver = KrylovBackend(iters=krylov_unroll)
+        if precision == "mixed":
+            self.solver = MixedBackend(
+                iters=krylov_unroll, refine=mixed_refine, final_check=mixed_final_check
+            )
+        else:
+            self.solver = KrylovBackend(iters=krylov_unroll)
         # filled by the eager step()
         self.last_residual = {}
 
@@ -223,6 +385,13 @@ class PCTrapezoidalBase:
         mask = g.interior_mask
         solve = self.solver.solve
         analytic = self.coupling_source == "analytic"
+        # the squared rounding floors of the three rhs (each a cancellation
+        # of O(‖Y‖) values), which a true-residual verdict cannot beat
+        if self.precision == "mixed":
+            eps_b = 10.0 * float(torch.finfo(s.T.dtype).eps)
+            noise = tuple(eps_b * eps_b * ops.asum(Yv * Yv) for Yv in Y)
+        else:
+            noise = (0.0, 0.0, 0.0)
 
         # T: FT is linear in T — closed-form planes and a direct primal
         fT0 = field.FT(g, ops, s, t1)
@@ -243,14 +412,14 @@ class PCTrapezoidalBase:
                 rhs_T,
                 Ycl0 - 2.0 * s.cl + dt * fcl0,
                 Ycd0 - 2.0 * s.cd + dt * fcd0,
-                mask, dt,
+                mask, dt, noise,
             )
             T1 = s.T * mask + dT  # boundary re-zeroed, as in the reference
             cl1 = s.cl + dcl  # boundary kept
             cd1 = s.cd + dcd
             return self._sweep_tail(g, ops, s, t1, dt, Y, T1, cl1, cd1, *infos)
 
-        dT, info_T = solve(J_T, rhs_T, mask)
+        dT, info_T = solve(J_T, rhs_T, mask, noise[0])
         T1 = s.T * mask + dT  # boundary re-zeroed, as in the reference
 
         # cl: the primal and the T-coupling, a closed-form plane apply or
@@ -265,7 +434,7 @@ class PCTrapezoidalBase:
             )
         J_cl = self._newton_planes(g, ops, field.stencil_dFcl_dcl(g, ops, s), dt)
         rhs_cl = Ycl0 - 2.0 * s.cl + dt * fcl0 + dt * jvp_cl_T
-        dcl, info_cl = solve(J_cl, rhs_cl, mask)
+        dcl, info_cl = solve(J_cl, rhs_cl, mask, noise[1])
         cl1 = s.cl + dcl  # boundary kept, as in the reference
 
         # cd: the primal and the (T, cl)-coupling, likewise
@@ -284,7 +453,7 @@ class PCTrapezoidalBase:
             )
         J_cd = self._newton_planes(g, ops, field.stencil_dFcd_dcd(g, ops, s), dt)
         rhs_cd = Ycd0 - 2.0 * s.cd + dt * fcd0 + dt * jvp_cd_Tcl
-        dcd, info_cd = solve(J_cd, rhs_cd, mask)
+        dcd, info_cd = solve(J_cd, rhs_cd, mask, noise[2])
         cd1 = s.cd + dcd
 
         return self._sweep_tail(

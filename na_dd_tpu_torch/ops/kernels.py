@@ -17,7 +17,8 @@ Dispatch is by the tensor's device and nothing else: a CPU tensor takes the
 plain version; a CUDA tensor is checked (device, dtype, shape, contiguity)
 and launches the kernel, or the wrapper raises.  There is no fallback from a
 refused or failed launch to the plain version.  Each launch adds one to its
-wrapper's count in :data:`LAUNCHES`.
+wrapper's count in :data:`LAUNCHES` (and, on float32 operands, in
+:data:`LAUNCHES_F32`).
 
 The CUDA sources (``csrc/*.cu``) are compiled at first use with ``nvcc`` for
 ``sm_90a`` into plain-C shared libraries under ``build/kernels/`` at the
@@ -66,6 +67,8 @@ LAUNCHES = {
     "bicgstab_solve3": 0,
     "triple_solve": 0,
 }
+#: of those, the launches on float32 operands
+LAUNCHES_F32 = dict.fromkeys(LAUNCHES, 0)
 
 #: per-source build record of the last :func:`build_kernels` in this process:
 #: {"seconds", "cached", "ptxas"} (ptxas = nvcc's register/spill report)
@@ -79,6 +82,13 @@ _BLOCKS: dict = {}
 def reset_launch_counts() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
+        LAUNCHES_F32[key] = 0
+
+
+def _count(name: str, dtype) -> None:
+    LAUNCHES[name] += 1
+    if dtype == torch.float32:
+        LAUNCHES_F32[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -324,7 +334,7 @@ def stencil5_apply(stencil: Stencil5, u):
         n0, n1, _stream(u),
     )
     _check_launch(lib, code, "stencil5_apply")
-    LAUNCHES["stencil5_apply"] += 1
+    _count("stencil5_apply", u.dtype)
     return out
 
 
@@ -369,7 +379,7 @@ def bicgstab_solve(stencil: Stencil5, b, inv_diag, mask, *, tol: float, iters: i
         _stream(b),
     )
     _check_launch(lib, code, "bicgstab_solve")
-    LAUNCHES["bicgstab_solve"] += 1
+    _count("bicgstab_solve", b.dtype)
     return x, _residual_info(stencil5_apply, stencil, b, x, iters_out[0], tol)
 
 
@@ -419,7 +429,7 @@ def triple_solve(
         n0, n1, int(iters), float(tol) * float(tol), float(dt), blocks, _stream(rhs_T),
     )
     _check_launch(lib, code, "triple_solve")
-    LAUNCHES["triple_solve"] += 1
+    _count("triple_solve", dtype)
     res, tol_sq = scalars[0], scalars[1]
     return out[0], out[1], out[2], {
         "iters": iters_out, "resnorm_sq": res, "tol_sq": tol_sq, "converged": res <= tol_sq,
@@ -441,7 +451,7 @@ def stencil7_apply(stencil: Stencil7, u):
         n0, n1, n2, _stream(u),
     )
     _check_launch(lib, code, "stencil7_apply")
-    LAUNCHES["stencil7_apply"] += 1
+    _count("stencil7_apply", u.dtype)
     return out
 
 
@@ -472,5 +482,5 @@ def bicgstab_solve3(stencil: Stencil7, b, inv_diag, mask, *, tol: float, iters: 
         _stream(b),
     )
     _check_launch(lib, code, "bicgstab_solve3")
-    LAUNCHES["bicgstab_solve3"] += 1
+    _count("bicgstab_solve3", b.dtype)
     return x, _residual_info(stencil7_apply, stencil, b, x, iters_out[0], tol)

@@ -352,3 +352,79 @@ def test_golden_on_the_card(card, golden):
     assert abs(err - ref) / ref <= 1e-8, (err, ref)
     assert kernels.LAUNCHES["bicgstab_solve"] > 0
     assert summary.series.krylov_converged.all()
+
+
+def _pol_trial(N, device, **kw):
+    from na_dd_tpu_torch.harness.studies import _make_trial, study_consts
+    from na_dd_tpu_torch.mms.cases import MMSCasePol
+
+    kw.setdefault("krylov_unroll", 8)
+    return _make_trial(MMSCasePol, N, 50.0, mc=study_consts("pol"), device=device, **kw)
+
+
+@pytest.mark.parametrize("form", ["per_solve", "fused"])
+def test_mixed_step_on_the_card(card, form):
+    """One mixed step of the pol level N=64 (float32 K1, or K4 for the fused
+    block refinement, under float64 refinement) against the same step on
+    the CPU plain versions: each field within 1e-10 of its max-norm, the same
+    Krylov iterations, every solve converged; the kernels launched in
+    float32."""
+    from na_dd_tpu_torch.mms.engine import state_from_mms_when
+    from na_dd_tpu_torch.ops.shifts import LOCAL_OPS
+
+    extra = dict(precision="mixed", track_residuals=True)
+    if form == "fused":
+        extra["coupling_source"] = "analytic"
+    out = {}
+    for device in ("cpu", card):
+        trial = _pol_trial(64, device, **extra)
+        s0 = state_from_mms_when(mms_case=trial.mms_case, t=0.0, grid=trial.grid)
+        kernels.reset_launch_counts()
+        out[device] = trial.integrator.step_fn(trial.grid, LOCAL_OPS, s0, 0.0, (1 / 64) ** 1.5)
+    launches = dict(kernels.LAUNCHES)
+    (s_cpu, d_cpu), (s_gpu, d_gpu) = out["cpu"], out[card]
+    for a, b in zip(s_gpu, s_cpu):
+        assert a.dtype == torch.float64
+        assert_close(a, b, 1e-10)
+    assert int(d_gpu.krylov_iters) == int(d_cpu.krylov_iters) > 0
+    assert bool(d_gpu.krylov_converged) and bool(d_cpu.krylov_converged)
+    if form == "fused":
+        assert launches["triple_solve"] == 3 and launches["bicgstab_solve"] == 0
+    else:
+        assert launches["bicgstab_solve"] == 9 and launches["triple_solve"] == 0
+
+
+@pytest.mark.parametrize("mode", ["f64", "mixed", "mixed fused"])
+def test_time_table_run_never_syncs(card, mode):
+    """The 41 steps of the pol N=256 level with time tables (and the float32
+    tail) under ``torch.cuda.set_sync_debug_mode("error")``: the table
+    lookups, the solves and the error norms make no host synchronisation;
+    the run's result matches the level without tables."""
+    from na_dd_tpu_torch.harness import trial as trial_mod
+
+    kw = {"f64": {}, "mixed": dict(precision="mixed"),
+          "mixed fused": dict(precision="mixed", coupling_source="analytic")}[mode]
+    trial = _pol_trial(256, card, **kw)
+    dt = (1 / 256) ** 1.5
+    ref = trial.run_for_errors(Tf=0.01, dt=dt)
+    warm = trial.run_for_errors(Tf=0.01, dt=dt, collect_precompute=True, collect_tail="f32")
+    assert abs(warm.overall_combined_error - ref.overall_combined_error) <= 1e-7 * ref.overall_combined_error
+    num_steps = len(ref.series.krylov_iters)
+    assert num_steps == 41
+    integ, exact = trial_mod._tabled_run(
+        grid=trial.grid, integrator=trial.integrator, exact_sol_pack=trial.mms_case, ops=trial.ops,
+        t0=0.0, dt=0.01 / num_steps, num_steps=num_steps,
+    )
+    assert exact is not None and len(trial.integrator._sim_cache) == 1  # built by the warm run
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        packed = trial_mod._simulate(
+            grid=trial.grid, integrator=integ, exact_sol_pack=trial.mms_case, exact_stack=exact,
+            initial_state=trial.initial_state, t0=0.0, dt=0.01 / num_steps, num_steps=num_steps,
+            variable_names=tuple(trial.variable_names), integral_vars=tuple(trial.integral_vars),
+            ops=trial.ops, tail_grid=trial_mod._tail_grid(trial.grid, torch.float32),
+        )
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(packed).all()

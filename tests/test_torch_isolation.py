@@ -14,6 +14,8 @@ import torch
 
 from na_dd_tpu_torch import config
 from na_dd_tpu_torch.convert import grid3_from_nodes, grid_from_nodes, state_from_numpy, tensor_from_numpy
+from na_dd_tpu_torch.harness import studies
+from na_dd_tpu_torch.mms.cases import MMSCasePol
 from na_dd_tpu_torch.models.coefficients import Model02
 from na_dd_tpu_torch.models.consts import STUDY_MODEL_CONSTS
 from na_dd_tpu_torch.ops import kernels
@@ -44,6 +46,7 @@ def test_port_files_were_found():
     assert len(PORT_FILES) >= 20
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     assert "na_dd_tpu_torch/three_d/harness.py" in names
+    assert "na_dd_tpu_torch/harness/studies.py" in names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -121,6 +124,12 @@ def no_card(monkeypatch):
         lambda: make_setup3(MMSCaseCsZeroCrossing3, N=2, model=Model02(STUDY_MODEL_CONSTS), variant="hcs"),
         lambda: mms_error3(MMSCasePol3, N=2, model=Model02(STUDY_MODEL_CONSTS), Tf=0.01, dt=0.01,
                            variant="cs"),
+        lambda: mms_error3(MMSCaseExpSin3, N=2, model=Model02(STUDY_MODEL_CONSTS), Tf=0.01, dt=0.01,
+                           integrator_params=dict(precision="mixed")),
+        lambda: studies._make_trial(MMSCasePol, 4, 50.0, precision="mixed"),
+        lambda: studies.run_spatial_study("pol", levels=1, verbose=False),
+        lambda: studies.run_temporal_study("pol", levels=1, verbose=False),
+        lambda: studies.run_eta_study("pol", N=4, etas=[50.0], verbose=False),
     ],
 )
 def test_entry_points_without_a_card_raise(no_card, entry):

@@ -218,3 +218,183 @@ def test_coupling_source_is_validated():
         _port_trial(8, 0.04, coupling_source="probe")
     integ = _port_trial(8, 0.04).integrator
     assert integ.coupling_source == "jvp" and integ.fused_triple is True
+
+
+# ---------------------------------------------------------------------------
+# the harness's production options, the time tables and the studies module:
+# twins of tests/test_harness.py (collect_tail, collect_precompute) and of
+# the JAX package's run_spatial_study / run_temporal_study / run_eta_study
+# ---------------------------------------------------------------------------
+HARNESS_RUN = dict(Tf=0.01, dt=5e-4)
+
+
+def _study_trials(**kw):
+    """The pol N=16 study trial (budget 8) of both packages."""
+    from na_dd_tpu.harness.studies import _make_trial as j_make_trial
+    from na_dd_tpu.mms import cases as j_cases
+    from na_dd_tpu_torch.harness.studies import _make_trial
+    from na_dd_tpu_torch.mms import cases
+
+    jt = j_make_trial(j_cases.MMSCasePol, 16, ETA, mc=J_CONSTS, krylov_unroll=8, **kw)
+    tt = _make_trial(cases.MMSCasePol, 16, ETA, mc=consts_from_dict(J_CONSTS._asdict()),
+                     krylov_unroll=8, device="cpu", **kw)
+    return jt, tt
+
+
+@pytest.fixture(scope="module")
+def harness_runs():
+    """The port's N=16 study level by default, with the float32 tail, with
+    the time tables and with both; the JAX package's with both."""
+    jt, tt = _study_trials()
+    runs = {
+        name: tt.run_for_errors(**HARNESS_RUN, **kw).overall_combined_error
+        for name, kw in (
+            ("default", {}),
+            ("tail", dict(collect_tail="f32")),
+            ("tables", dict(collect_precompute=True)),
+            ("both", dict(collect_precompute=True, collect_tail="f32")),
+        )
+    }
+    runs["jax_both"] = float(jt.run_for_errors(
+        **HARNESS_RUN, collect_precompute=True, collect_tail="f32").overall_combined_error)
+    return tt, runs
+
+
+def test_collect_tail_f32_inside_parity_gate(harness_runs):
+    tt, runs = harness_runs
+    assert abs(runs["tail"] - runs["default"]) <= 1e-7 * runs["default"]
+    assert runs["tail"] != runs["default"]  # the tail did run in float32
+    with pytest.raises(ValueError, match="collect_tail"):
+        tt.run_for_errors(**HARNESS_RUN, collect_tail="bf16")
+
+
+def test_collect_precompute_matches_default(harness_runs):
+    _, runs = harness_runs
+    assert abs(runs["tables"] - runs["default"]) <= 1e-10 * runs["default"]
+    assert abs(runs["both"] - runs["default"]) <= 1e-7 * runs["default"]
+
+
+def test_tables_and_tail_match_jax(harness_runs):
+    _, runs = harness_runs
+    assert abs(runs["both"] - runs["jax_both"]) <= 1e-10 * runs["jax_both"]
+
+
+def test_collect_tail_is_a_no_op_in_float32():
+    N, dt = 8, (1.0 / 8) ** 1.5
+    trial = TTrial(
+        t_make_uniform_grid(N, N, dtype=torch.float32, device="cpu"),
+        TModel02(consts_from_dict(J_CONSTS._asdict())), TCase, TField, TForcing, TIntegrator,
+        **_params(N, dt),
+    )
+    assert (trial.run_for_errors(Tf=TF, dt=dt, collect_tail="f32").overall_combined_error
+            == trial.run_for_errors(Tf=TF, dt=dt).overall_combined_error)
+
+
+def test_time_tables_are_built_once_and_within_the_budget(monkeypatch):
+    from na_dd_tpu_torch.harness import trial as t_trial
+
+    builds = []
+    real = t_trial.build_time_tables
+    monkeypatch.setattr(t_trial, "build_time_tables", lambda **kw: builds.append(kw["num"]) or real(**kw))
+    N, dt = 8, (1.0 / 8) ** 1.5
+    trial = _port_trial(N, dt)
+    first = trial.run_for_errors(Tf=TF, dt=dt, collect_precompute=True).overall_combined_error
+    again = trial.run_for_errors(Tf=TF, dt=dt, collect_precompute=True).overall_combined_error
+    assert first == again and builds == [trial.run_for_errors(Tf=TF, dt=dt).series.t.size - 1]
+    # tables of 2 x 5 fields x (steps + 1) planes over the budget: not built
+    monkeypatch.setattr(t_trial, "TIME_TABLES_BUDGET", 1000)
+    over = trial.run_for_errors(Tf=TF, dt=dt / 2, collect_precompute=True)
+    assert len(builds) == 1 and abs(over.overall_combined_error - first) < 1e-2 * first
+
+
+def test_forcing_from_time_grid_serves_the_inner_values():
+    from na_dd_tpu_torch.core.forcing import ForcingFromTimeGrid
+
+    N, dt = 8, 1e-3
+    trial = _port_trial(N, dt)
+    g, inner = trial.grid, trial.forcing_terms
+    tabled = ForcingFromTimeGrid(inner, t0=0.002, dt=dt, num=4)
+    with pytest.raises(RuntimeError, match="bind"):
+        tabled.fT(g, T_OPS, 0.002)
+    tabled.bind(tabled.build_tables(g, T_OPS))
+    ts = 0.002 + dt * torch.arange(5, dtype=torch.float64)
+    for term in ("fcp", "fT", "fcl", "fcd", "fcs"):
+        for j in range(5):
+            assert torch.equal(getattr(tabled, term)(g, T_OPS, ts[j]), getattr(inner, term)(g, T_OPS, ts[j]))
+        # a time near a grid time takes its row; beyond the grid, the end rows
+        assert torch.equal(getattr(tabled, term)(g, T_OPS, ts[2] + 1e-9), getattr(inner, term)(g, T_OPS, ts[2]))
+        assert torch.equal(getattr(tabled, term)(g, T_OPS, ts[4] + 5 * dt), getattr(inner, term)(g, T_OPS, ts[4]))
+
+
+def test_forcing_from_callables():
+    from na_dd_tpu_torch.core.forcing import ForcingFromCallables
+
+    g = t_make_uniform_grid(4, 4, device="cpu")
+    f = ForcingFromCallables({k: (lambda i: lambda t, x, y: i * t + x * y)(i)
+                              for i, k in enumerate(("fcp", "fT", "fcl", "fcd", "fcs"))})
+    for i, k in enumerate(("fcp", "fT", "fcl", "fcd", "fcs")):
+        assert torch.equal(getattr(f, k)(g, T_OPS, 0.5), i * 0.5 + g.xx * g.yy)
+
+
+def test_run_spatial_study_matches_jax_cpu_x64():
+    """run_spatial_study("pol", levels=3, base_N=4) against the JAX
+    package's run_spatial_study("pol") on CPU x64, N=4..16
+    (studies/results/pol_cpu_x64.json, studies/pol_cpu_x64.py)."""
+    import json
+    import pathlib
+
+    from na_dd_tpu_torch.harness.studies import run_spatial_study
+
+    ref = json.loads((pathlib.Path(__file__).resolve().parent.parent / "studies" / "results"
+                      / "pol_cpu_x64.json").read_text())["spatial"]
+    out = run_spatial_study("pol", levels=3, base_N=4, verbose=False, measure_steady=True, device="cpu")
+    assert out["Ns"] == [4, 8, 16] and len(out["steady_s"]) == 3
+    for N, err in zip(out["Ns"], out["errors"]):
+        x64 = ref["errors"][ref["Ns"].index(N)]
+        assert abs(err - x64) <= 1e-10 * x64
+    assert len(out["rates"]) == 1 and out["statuses"] == ["OK"]
+
+
+def test_run_temporal_study_matches_jax():
+    """The peaks temporal ladder's first three levels: N = ceil(1/(2 dt)) =
+    1, 1, 2 (the degenerate all-boundary grid twice, then one interior
+    point under the study's budget floor of 16)."""
+    from na_dd_tpu.harness.studies import run_temporal_study as j_run
+    from na_dd_tpu_torch.harness.studies import run_temporal_study
+
+    ref = j_run("peaks_fast1e1", levels=3, verbose=False)
+    out = run_temporal_study("peaks_fast1e1", levels=3, verbose=False, device="cpu")
+    assert out["Ns"] == ref["Ns"] == [1, 1, 2] and out["dts"] == ref["dts"]
+    assert out["errors"][:2] == [0.0, 0.0]
+    assert abs(out["errors"][2] - ref["errors"][2]) <= 1e-10 * ref["errors"][2]
+
+
+def test_run_eta_study_matches_jax():
+    from na_dd_tpu.harness.studies import run_eta_study as j_run
+    from na_dd_tpu_torch.harness.studies import run_eta_study
+
+    ref = j_run("pol", N=6, etas=[10.0, 1000.0], verbose=False)
+    out = run_eta_study("pol", N=6, etas=[10.0, 1000.0], verbose=False, device="cpu")
+    assert out["etas"] == [10.0, 1000.0] and out["N"] == 6
+    for err, j_err in zip(out["errors"], ref["errors"]):
+        assert abs(err - j_err) <= 1e-10 * j_err
+
+
+def test_study_registry_and_budget_match_jax():
+    from na_dd_tpu.harness import studies as j_studies
+    from na_dd_tpu_torch.harness import studies
+
+    assert list(studies.STUDIES) == list(j_studies.STUDIES)
+    for name, cfg in studies.STUDIES.items():
+        j_cfg = j_studies.STUDIES[name]
+        assert cfg["case_cls"].__name__ == j_cfg["case_cls"].__name__
+        assert studies.study_consts(name)._asdict() == j_studies.study_consts(name)._asdict()
+        assert cfg.get("min_krylov_unroll") == j_cfg.get("min_krylov_unroll")
+        assert {k: v for k, v in cfg["temporal"].items() if k != "N_of_dt"} == {
+            k: v for k, v in j_cfg["temporal"].items() if k != "N_of_dt"}
+    for N, dt in ((256, (1 / 256) ** 1.5), (200, 1.0), (200, 2.0), (256, 1e-2), (32, 0.3), (2, 0.25)):
+        for name in ("pol", "peaks_fast1e1"):
+            mc = studies.study_consts(name)
+            assert studies._study_unroll(studies.STUDIES[name], N, dt, mc) == j_studies._study_unroll(
+                j_studies.STUDIES[name], N, dt, j_studies.study_consts(name))
+    assert choose_krylov_unroll is studies.choose_krylov_unroll

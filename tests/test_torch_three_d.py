@@ -374,6 +374,28 @@ def test_run_trial3_matches_jax_and_cpu_x64(N):
         assert_close(getattr(port["state"], v), getattr(ref["state"], v), 1e-10)
 
 
+def test_mixed_precision_3d_matches_jax_and_full():
+    """Twin of tests/test_three_d_model.py's mixed test: precision="mixed"
+    on Stencil7 planes (float32 K5 solves under float64 refinement) at N=5,
+    against the JAX package's mixed run at 1e-10 and the port's full-f64
+    run at 1e-8."""
+    from na_dd_tpu.three_d.harness import mms_error3 as j_mms_error3
+    from na_dd_tpu_torch.integrators import MixedBackend
+    from na_dd_tpu_torch.three_d.harness import mms_error3 as t_mms_error3
+
+    jm = JModel02(J_DEFAULT_CONSTS._replace(**STUDY_CONSTS, gamma_T=1e-2))
+    tm = TModel02(consts_from_dict(jm.consts()._asdict()))
+    common = dict(N=5, Tf=0.01, dt=2.5e-3)
+    mixed = dict(precision="mixed")
+    ref = j_mms_error3(JCase, model=jm, **common, integrator_params=mixed)
+    port = t_mms_error3(TCase, model=tm, **common, integrator_params=mixed, device="cpu")
+    full = t_mms_error3(TCase, model=tm, **common, device="cpu")
+    assert abs(port - ref) <= 1e-10 * ref
+    assert abs(port - full) <= 1e-8 * full
+    _, _, _, integ = t_make_setup3(TCase, N=5, model=tm, integrator_params=mixed, device="cpu")
+    assert isinstance(integ.solver, MixedBackend) and integ.precision == "mixed"
+
+
 @pytest.mark.parametrize("nodes", [([0.0, 1.0], [0.0, 0.5, 1.0]), ([0.0, 0.6, 0.5, 1.0], [0.0, 0.5, 1.0])])
 def test_make_grid3_refuses_bad_nodes(nodes):
     x, y = nodes
