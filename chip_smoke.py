@@ -33,7 +33,14 @@ version on the card, and drives the port's paths:
   error tail, time tables), ``mixed`` with fused analytic couplings (float32
   K4 under block refinement), float32 and f64 with time tables; the study
   module's spatial and temporal pol ladders against CPU-x64; and the 3-D
-  ExpSin3 N=64 level with ``precision="mixed"`` (float32 K5).
+  ExpSin3 N=64 level with ``precision="mixed"`` (float32 K5);
+* the modeller's path on the drug-release scenario at N=256 (no forcing,
+  against the JAX package's CPU-x64 values): ``simulate`` (K1/K2; and the
+  3-D sin bump at N=64 through K5/K6), ``simulate_adaptive``,
+  ``run_checkpointed`` and its resume (bit for bit the straight run), IFT
+  gradients through ``build_simulator`` (K1 forward, recomputed and on the
+  transposed planes; mixed and direct at N=64), the pol N=256 level with
+  ``linear_solver="direct"``, and ``fit_parameters`` at N=64.
 
 It checks the errors against the reference values and the launch counts of
 each path's main level (counts set to 0 just before it, read just after),
@@ -2214,6 +2221,654 @@ def timings_mixed(device):
     return res
 
 
+# ---------------------------------------------------------------------------
+# the modeller's path: simulate, adaptive steps, checkpoints, the direct
+# solver, IFT gradients and calibration
+# ---------------------------------------------------------------------------
+# The drug-release scenario of tests/test_gradients.py and
+# studies/eta_gradient_study.py: a Gaussian drug blob b, State(0.5b, 0.1b,
+# 0.2b, 0.05b, b), default_model_consts with Kd = 1e-2, RegHCs, eta = 50, no
+# forcing, dt = 2e-3.  The JAX package's CPU-x64 values of each phase
+# (studies/results/modeller_cpu_x64.json, made by studies/modeller_cpu_x64.py).
+RELEASE_N, RELEASE_STEPS, RELEASE_DT, SMALL_N = 256, 40, 2e-3, 64
+RELEASE_BASE = {"Dl_max": 8.01e-4, "Dd_max": 2.46e-6, "Kd": 1e-2, "K3": 1e-2,
+                "regularization_factor": 50.0}
+DIRECTION_SEED = 8
+ADAPTIVE = dict(Tf=0.04, dt0=2e-3, tol=1e-6)
+MODELLER_CPU_X64 = {
+    "simulate": {
+        "times": [0.02, 0.04, 0.06, 0.08],
+        "final_norms": {"cp": 0.08082353390990535, "T": 0.016022877189708188, "cl": 0.032041533653632236, "cd": 0.011667270468696773, "cs": 0.15905973020994865},
+        "snapshot_norms": [
+            {"cp": 0.08088167091612021, "T": 0.01614045722927638, "cl": 0.032280102900124265, "cd": 0.008856689058739986, "cs": 0.1611050950201525},
+            {"cp": 0.08086227707063112, "T": 0.016100983447299013, "cl": 0.032200179304800625, "cd": 0.009728178494153103, "cs": 0.16041586309253877},
+            {"cp": 0.08084289808962668, "T": 0.016061791209580307, "cl": 0.032120657427549916, "cd": 0.010672745384375052, "cs": 0.15973416885006925},
+            {"cp": 0.08082353390990535, "T": 0.016022877189708188, "cl": 0.032041533653632236, "cd": 0.011667270468696773, "cs": 0.15905973020994865},
+        ],
+        "dissolved": 0.13357586909463523, "released": 7.033858272720295e-06,
+    },
+    "adaptive": {
+        "Tf": 0.04, "dt0": 0.002, "tol": 1e-06,
+        "info": {"steps": 11, "rejected": 0, "t": 0.04, "dt": 0.0038885278792152515},
+        "final_norms": {"cp": 0.0808622770703687, "T": 0.016100983441671275, "cl": 0.03220017929837852, "cd": 0.009728178744227343, "cs": 0.16041586317333506},
+    },
+    "gradients": {
+        "value": 0.13357586909463523,
+        "grads": {"Dl_max": -0.0007805138387873257, "Dd_max": -2.466165808173526, "Kd": 8.297376810549984, "K3": -1.5379742195375267e-13, "regularization_factor": 2.1119258278456296e-05},
+        "state_directional": -0.04524900930396015,
+    },
+    "configs": {
+        "mixed": {"value": 0.06926444251893232,
+                   "grads": {"Dl_max": -4.2469906237418905e-05, "Dd_max": -0.042296617750844936, "Kd": 2.145635510469809, "K3": -5.988264661803562e-16, "regularization_factor": 1.5638559663086296e-05}},
+        "direct": {"value": 0.06926444251893232,
+                   "grads": {"Dl_max": -4.246990623741875e-05, "Dd_max": -0.042296617750844936, "Kd": 2.145635510469809, "K3": -5.988264352921891e-16, "regularization_factor": 1.5638559663086296e-05}},
+    },
+    "fit": {
+        "history": [0.09429848881990027, 0.038561954799094654, 0.012146550475022595, 0.002032245981466747, 1.0942790530742323e-05, 0.0015182498993922626, 0.004240799760668226, 0.00708657425466522, 0.009577660783804948, 0.011531084864371549],
+        "fitted": {"Kd": 0.010260183641910843},
+    },
+    "three_d": {"final_norms": {"cp": 0.0707100778437122, "T": 0.03534693250703624, "cl": 8.75945026130695e-06, "cd": 0.01773440800695922, "cs": 0.3534967127556567}},
+}
+MODELLER_RTOL = 1e-8
+
+
+def release_consts():
+    from na_dd_tpu_torch.models.consts import default_model_consts
+
+    return default_model_consts._replace(Kd=1e-2)
+
+
+def release_setup(N, device):
+    """Grid and initial state of the release scenario at N."""
+    import torch
+
+    from na_dd_tpu_torch.core.state import State
+    from na_dd_tpu_torch.ops.grid import make_uniform_grid
+
+    g = make_uniform_grid(N, N, device=device)
+    b = torch.exp(-60.0 * ((g.xx - 0.5) ** 2 + (g.yy - 0.5) ** 2)) * g.interior_mask
+    return g, State(cp=0.5 * b, T=0.1 * b, cl=0.2 * b, cd=0.05 * b, cs=b)
+
+
+def release_integrator(g, **kw):
+    from na_dd_tpu_torch.harness import make_integrator
+    from na_dd_tpu_torch.models.coefficients import Model02
+
+    return make_integrator(g, Model02(release_consts()), **kw)
+
+
+class Diagnosed:
+    """An integrator whose step_fn keeps each step's krylov_converged (a
+    device tensor) in ``converged``."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.converged = []
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def step_fn(self, *args):
+        s1, diag = self.inner.step_fn(*args)
+        self.converged.append(diag.krylov_converged)
+        return s1, diag
+
+    def all_converged(self) -> bool:
+        import torch
+
+        return bool(torch.stack(self.converged).all())
+
+
+def h_norms(ops, g, s):
+    from na_dd_tpu_torch.core.state import State
+    from na_dd_tpu_torch.ops.inner_products import norm_H
+
+    return {v: float(norm_H(ops, g, getattr(s, v))) for v in State._fields}
+
+
+def check_norms(label, got, ref, rtol=MODELLER_RTOL):
+    worst = max(abs(got[v] - ref[v]) / abs(ref[v]) for v in ref)
+    log(f"[{label}] H-norms vs CPU-x64: worst rel {worst:.3e} (limit {rtol:g})")
+    check(worst <= rtol, f"{label}: H-norms off CPU-x64")
+
+
+def steady_calls(fn, repeats=3):
+    """Host-clock seconds of ``repeats`` calls of ``fn`` after a warm-up,
+    each ending in a synchronisation."""
+    import torch
+
+    fn()
+    runs = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    return runs
+
+
+def phase_simulate(device):
+    """simulate() of the release scenario at N=256: 40 steps, a snapshot
+    every 10, held to CPU-x64; its exact K1/K2 launches, five steps under
+    the profiler, the steady wall-clock; then the 3-D sin bump at N=64
+    (K5/K6) against CPU-x64 and the CPU plain run."""
+    import torch
+
+    from na_dd_tpu_torch.core.state import State
+    from na_dd_tpu_torch.harness import dissolved_drug_fraction, released_drug_fraction, simulate
+    from na_dd_tpu_torch.ops import kernels
+    from na_dd_tpu_torch.ops.shifts import LOCAL_OPS
+
+    ref = MODELLER_CPU_X64["simulate"]
+    g, s0 = release_setup(RELEASE_N, device)
+    integ = Diagnosed(release_integrator(g))
+    # three solves a step (one PC step, one Newton sweep), each one K1
+    # launch and one K2 launch for its true residual
+    want = 3 * RELEASE_STEPS
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    fin, times, snaps = simulate(integ, g, s0, dt=RELEASE_DT, num_steps=RELEASE_STEPS,
+                                 snapshot_every=10)
+    launches = dict(kernels.LAUNCHES)
+    log(f"[simulate] N={RELEASE_N}, {RELEASE_STEPS} steps: launches {launches} "
+        f"(predicted K1 {want}, K2 {want})")
+    for name in ("bicgstab_solve", "stencil5_apply"):
+        check(launches[name] == want, f"simulate: {name} launched {launches[name]}, not {want}")
+    check(integ.all_converged(), "simulate: a Krylov solve missed its tolerance")
+    check(torch.allclose(times.cpu(), torch.tensor(ref["times"], dtype=times.dtype)),
+          "simulate: snapshot times")
+    check_norms("simulate", h_norms(LOCAL_OPS, g, fin), ref["final_norms"])
+    for k in range(4):
+        check_norms(f"simulate snapshot {k}", h_norms(LOCAL_OPS, g, State(*(a[k] for a in snaps))),
+                    ref["snapshot_norms"][k])
+    dissolved = float(dissolved_drug_fraction(LOCAL_OPS, g, fin))
+    released = float(released_drug_fraction(LOCAL_OPS, g, fin, s0))
+    rel_d = abs(dissolved - ref["dissolved"]) / ref["dissolved"]
+    rel_r = abs(released - ref["released"]) / abs(ref["released"])
+    log(f"[simulate] dissolved {dissolved!r} (CPU-x64 {ref['dissolved']!r}, rel {rel_d:.3e}); "
+        f"released {released!r} (CPU-x64 {ref['released']!r}, rel {rel_r:.3e})")
+    check(rel_d <= MODELLER_RTOL and rel_r <= MODELLER_RTOL, "simulate: fractions off CPU-x64")
+
+    steps = 5
+    wall, found = profile_device(lambda: simulate(integ, g, s0, dt=RELEASE_DT, num_steps=steps))
+    busy_us = sum(us for _, us in found.values())
+    n_launch = sum(c for c, _ in found.values())
+    log(f"[simulate] {steps} steps under the profiler: wall {wall:.6f} s, device busy "
+        f"{busy_us / 1e6:.6f} s, idle {100 * (1 - busy_us / 1e6 / wall):.2f} %, "
+        f"{n_launch / steps:.0f} launches a step")
+    runs = steady_calls(lambda: simulate(integ, g, s0, dt=RELEASE_DT, num_steps=RELEASE_STEPS))
+    steady = min(runs)
+    log(f"[simulate] steady wall-clock {steady:.6f} s for {RELEASE_STEPS} steps (min of 3 after "
+        "a warm-up; runs " + ", ".join(f"{r:.6f}" for r in runs) + " s)")
+    del fin, snaps
+    return launches, steady, phase_simulate3(device)
+
+
+def simulate3(device):
+    from na_dd_tpu_torch.core.state import State
+    from na_dd_tpu_torch.harness import simulate
+    from na_dd_tpu_torch.models.coefficients import Model02
+    from na_dd_tpu_torch.models.consts import default_model_consts
+    from na_dd_tpu_torch.three_d.grid import make_uniform_grid3
+    from na_dd_tpu_torch.three_d.harness import make_integrator3
+    import torch
+
+    g = make_uniform_grid3(MAIN_N3, MAIN_N3, MAIN_N3, device=device)
+    bump = (torch.sin(math.pi * g.xx) * torch.sin(math.pi * g.yy) * torch.sin(math.pi * g.zz)
+            ) * g.interior_mask
+    s0 = State(cp=0.2 * bump, T=0.1 * bump, cl=0.0 * bump, cd=0.05 * bump, cs=bump)
+    mc = default_model_consts._replace(gamma_T=1e-2, **THREE_D_CONSTS)
+    integ = Diagnosed(make_integrator3(g, Model02(mc)))
+    fin = simulate(integ, g, s0, dt=1e-3, num_steps=8)[0]
+    return g, fin, integ
+
+
+def phase_simulate3(device):
+    """The 3-D sin bump of tests/test_three_d_model.py at N=64, 8 steps."""
+    import torch
+
+    from na_dd_tpu_torch.ops import kernels
+    from na_dd_tpu_torch.three_d.shifts import LOCAL_OPS3
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    g, fin, integ = simulate3(device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    log(f"[simulate3] N={MAIN_N3}, 8 steps in {wall:.3f} s (first run): launches {launches}")
+    for name in ("bicgstab_solve3", "stencil7_apply"):
+        check(launches[name] == 24, f"simulate3: {name} launched {launches[name]}, not 24")
+    check(integ.all_converged(), "simulate3: a Krylov solve missed its tolerance")
+    check_norms("simulate3", h_norms(LOCAL_OPS3, g, fin), MODELLER_CPU_X64["three_d"]["final_norms"])
+    t0 = time.perf_counter()
+    _g, fin_cpu, _ = simulate3("cpu")
+    worst = max(rel_to_max(a.cpu(), b) for a, b in zip(fin, fin_cpu) if b.abs().max() > 0)
+    log(f"[simulate3] card vs the CPU plain run: worst field rel {worst:.3e} (limit 1e-10; "
+        f"CPU {time.perf_counter() - t0:.1f} s)")
+    check(worst <= 1e-10, "simulate3: the card and the CPU disagree")
+    return launches
+
+
+def phase_adaptive(device):
+    """simulate_adaptive on the release scenario at N=256: the same accepted
+    and rejected steps as CPU-x64, t within 1e-15, the state within 1e-8."""
+    import torch
+
+    from na_dd_tpu_torch.harness import simulate_adaptive
+    from na_dd_tpu_torch.ops import kernels
+    from na_dd_tpu_torch.ops.shifts import LOCAL_OPS
+
+    ref = MODELLER_CPU_X64["adaptive"]
+    check(all(ref[k] == v for k, v in ADAPTIVE.items()), "adaptive: the record's settings")
+    g, s0 = release_setup(RELEASE_N, device)
+    integ = release_integrator(g)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    s, info = simulate_adaptive(integ, g, s0, **ADAPTIVE)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    attempts = info["steps"] + info["rejected"]
+    log(f"[adaptive] {info} in {wall:.3f} s (first run; {attempts} host reads, one an attempt); "
+        f"CPU-x64 {ref['info']}; launches {launches}")
+    check((info["steps"], info["rejected"]) == (ref["info"]["steps"], ref["info"]["rejected"]),
+          "adaptive: accepted/rejected steps differ from CPU-x64 (a decision flipped)")
+    check(abs(info["t"] - ref["info"]["t"]) <= 1e-15, "adaptive: final t off CPU-x64")
+    check(launches["bicgstab_solve"] == 3 * attempts, "adaptive: K1 launches")
+    check_norms("adaptive", h_norms(LOCAL_OPS, g, s), ref["final_norms"])
+    runs = steady_calls(lambda: simulate_adaptive(integ, g, s0, **ADAPTIVE), repeats=2)
+    log(f"[adaptive] steady wall-clock {min(runs):.6f} s (min of 2 after a warm-up)")
+    return launches, min(runs)
+
+
+def phase_checkpoint(device):
+    """run_checkpointed, 40 steps with a checkpoint every 10, then resumed
+    after the last two checkpoints are deleted: both equal the straight
+    simulate() run bit for bit (and simulate() repeats its own bits)."""
+    import shutil
+
+    import torch
+
+    from na_dd_tpu_torch.harness import simulate
+    from na_dd_tpu_torch.harness.checkpoint import latest_checkpoint, run_checkpointed
+    from na_dd_tpu_torch.ops.shifts import LOCAL_OPS
+
+    g, s0 = release_setup(RELEASE_N, device)
+    integ = release_integrator(g)
+    straight = simulate(integ, g, s0, dt=RELEASE_DT, num_steps=RELEASE_STEPS)[0]
+    again = simulate(integ, g, s0, dt=RELEASE_DT, num_steps=RELEASE_STEPS)[0]
+    check(all(torch.equal(a, b) for a, b in zip(straight, again)),
+          "checkpoint: two simulate() runs differ (the kernels are not deterministic)")
+    directory = REPO / "build" / "chip_smoke_checkpoints"
+    shutil.rmtree(directory, ignore_errors=True)
+
+    def step_fn(s, t, dt):
+        return integ.step_fn(g, LOCAL_OPS, s, t, dt)[0]
+
+    t0 = time.perf_counter()
+    s_ck, t_fin = run_checkpointed(step_fn, s0, t0=0.0, dt=RELEASE_DT, num_steps=RELEASE_STEPS,
+                                   directory=str(directory), every=10)
+    wall = time.perf_counter() - t0
+    names = sorted(p.name for p in directory.glob("*.npz"))
+    log(f"[checkpoint] {RELEASE_STEPS} steps, t = {t_fin!r}, in {wall:.3f} s; files {names}")
+    check(len(names) == 4 and abs(t_fin - RELEASE_STEPS * RELEASE_DT) <= 1e-15,
+          "checkpoint: four checkpoints and the final t")
+    check(all(torch.equal(a, b) for a, b in zip(s_ck, straight)),
+          "checkpoint: the checkpointed run is not the straight run bit for bit")
+    for name in names[-2:]:
+        (directory / name).unlink()
+        (directory / f"{name}.meta.json").unlink()
+    check(latest_checkpoint(str(directory)).endswith("ckpt_00000020.npz"), "checkpoint: resume point")
+    s_res, _ = run_checkpointed(step_fn, s0, t0=0.0, dt=RELEASE_DT, num_steps=RELEASE_STEPS,
+                                directory=str(directory), every=10)
+    check(all(torch.equal(a, b) for a, b in zip(s_res, straight)),
+          "checkpoint: the resumed run is not the straight run bit for bit")
+    log("[checkpoint] checkpointed and resumed (from step 20) runs equal simulate() bit for bit")
+    shutil.rmtree(directory, ignore_errors=True)
+    return wall
+
+
+def release_leaves(params, device):
+    import torch
+
+    return {k: torch.tensor(v, dtype=torch.float64, device=device, requires_grad=True)
+            for k, v in params.items()}
+
+
+def five_gradients(g, s0, num_steps, **kw):
+    """The dissolved fraction after ``num_steps`` and its gradient in the
+    five BASE parameters: (value, {key: gradient}, launches, launches on
+    float32 operands)."""
+    import torch
+
+    from na_dd_tpu_torch.harness import build_simulator, dissolved_drug_fraction
+    from na_dd_tpu_torch.ops import kernels
+    from na_dd_tpu_torch.ops.shifts import LOCAL_OPS
+
+    sim = build_simulator(g, dt=RELEASE_DT, num_steps=num_steps, base_consts=release_consts(), **kw)
+    params = release_leaves(RELEASE_BASE, g.device)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    value = dissolved_drug_fraction(LOCAL_OPS, g, sim(params, s0))
+    grads = torch.autograd.grad(value, list(params.values()))
+    launches, launches32 = dict(kernels.LAUNCHES), dict(kernels.LAUNCHES_F32)
+    return float(value.detach()), {k: float(v) for k, v in zip(params, grads)}, launches, launches32
+
+
+def check_gradients(label, value, grads, ref):
+    rel_v = abs(value - ref["value"]) / abs(ref["value"])
+    rels = {k: abs(grads[k] - ref["grads"][k]) / abs(ref["grads"][k]) for k in grads}
+    log(f"[{label}] dissolved {value!r} (rel {rel_v:.3e}); gradients "
+        + ", ".join(f"{k} {grads[k]!r} (rel {rels[k]:.3e})" for k in grads))
+    check(rel_v <= MODELLER_RTOL and max(rels.values()) <= MODELLER_RTOL,
+          f"{label}: off the CPU-x64 gradients")
+
+
+class K1Recorder:
+    """Within a ``with`` block, ``kernels.bicgstab_solve`` keeps every
+    call's iteration count (a device tensor, read after the block) and the
+    operands of its last ``keep`` calls."""
+
+    def __init__(self, keep):
+        self.keep, self.iters, self.last = keep, [], []
+
+    def __enter__(self):
+        from na_dd_tpu_torch.ops import kernels
+
+        self.kernels, self.inner = kernels, kernels.bicgstab_solve
+
+        def recording(st, b, inv_diag, mask, *, tol, iters):
+            x, info = self.inner(st, b, inv_diag, mask, tol=tol, iters=iters)
+            self.iters.append(info["iters"])
+            self.last = (self.last + [(st, b, inv_diag, mask, tol, iters)])[-self.keep:]
+            return x, info
+
+        kernels.bicgstab_solve = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.kernels.bicgstab_solve = self.inner
+
+    def counts(self):
+        return [int(i) for i in self.iters]
+
+
+def split_iterations(counts, solves_a_step, steps):
+    """(forward, recompute, adjoint) K1 iterations of a remat gradient run:
+    the forward's solves, then, step by step backwards, the step's
+    recomputed solves and its adjoint solves."""
+    n, k = solves_a_step * steps, solves_a_step
+    back = counts[n:]
+    recompute = sum(sum(back[j:j + k]) for j in range(0, len(back), 2 * k))
+    adjoint = sum(sum(back[j + k:j + 2 * k]) for j in range(0, len(back), 2 * k))
+    return sum(counts[:n]), recompute, adjoint
+
+
+def check_adjoint(label, operands):
+    """K1 on one adjoint system of a gradient run (transposed planes, the
+    cotangent as rhs) against its plain version (≤1e-12 relative in f64,
+    1e-4 in f32; the same iterations, converged within the budget).
+    Returns (K1's solution, the plain one, the iterations)."""
+    import torch
+
+    from na_dd_tpu_torch.ops import kernels
+
+    st_t, rhs, inv, m, tol, iters = operands
+    xk, ik = kernels.bicgstab_solve(st_t, rhs, inv, m, tol=tol, iters=iters)
+    xp, ip = kernels.bicgstab_solve_plain(st_t, rhs, inv, m, tol=tol, iters=iters)
+    err = rel_to_max(xk, xp)
+    n_it = int(ik["iters"])
+    log(f"[gradients] K1 on the transposed planes, {label}: rel to plain {err:.3e}, iterations "
+        f"{n_it} (plain {int(ip['iters'])}, budget {iters}), converged {bool(ik['converged'])}")
+    check(err <= (1e-12 if rhs.dtype == torch.float64 else 1e-4) and n_it == int(ip["iters"])
+          and bool(ik["converged"]) and bool(ip["converged"]) and n_it < iters,
+          f"adjoint K1 {label}: off its plain version or unconverged")
+    return xk, xp, n_it
+
+
+def adjoint_row(label, operands):
+    """:func:`check_adjoint`, then the timing row of K1 on that system."""
+    from na_dd_tpu_torch.ops import kernels
+
+    xk, xp, n_it = check_adjoint(label, operands)
+    st_t, rhs, inv, m, tol, iters = operands
+    n = rhs.numel()
+
+    def k1():
+        return kernels.bicgstab_solve(st_t, rhs, inv, m, tol=tol, iters=iters)
+
+    row = kernel_row(
+        "bicgstab_solve", rhs.dtype, label=f"{label} ({n_it} iterations)",
+        device_ms=kernel_device_ms(k1, 100, "bicgstab_kernel"), wrapper_ms=time_ms(k1, 300),
+        plain_ms=time_ms(lambda: kernels.bicgstab_solve_plain(st_t, rhs, inv, m, tol=tol,
+                                                               iters=iters), 20),
+        nbytes=9 * n * rhs.element_size(), ops=(2 * 9 + 6 * 2 + 14) * n * max(n_it, 1))
+    row["max_abs_err"] = float((xk - xp).abs().max())
+    return row
+
+
+def phase_gradients(device):
+    """IFT gradients of the dissolved fraction after 40 steps at N=256
+    (full Krylov, krylov_unroll=24, remat): the five BASE parameters and
+    the initial state along a seeded direction against CPU-x64, a central
+    difference in Kd on the card, the adjoint solves checked directly, the
+    launches of one gradient evaluation, its wall-clock and peak memory
+    with and without remat; the mixed and direct configurations at N=64."""
+    import torch
+
+    from na_dd_tpu_torch.core.state import State
+    from na_dd_tpu_torch.harness import build_simulator, dissolved_drug_fraction
+    from na_dd_tpu_torch.ops import kernels
+    from na_dd_tpu_torch.ops.shifts import LOCAL_OPS
+
+    ref = MODELLER_CPU_X64["gradients"]
+    g, s0 = release_setup(RELEASE_N, device)
+    # forward, the recomputation of each step under remat, and the adjoint:
+    # three solves a step in each, each solve one K1 and one K2 launch
+    want = 3 * 3 * RELEASE_STEPS
+    with K1Recorder(keep=3) as rec:
+        value, grads, grad_launches, _ = five_gradients(g, s0, RELEASE_STEPS, krylov_unroll=24,
+                                                        remat=True)
+    fwd_it, rec_it, adj_it = split_iterations(rec.counts(), 3, RELEASE_STEPS)
+    log(f"[gradients] one value-and-grad at N={RELEASE_N}, {RELEASE_STEPS} steps, remat: launches "
+        f"{grad_launches} (predicted K1 {want}, K2 {want}); K1 iterations: forward {fwd_it}, "
+        f"recompute {rec_it}, adjoint {adj_it}")
+    check(rec_it == fwd_it, "gradients: the recomputed solves took other iterations than the forward")
+    adjoint_step1 = rec.last  # the adjoint solves of step 1: cd, cl, T
+    for name in ("bicgstab_solve", "stencil5_apply"):
+        check(grad_launches[name] == want,
+              f"gradients: {name} launched {grad_launches[name]}, not {want}")
+    check_gradients("gradients", value, grads, ref)
+
+    sim = build_simulator(g, dt=RELEASE_DT, num_steps=RELEASE_STEPS, base_consts=release_consts(),
+                          krylov_unroll=24)
+    rng = np.random.default_rng(DIRECTION_SEED)
+    direction = [torch.as_tensor(rng.standard_normal(tuple(g.xx.shape)), device=device)
+                 * g.interior_mask for _ in range(5)]
+    leaves = State(*(u.detach().clone().requires_grad_() for u in s0))
+    grad_s = torch.autograd.grad(dissolved_drug_fraction(LOCAL_OPS, g, sim({}, leaves)), list(leaves))
+    directional = float(sum(torch.sum(a * b) for a, b in zip(grad_s, direction)))
+    rel_s = abs(directional - ref["state_directional"]) / abs(ref["state_directional"])
+    log(f"[gradients] initial-state derivative along the seeded direction {directional!r} "
+        f"(CPU-x64 {ref['state_directional']!r}, rel {rel_s:.3e})")
+    check(rel_s <= MODELLER_RTOL, "gradients: initial-state derivative off CPU-x64")
+
+    kd = RELEASE_BASE["Kd"]
+    h = kd * 1e-5
+    with torch.no_grad():
+        f_p = float(dissolved_drug_fraction(LOCAL_OPS, g, sim({"Kd": kd + h}, s0)))
+        f_m = float(dissolved_drug_fraction(LOCAL_OPS, g, sim({"Kd": kd - h}, s0)))
+    fd = (f_p - f_m) / (2 * h)
+    rel_fd = abs(grads["Kd"] - fd) / abs(fd)
+    log(f"[gradients] central difference in Kd (relative step 1e-5) {fd!r}: AD rel {rel_fd:.3e}")
+    check(rel_fd <= 1e-5, "gradients: the Kd gradient disagrees with its central difference")
+
+    timings = {}
+    for remat in (True, False):
+        sim_r = build_simulator(g, dt=RELEASE_DT, num_steps=RELEASE_STEPS,
+                                base_consts=release_consts(), krylov_unroll=24, remat=remat)
+
+        def value_and_grad():
+            params = release_leaves(RELEASE_BASE, device)
+            v = dissolved_drug_fraction(LOCAL_OPS, g, sim_r(params, s0))
+            return v, torch.autograd.grad(v, list(params.values()))
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        value_and_grad()
+        peak = torch.cuda.max_memory_allocated() - base
+        runs = steady_calls(value_and_grad, repeats=2)
+        timings[remat] = (min(runs), peak)
+        log(f"[gradients] value-and-grad, remat={remat}: {min(runs):.6f} s (min of 2 after a "
+            f"warm-up), peak memory above the inputs {peak / 1e6:.1f} MB")
+
+    def forward():
+        with torch.no_grad():
+            return dissolved_drug_fraction(LOCAL_OPS, g, sim(release_leaves(RELEASE_BASE, device), s0))
+
+    fwd = min(steady_calls(forward, repeats=2))
+    log(f"[gradients] one forward (no grad) {fwd:.6f} s; value-and-grad / forward "
+        f"{timings[True][0] / fwd:.2f} (remat), {timings[False][0] / fwd:.2f} (stored)")
+
+    # all three step-1 adjoints against their plain solves; the T one,
+    # whose row is reported, also timed
+    rows = {}
+    shape = "x".join(str(n) for n in s0.T.shape)
+    cd_adjoint, cl_adjoint, t_adjoint = adjoint_step1
+    for operands, name in ((cd_adjoint, "cd"), (cl_adjoint, "cl")):
+        check_adjoint(f"f64 {shape} step-1 {name} adjoint", operands)
+    rows["adjoint"] = adjoint_row(f"f64 {shape} step-1 T adjoint", t_adjoint)
+    del adjoint_step1, cd_adjoint, cl_adjoint, t_adjoint
+
+    configs = {}
+    for name, kw in (("mixed", dict(precision="mixed", krylov_unroll=24)),
+                     ("direct", dict(linear_solver="direct"))):
+        g64, s64 = release_setup(SMALL_N, device)
+        with K1Recorder(keep=9) as rec:
+            value, grads, launches, launches32 = five_gradients(g64, s64, 10, **kw)
+        if name == "mixed":
+            # the last nine float32 solves: three passes each of the step-1
+            # cd, cl and T adjoints; the T adjoint's first pass solves for the
+            # whole cotangent
+            mixed_t_adjoint = rec.last[-3]
+        log(f"[gradients] {name} at N={SMALL_N}, 10 steps: launches {launches}, float32 "
+            f"{launches32}")
+        ref_cfg = MODELLER_CPU_X64["configs"][name]
+        if name == "mixed":
+            # The K3 gradient (~6e-16) runs through a tiny T adjoint whose
+            # float32 inner solves reach float32's subnormal range.  XLA:CPU
+            # flushes subnormals to zero, so the JAX package's mixed K3 is
+            # 5.2e-8 off the exact value, its direct record; the card keeps
+            # gradual underflow, as the port does on the CPU.  The test
+            # test_mixed_k3_gradient_moves_only_by_float32_underflow shows
+            # the cause at N=12: with the observable scaled by 2**32 the JAX
+            # package's mixed K3 is the port's to 2e-16, and the unscaled
+            # port's to 1.3e-11.  So the card's mixed K3 is held to the
+            # direct record.
+            k3_direct = MODELLER_CPU_X64["configs"]["direct"]["grads"]["K3"]
+            log(f"[gradients mixed] K3 held to the direct record {k3_direct!r} (the mixed record "
+                f"{ref_cfg['grads']['K3']!r} flushed float32 subnormals)")
+            ref_cfg = dict(ref_cfg, grads=dict(ref_cfg["grads"], K3=k3_direct))
+        check_gradients(f"gradients {name}", value, grads, ref_cfg)
+        configs[name] = (launches, launches32)
+    # the mixed gradient: 30 solves in each of forward, recompute and
+    # adjoint, each three float32 K1 passes (refine 2)
+    check(configs["mixed"][1]["bicgstab_solve"] == 3 * 3 * 30,
+          "gradients mixed: float32 K1 launches (270 predicted)")
+    check(configs["direct"][0]["bicgstab_solve"] == 0, "gradients direct: K1 launched")
+    rows["adjoint_f32"] = adjoint_row(
+        f"f32 {SMALL_N + 1}x{SMALL_N + 1} step-1 T adjoint, first pass (mixed)", mixed_t_adjoint)
+    return grad_launches, configs["mixed"][1], timings, fwd, rows
+
+
+def phase_direct(device):
+    """The pol N=256 main level with linear_solver="direct" against CPU-x64;
+    the step-1 BCR solutions against K1's; steady wall-clock in turns with
+    the Krylov level."""
+    import torch
+
+    from na_dd_tpu_torch.ops import kernels
+    from na_dd_tpu_torch.ops.direct_solve import stencil5_solve_direct
+
+    systems, solver = step1_systems(torch.float64, device)
+    for (st, b, mask), name in zip(systems, ("T", "cl", "cd")):
+        x_bcr = stencil5_solve_direct(st, b, mask)
+        x_k1, info = kernels.bicgstab_solve(st, b, jacobi(st, mask), mask, tol=1e-13,
+                                            iters=solver.iters)
+        rel = rel_to_max(x_bcr, x_k1)
+        res = float(torch.linalg.norm((b - kernels.stencil5_apply(st, x_bcr)) * mask)
+                    / torch.linalg.norm(b))
+        log(f"[direct] step-1 {name}: BCR vs K1 rel {rel:.3e} (limit 1e-10), BCR true residual "
+            f"{res:.3e} of |b| (limit 1e-12); K1 {int(info['iters'])} iterations")
+        check(rel <= 1e-10 and res <= 1e-12, f"direct: step-1 {name} BCR solve")
+    st, b, mask = systems[0]
+    bcr_ms = time_ms(lambda: stencil5_solve_direct(st, b, mask), 5)
+    k1_ms = time_ms(lambda: kernels.bicgstab_solve(st, b, jacobi(st, mask), mask, tol=1e-13,
+                                                   iters=solver.iters), 20)
+    log(f"[direct] one BCR solve of the step-1 T system {bcr_ms:.3f} ms against the K1 call "
+        f"{k1_ms:.3f} ms (CUDA events, calls back to back)")
+    del systems, st, b, mask
+
+    trial, dt = make_trial(MAIN_N, torch.float64, device, linear_solver="direct")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    s = trial.run_for_errors(Tf=TF, dt=dt)
+    first = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    err = s.overall_combined_error
+    rel = abs(err - N256_CPU_X64) / N256_CPU_X64
+    log(f"[direct] pol N=256 direct: error {err!r} (CPU-x64 {N256_CPU_X64!r}, rel {rel:.3e}); "
+        f"launches {launches}; first run {first:.3f} s")
+    check(rel <= 1e-8, "direct: the N=256 level off CPU-x64")
+    check(bool(s.series.krylov_converged.all()), "direct: a true-residual verdict failed")
+    check(launches["bicgstab_solve"] == 0 and launches["stencil5_apply"] == 123,
+          "direct: launches (0 K1, 123 K2 for the verdicts)")
+    trial_k, _ = make_trial(MAIN_N, torch.float64, device)
+    err_k = trial_k.run_for_errors(Tf=TF, dt=dt).overall_combined_error
+    runs = steady_in_turns({"direct": (trial, err), "krylov": (trial_k, err_k)}, dt, repeats=2)
+    log(f"[direct] steady wall-clock in turns: direct {min(runs['direct']):.6f} s, Krylov "
+        f"{min(runs['krylov']):.6f} s (min of 2 after a warm-up)")
+    return launches, min(runs["direct"]), min(runs["krylov"]), err
+
+
+def phase_fit(device):
+    """fit_parameters at N=64, 10 steps: Kd 2e-2 → 1e-2 in 25 iterations of
+    Adam (lr 0.2); the loss falls by 1e-2, Kd within 5 %, the first 10
+    losses within 1e-6 of CPU-x64's."""
+    import torch
+
+    from na_dd_tpu_torch.harness import build_simulator, dissolved_drug_fraction, fit_parameters
+    from na_dd_tpu_torch.ops.shifts import LOCAL_OPS
+
+    ref = MODELLER_CPU_X64["fit"]
+    g, s0 = release_setup(SMALL_N, device)
+    sim = build_simulator(g, dt=RELEASE_DT, num_steps=10, base_consts=release_consts(),
+                          krylov_unroll=24)
+
+    def obs(s):
+        return dissolved_drug_fraction(LOCAL_OPS, g, s)
+
+    with torch.no_grad():
+        target = obs(sim({"Kd": 1e-2}, s0))
+    t0 = time.perf_counter()
+    fitted, history = fit_parameters(sim, obs, target, {"Kd": 2e-2}, s0, num_iterations=25,
+                                     learning_rate=0.2)
+    wall = time.perf_counter() - t0
+    worst = max(abs(a - b) / b for a, b in zip(history[:10], ref["history"][:10]))
+    log(f"[fit] {wall:.3f} s for 25 iterations; Kd {fitted['Kd']!r} (CPU-x64 {ref['fitted']['Kd']!r});"
+        f" loss {history[0]:.6e} -> {history[-1]:.6e}; first 10 losses vs CPU-x64 worst rel "
+        f"{worst:.3e} (limit 1e-6)")
+    check(history[-1] < history[0] * 1e-2, "fit: the loss did not fall by 1e-2")
+    check(abs(fitted["Kd"] - 1e-2) <= 0.05 * 1e-2, "fit: Kd not within 5 % of 1e-2")
+    check(worst <= 1e-6, "fit: the first 10 losses off CPU-x64")
+    return wall
+
+
 def ptxas_rows(text: str):
     """(kernel, registers, stack frame bytes, spill store bytes, spill load
     bytes) of each entry function in nvcc's ``-Xptxas -v`` report."""
@@ -2247,7 +2902,8 @@ def demangle(name: str) -> str:
 
 PHASES = ("k2", "k1", "k3", "k4", "slice", "f32", "analytic", "scale", "timings", "profile",
           "k6", "k5", "3d", "3d128", "3d_f32", "timings3", "profile3", "expsin", "golden",
-          "variants3", "production", "mixed3", "timings_mixed")
+          "variants3", "production", "mixed3", "timings_mixed", "simulate", "adaptive",
+          "checkpoint", "gradients", "direct", "fit")
 
 
 def main(argv=None) -> int:
@@ -2321,6 +2977,12 @@ def main(argv=None) -> int:
     phase("production", phase_production, device)
     phase("mixed3", phase_mixed3, device, done["3d"][2] if "3d" in done else None)
     phase("timings_mixed", timings_mixed, device)
+    phase("simulate", phase_simulate, device)
+    phase("adaptive", phase_adaptive, device)
+    phase("checkpoint", phase_checkpoint, device)
+    phase("gradients", phase_gradients, device)
+    phase("direct", phase_direct, device)
+    phase("fit", phase_fit, device)
     if set(only) != set(PHASES):
         log(f"[done] phases {only}; total {time.perf_counter() - t_all:.1f} s (no result line)")
         return 0
@@ -2335,6 +2997,10 @@ def main(argv=None) -> int:
     counts_prod, steady_prod = done["production"]
     launches3_32, steady_m3, err_m3 = done["mixed3"]
     tm = done["timings_mixed"]
+    launches_sim, steady_sim, _ = done["simulate"]
+    _, steady_ad = done["adaptive"]
+    launches_grad, launches_grad32, grad_times, fwd_time, adjoint_rows = done["gradients"]
+    _, steady_direct, steady_krylov, err_direct = done["direct"]
     pk = "na_dd_tpu/ops/pallas_kernels.py"
     entries = []
     # (wrapper, source, TPU kernel, shape, error against the plain version,
@@ -2362,6 +3028,12 @@ def main(argv=None) -> int:
          tm["triple_solve"]["max_abs_err"], counts_prod["mixed fused"][1], tm["triple_solve"]),
         ("bicgstab_solve3", "bicgstab3", f"{pk}:702", "65x65x65 f32 (mixed)",
          tm["bicgstab_solve3"]["max_abs_err"], launches3_32, tm["bicgstab_solve3"]),
+        # the gradients' solves: K1 forward, recomputed and on the
+        # transposed planes, launches of one gradient evaluation
+        ("bicgstab_solve", "bicgstab", f"{pk}:342", "257x257 adjoint (transposed planes)",
+         adjoint_rows["adjoint"]["max_abs_err"], launches_grad, adjoint_rows["adjoint"]),
+        ("bicgstab_solve", "bicgstab", f"{pk}:342", "65x65 f32 adjoint (mixed gradient)",
+         adjoint_rows["adjoint_f32"]["max_abs_err"], launches_grad32, adjoint_rows["adjoint_f32"]),
     ):
         entries.append({
             "name": name, "route": "cuda", "source": f"na_dd_tpu_torch/csrc/{src}.cu",
@@ -2376,7 +3048,11 @@ def main(argv=None) -> int:
         f"{steady3:.6f} s, error {err3!r}; ExpSin N=256 steady {steady_ex:.6f} s, error "
         f"{err_ex!r} (analytic fused {steady_ex_an:.6f} s, error {err_ex_an!r}); production "
         "steady " + ", ".join(f"{k} {v:.6f} s" for k, v in steady_prod.items())
-        + f"; 3-D mixed N=64 steady {steady_m3:.6f} s, error {err_m3!r}; "
+        + f"; 3-D mixed N=64 steady {steady_m3:.6f} s, error {err_m3!r}; release N=256 "
+        f"simulate {steady_sim:.6f} s ({launches_sim['bicgstab_solve']} K1), adaptive "
+        f"{steady_ad:.6f} s, forward {fwd_time:.6f} s, value-and-grad {grad_times[True][0]:.6f} s "
+        f"({launches_grad['bicgstab_solve']} K1); pol N=256 direct {steady_direct:.6f} s against "
+        f"Krylov {steady_krylov:.6f} s, error {err_direct!r}; "
         f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(nvidia_smi_line())

@@ -1,5 +1,6 @@
 """harness (port of na_dd_tpu.harness): MMS trials, error norms and
-convergence rates."""
+convergence rates; the production entry points (simulate, adaptive steps,
+checkpoints) and adjoint gradients with calibration."""
 
 from na_dd_tpu_torch.harness.rates import (
     RateStatus,
@@ -14,6 +15,14 @@ from na_dd_tpu_torch.harness.trial import (
     calculate_combined_error_norm,
     run_simulation_collect_data,
 )
+from na_dd_tpu_torch.harness.simulate import (
+    dissolved_drug_fraction,
+    make_integrator,
+    released_drug_fraction,
+    simulate,
+    simulate_adaptive,
+)
+from na_dd_tpu_torch.harness.gradients import build_simulator, fit_parameters
 
 __all__ = [
     "ErrorTimeSeries",
@@ -25,4 +34,11 @@ __all__ = [
     "calculate_observed_rates",
     "observed_rates_report",
     "report_on_rates",
+    "make_integrator",
+    "dissolved_drug_fraction",
+    "released_drug_fraction",
+    "simulate",
+    "simulate_adaptive",
+    "build_simulator",
+    "fit_parameters",
 ]

@@ -4,6 +4,8 @@ PC-trapezoidal family."""
 from na_dd_tpu_torch.integrators.forward_euler import ForwardEulerIntegrator
 from na_dd_tpu_torch.integrators.pc_trapezoidal import (
     MIXED_INNER_TOL,
+    DirectBackend,
+    DirectMixedBackend,
     HCsCorrectorPositivityError,
     KrylovBackend,
     MixedBackend,
@@ -21,6 +23,8 @@ __all__ = [
     "PCTrapezoidalRegHCsTriple",
     "HCsCorrectorPositivityError",
     "KrylovBackend",
+    "DirectBackend",
+    "DirectMixedBackend",
     "MixedBackend",
     "MIXED_INNER_TOL",
 ]

@@ -14,8 +14,10 @@ wrapper                     replaces (na_dd_tpu/ops/pallas_kernels.py)
 ==========================  ===================================================
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor takes the
-plain version; a CUDA tensor is checked (device, dtype, shape, contiguity)
-and launches the kernel, or the wrapper raises.  There is no fallback from a
+plain version (which autograd traces like any PyTorch code); a CUDA tensor
+is checked (device, dtype, shape, contiguity, and no operand that requires
+grad while autograd records) and launches the kernel, or the wrapper
+raises.  There is no fallback from a
 refused or failed launch to the plain version.  Each launch adds one to its
 wrapper's count in :data:`LAUNCHES` (and, on float32 operands, in
 :data:`LAUNCHES_F32`).
@@ -293,7 +295,16 @@ def _check_launch(lib, code: int, what: str) -> None:
 def _check_operands(what: str, ndim: int, ref: torch.Tensor, *others: torch.Tensor) -> None:
     """Device, dtype, rank (2 for planes, 3 for volumes), shape and
     contiguity of every operand; raises on anything the kernel does not
-    take."""
+    take.  A kernel has no autograd formula and reads raw pointers, so an
+    operand that requires grad while autograd records is refused too:
+    differentiating through a solve is the IFT adjoint's work
+    (:mod:`na_dd_tpu_torch.ops.adjoint`), which calls the kernels on
+    detached tensors."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (ref, *others)):
+        raise RuntimeError(
+            f"{what}: an operand requires grad and the kernel would detach it silently; "
+            "use differentiable=True on the integrator (IFT adjoints), or detach the operands"
+        )
     if ref.device.type != "cuda":
         raise ValueError(f"{what}: tensors must lie on the CPU or a CUDA device; got {ref.device}")
     if ref.dtype not in (torch.float64, torch.float32):

@@ -36,6 +36,21 @@ class Stencil5(NamedTuple):
             + self.cyp * ops.shift_yp(w)
         )
 
+    def transpose(self, ops: Ops) -> "Stencil5":
+        """Planes of Aᵀ, again a 5-point stencil: (Aᵀv)[ij] = c0[ij]v[ij]
+        + cxp[i-1,j]v[i-1,j] + cxm[i+1,j]v[i+1,j] + cyp[i,j-1]v[i,j-1]
+        + cym[i,j+1]v[i,j+1].  Each off-diagonal plane swaps with its
+        partner and shifts by one (zero inflow); the diagonal is unchanged.
+        The adjoint solves (:mod:`na_dd_tpu_torch.ops.adjoint`) run on
+        these planes."""
+        return Stencil5(
+            c0=self.c0,
+            cxm=ops.shift_xm(self.cxp),
+            cxp=ops.shift_xp(self.cxm),
+            cym=ops.shift_ym(self.cyp),
+            cyp=ops.shift_yp(self.cym),
+        )
+
 
 def diffusion_planes(g: Grid, ops: Ops, ax, ay) -> Stencil5:
     """Planes of w ↦ D*_x(ax ⊙ D_{-x} w) + D*_y(ay ⊙ D_{-y} w)."""

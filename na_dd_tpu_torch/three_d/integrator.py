@@ -31,9 +31,22 @@ class ForwardEulerIntegrator3(ForwardEulerIntegrator):
 
 
 class _Newton3Mixin:
-    """Stencil7 Newton planes in place of the 2-D Stencil5 builder."""
+    """Stencil7 Newton planes in place of the 2-D Stencil5 planes.
+
+    ``differentiable=True`` and ``linear_solver="direct"`` are 2-D only in
+    the port (the IFT adjoint takes Stencil5 planes; the 3-D direct solve
+    and 3-D gradients are ROADMAP Queue 1 item 9): both raise here."""
 
     _local_ops = LOCAL_OPS3
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        for option, on in (("differentiable=True", self.differentiable),
+                           ("linear_solver='direct'", self.linear_solver == "direct")):
+            if on:
+                raise NotImplementedError(
+                    f"{option} is not ported to the 3-D integrators (ROADMAP Queue 1 item 9)"
+                )
 
     def _newton_planes(self, g, ops, L, dt):
         return newton_planes3(g, ops, L, dt)

@@ -428,3 +428,104 @@ def test_time_table_run_never_syncs(card, mode):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(packed).all()
+
+
+def _grad_operands(card):
+    """An operand set of every wrapper, one plane of each set requiring
+    grad."""
+    st, b, inv, mask = _system(50, (33, 33), torch.float64, card)
+    st3, b3, inv3, mask3 = _system(51, (9, 9, 9), torch.float64, card)
+    triple = _triple(52, (33, 33), torch.float64, card)
+    leaf = b.clone().requires_grad_()
+    leaf3 = b3.clone().requires_grad_()
+    st_leaf = st._replace(c0=st.c0.clone().requires_grad_())
+    t_leaf = (triple[0]._replace(c0=triple[0].c0.clone().requires_grad_()), *triple[1:])
+    return {
+        "stencil5_apply": lambda: kernels.stencil5_apply(st, leaf),
+        "bicgstab_solve": lambda: kernels.bicgstab_solve(st_leaf, b, inv, mask, tol=1e-13, iters=8),
+        "triple_solve": lambda: kernels.triple_solve(*t_leaf, tol=1e-13, iters=8),
+        "stencil7_apply": lambda: kernels.stencil7_apply(st3, leaf3),
+        "bicgstab_solve3": lambda: kernels.bicgstab_solve3(st3, leaf3, inv3, mask3, tol=1e-13, iters=8),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(kernels.LAUNCHES))
+def test_kernels_refuse_operands_that_require_grad(card, name):
+    """A kernel reads raw pointers: with an operand that requires grad it
+    would return a result with no gradient, where the CPU plain version
+    returns one.  It raises instead (and launches nothing); under no_grad,
+    or on detached operands, it runs."""
+    call = _grad_operands(card)[name]
+    kernels.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="differentiable=True"):
+        call()
+    assert kernels.LAUNCHES[name] == 0
+    with torch.no_grad():
+        call()
+    assert kernels.LAUNCHES[name] == 1
+
+
+def _newton_like_system(seed, n, device):
+    """Random non-symmetric planes with the Newton planes' structure (no
+    coupling into a masked node), a rhs and a cotangent at n × n."""
+    from na_dd_tpu_torch.ops.linsolve import Stencil5
+    from na_dd_tpu_torch.ops.shifts import LOCAL_OPS
+
+    rng = np.random.default_rng(seed)
+    mask = torch.zeros((n, n), dtype=torch.float64)
+    mask[1:-1, 1:-1] = 1.0
+    into = [mask * f(mask) for f in (LOCAL_OPS.shift_xm, LOCAL_OPS.shift_xp,
+                                     LOCAL_OPS.shift_ym, LOCAL_OPS.shift_yp)]
+    planes = [(4.0 + torch.as_tensor(rng.random((n, n)))) * mask] + [
+        torch.as_tensor(rng.standard_normal((n, n))) * m for m in into]
+    b = torch.as_tensor(rng.standard_normal((n, n))) * mask
+    gbar = torch.as_tensor(rng.standard_normal((n, n)))
+    return Stencil5(*(p.to(device) for p in planes)), b.to(device), gbar.to(device), mask.to(device)
+
+
+def test_adjoint_on_the_card_matches_the_cpu(card):
+    """The IFT adjoint of a 65 × 65 solve: K1 forward and K1 on the
+    transposed planes, against the same Function on the CPU plain versions
+    (every gradient within 1e-10 of its max-norm: two solves of 1e-13
+    relative residual, summed in another order)."""
+    from na_dd_tpu_torch.integrators.pc_trapezoidal import KrylovBackend
+    from na_dd_tpu_torch.ops import adjoint
+
+    out = {}
+    for device in ("cpu", card):
+        st, b, gbar, mask = _newton_like_system(60, 65, device)
+        leaves = [p.clone().requires_grad_() for p in (*st, b)]
+        backend = KrylovBackend(iters=40)
+        kernels.reset_launch_counts()
+        x, info = adjoint.plane_solve(lambda s, bb: backend.solve(s, bb, mask), type(st)(*leaves[:5]),
+                                      leaves[5], mask)
+        assert bool(info["converged"])
+        out[device] = (x, torch.autograd.grad(x, leaves, grad_outputs=gbar))
+        launches = dict(kernels.LAUNCHES)
+    assert launches["bicgstab_solve"] == 2  # the forward, and the transposed solve
+    assert_close(out[card][0], out["cpu"][0], 1e-12)
+    for a, b in zip(out[card][1], out["cpu"][1]):
+        assert_close(a, b, 1e-10)
+
+
+def test_simulate_on_the_card_matches_the_cpu(card):
+    """10 steps of the release scenario at N=16 (make_integrator, simulate)
+    on the card against the CPU plain versions: each field within 1e-10 of
+    its max-norm, 30 K1 launches."""
+    from na_dd_tpu_torch.core.state import State
+    from na_dd_tpu_torch.harness import make_integrator, simulate
+    from na_dd_tpu_torch.models.coefficients import Model02
+    from na_dd_tpu_torch.models.consts import default_model_consts
+    from na_dd_tpu_torch.ops.grid import make_uniform_grid
+
+    out = {}
+    for device in ("cpu", card):
+        g = make_uniform_grid(16, 16, device=device)
+        blob = torch.exp(-60.0 * ((g.xx - 0.5) ** 2 + (g.yy - 0.5) ** 2)) * g.interior_mask
+        s0 = State(cp=0.5 * blob, T=0.1 * blob, cl=0.2 * blob, cd=0.05 * blob, cs=blob)
+        integ = make_integrator(g, Model02(default_model_consts._replace(Kd=1e-2)))
+        kernels.reset_launch_counts()
+        out[device] = simulate(integ, g, s0, dt=2e-3, num_steps=10)[0]
+    assert kernels.LAUNCHES["bicgstab_solve"] == 30
+    for a, b in zip(out[card], out["cpu"]):
+        assert_close(a, b, 1e-10)

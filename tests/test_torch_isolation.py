@@ -15,6 +15,8 @@ import torch
 from na_dd_tpu_torch import config
 from na_dd_tpu_torch.convert import grid3_from_nodes, grid_from_nodes, state_from_numpy, tensor_from_numpy
 from na_dd_tpu_torch.harness import studies
+from na_dd_tpu_torch.harness.checkpoint import load_state
+from na_dd_tpu_torch.harness.legacy import run_convergence_studies
 from na_dd_tpu_torch.mms.cases import MMSCasePol
 from na_dd_tpu_torch.models.coefficients import Model02
 from na_dd_tpu_torch.models.consts import STUDY_MODEL_CONSTS
@@ -47,6 +49,10 @@ def test_port_files_were_found():
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
     assert "na_dd_tpu_torch/three_d/harness.py" in names
     assert "na_dd_tpu_torch/harness/studies.py" in names
+    for module in ("simulate", "checkpoint", "gradients", "legacy"):
+        assert f"na_dd_tpu_torch/harness/{module}.py" in names
+    assert "na_dd_tpu_torch/ops/direct_solve.py" in names
+    assert "na_dd_tpu_torch/ops/adjoint.py" in names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -130,6 +136,11 @@ def no_card(monkeypatch):
         lambda: studies.run_spatial_study("pol", levels=1, verbose=False),
         lambda: studies.run_temporal_study("pol", levels=1, verbose=False),
         lambda: studies.run_eta_study("pol", N=4, etas=[50.0], verbose=False),
+        lambda: run_convergence_studies(
+            [(None, None, None, None, "x")],
+            {"Tf": 0.01, "model": None, "N_base_spatial": 2, "num_spatial_refinements": 1,
+             "dt_fixed_spatial": 0.01}),
+        lambda: load_state("never-read"),
     ],
 )
 def test_entry_points_without_a_card_raise(no_card, entry):
