@@ -41,6 +41,14 @@ version on the card, and drives the port's paths:
   gradients through ``build_simulator`` (K1 forward, recomputed and on the
   transposed planes; mixed and direct at N=64), the pol N=256 level with
   ``linear_solver="direct"``, and ``fit_parameters`` at N=64.
+* the batch axis: the pol spatial ladder N=2..256 as one batch of 8 levels
+  padded to 257^2 (``run_spatial_ladder_batched``), the notebook's eta sweep
+  as one batch of 7 (``run_eta_study_batched``), the 3-D ladder N=4..64 as
+  one batch of 5 volumes padded to 65^3 (``run_spatial_ladder3_batched``)
+  and the 3-D eta sweep at N=32 (``run_eta_sweep3``), each against CPU-x64
+  and, where it has one, the serial path on the card, with the batched
+  K1/K2/K5/K6 (one launch a stack) against their batched plain versions
+  and against the unbatched kernels system by system.
 
 It checks the errors against the reference values and the launch counts of
 each path's main level (counts set to 0 just before it, read just after),
@@ -159,6 +167,24 @@ THREE_D_TPU_F32_N32 = 9.11504957912257e-06
 TF3, MAIN_N3 = 0.02, 64
 N128, DT128 = 128, 3.125e-4  # the rate level: 129^3 nodes, 64 steps
 THREE_D_CONSTS = dict(K1=1e-3, K2=1e-3, K3=1e-3, K4=1e-3, Dl_max=1e-5, Kd=1e-2, Sd=1.0, Dd_max=1e-6)
+# The batched sweeps' CPU-x64 values (studies/batched_cpu_x64.py, into
+# studies/results/batched_cpu_x64.json): the pol notebook's cell-13 sweep
+# (N=32, dt=5e-4, Tf=0.01, eta in ETA_LADDER) and the 3-D study's sweep at the
+# ladder's N=32 step (eta = logspace(1, 3, 7), one Newton sweep a step as
+# run_eta_sweep3's integrator makes).
+ETA_BATCHED_CPU_X64 = [
+    2.787588142094822e-07, 2.787588142086098e-07, 2.7875881420842784e-07,
+    2.7875881420839597e-07, 2.7875881420838924e-07, 2.787588142083843e-07,
+    2.787588142083802e-07,
+]
+ETA3 = dict(N=32, Tf=0.02, dt=1.25e-3)
+ETA3_CPU_X64 = [
+    8.412298781497131e-06, 8.412298781475884e-06, 8.412298781474295e-06,
+    8.412298781474214e-06, 8.412298781474215e-06, 8.412298781474215e-06,
+    8.412298781474217e-06,
+]
+BATCH_LEVELS = 8  # the pol ladder N=2..256 as one batch
+BATCH_LEVELS3 = 5  # the 3-D ladder N=4..64 as one batch
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate and the non-tensor
 # f64 / f32 rates.
@@ -2869,6 +2895,458 @@ def phase_fit(device):
     return wall
 
 
+# ---------------------------------------------------------------------------
+# the batch axis: the ladders and the eta sweeps as one batch
+# ---------------------------------------------------------------------------
+def compare_batched_solve(st, b, inv_diag, mask, *, tol, iters, xtol, label):
+    """K1 (planes) or K5 (volumes) on a stack of systems: ONE launch against
+    the batched plain version (each system's iteration count equal, x within
+    ``xtol`` of the plain stack's max-norm) and each system against the
+    unbatched kernel on it alone (equal iterations, x within ``xtol``: the
+    blocks split the sums differently, so not bit for bit).  Returns (max abs
+    error against the plain version, the iteration counts)."""
+    import torch
+
+    from na_dd_tpu_torch.ops import kernels
+
+    planes = b.dim() == 3
+    tag = "k1" if planes else "k5"
+    solve = kernels.bicgstab_solve if planes else kernels.bicgstab_solve3
+    plain = kernels.bicgstab_solve_plain if planes else kernels.bicgstab_solve3_plain
+    name = "bicgstab_solve" if planes else "bicgstab_solve3"
+    before = kernels.LAUNCHES[name]
+    xk, ik = solve(st, b, inv_diag, mask, tol=tol, iters=iters)
+    check(kernels.LAUNCHES[name] == before + 1, f"{label}: a batched solve made more than one launch")
+    xp, ip = plain(st, b, inv_diag, mask, tol=tol, iters=iters)
+    torch.cuda.synchronize()
+    itk, itp = ik["iters"].tolist(), ip["iters"].tolist()
+    rel = rel_to_max(xk, xp)
+    worst_one = 0.0
+    for k in range(b.shape[0]):
+        x1, i1 = solve(type(st)(*(c[k] for c in st)), b[k], inv_diag[k], mask[k], tol=tol,
+                       iters=iters)
+        check(int(i1["iters"]) == itk[k], f"{tag.upper()} {label}: system {k} took "
+              f"{int(i1['iters'])} iterations alone and {itk[k]} in the batch")
+        if float(x1.abs().max()) > 0:
+            worst_one = max(worst_one, rel_to_max(xk[k], x1))
+        else:
+            check(float(xk[k].abs().max()) == 0.0, f"{label}: system {k} should be x = 0")
+    log(f"[{tag} batched] {label}: iters kernel {itk} plain {itp}, max rel diff x {rel:.3e} "
+        f"to the plain stack, {worst_one:.3e} to each system alone (limit {xtol:g})")
+    check(bool(torch.isfinite(xk).all()), f"{tag.upper()} {label}: x not finite")
+    check(itk == itp, f"{tag.upper()} {label}: iteration counts differ")
+    check(rel <= xtol and worst_one <= xtol, f"{tag.upper()} {label}: x disagrees")
+    return float((xk - xp).abs().max()), itk
+
+
+def compare_batched_apply(st, u, *, tol, label):
+    """K2 (planes) or K6 (volumes) on a stack against its plain version."""
+    import torch
+
+    from na_dd_tpu_torch.ops import kernels
+
+    planes = u.dim() == 3
+    apply = kernels.stencil5_apply if planes else kernels.stencil7_apply
+    plain = kernels.stencil5_apply_plain if planes else kernels.stencil7_apply_plain
+    k, p = apply(st, u), plain(st, u)
+    torch.cuda.synchronize()
+    rel = rel_to_max(k, p)
+    tag = "k2" if planes else "k6"
+    log(f"[{tag} batched] {label}: max rel diff {rel:.3e} (limit {tol:g})")
+    check(bool(torch.isfinite(k).all()) and rel <= tol, f"{tag.upper()} {label} disagrees")
+    return float((k - p).abs().max())
+
+
+def batched_edge_cases(device, shapes):
+    """A stack of b = 0 (done at iteration 0), a dominant system that the
+    budget of 3 cuts, and A = c0 I (one iteration), at each shape (grids
+    under one block and ragged ones), float64 and float32."""
+    import torch
+
+    from na_dd_tpu_torch.integrators.pc_trapezoidal import default_krylov_tol
+
+    rng = np.random.default_rng(9)
+    for dtype, xtol in ((torch.float64, 1e-12), (torch.float32, 1e-4)):
+        for shape in shapes:
+            m = np.zeros(shape)
+            m[(slice(1, -1),) * len(shape)] = 1.0
+            mask = torch.as_tensor(m, dtype=dtype, device=device)
+            systems = []
+            for case in ("zero rhs", "dominant", "diagonal"):
+                st, b = random_planes(rng, shape, dtype, device, dominant=True)
+                st, b = type(st)(*(c * mask for c in st)), b * mask
+                if case == "zero rhs":
+                    b = torch.zeros_like(b)
+                elif case == "diagonal":
+                    st = type(st)(st[0], *(torch.zeros_like(c) for c in st[1:]))
+                systems.append((st, b))
+            st = type(systems[0][0])(*(torch.stack(c) for c in zip(*(s for s, _ in systems))))
+            b = torch.stack([b for _, b in systems])
+            masks = mask.expand(3, *shape).contiguous()
+            _, used = compare_batched_solve(
+                st, b, jacobi(st, masks), masks, tol=default_krylov_tol(dtype), iters=3,
+                xtol=xtol, label=f"{str(dtype)[6:]} b=0 / budget-cut / diagonal {shape}")
+            check(used == [0, 3, 1], f"batched edge cases {shape}: iterations {used}, "
+                  "expected [0, 3, 1]")
+
+
+def batched_kernel_checks(systems, iters, label):
+    """The batched solve and apply on a path's step-1 stacks (the T, cl and cd
+    systems of every level): float64 at 1e-12 and float32 at 1e-4 (the solve)
+    and 1e-14 / 1e-6 (the apply).  Returns the float64 solve's and apply's max
+    abs errors against the plain versions."""
+    import torch
+
+    from na_dd_tpu_torch.integrators.pc_trapezoidal import default_krylov_tol
+
+    err_solve = err_apply = 0.0
+    for dtype, xtol, atol in ((torch.float64, 1e-12, 1e-14), (torch.float32, 1e-4, 1e-6)):
+        for name, (st, b, mask) in zip(("T", "cl", "cd"), systems):
+            st_d = type(st)(*(c.to(dtype) for c in st))
+            b_d, mask_d = b.to(dtype), mask.to(dtype)
+            e, _ = compare_batched_solve(st_d, b_d, jacobi(st_d, mask_d), mask_d,
+                                         tol=default_krylov_tol(dtype), iters=iters, xtol=xtol,
+                                         label=f"{str(dtype)[6:]} {label} step-1 {name}")
+            a = compare_batched_apply(st_d, b_d, tol=atol,
+                                      label=f"{str(dtype)[6:]} {label} step-1 {name}")
+            if dtype == torch.float64:
+                err_solve, err_apply = max(err_solve, e), max(err_apply, a)
+    return err_solve, err_apply
+
+
+def batched_step1(build, ops):
+    """The batch's three Newton stacks of its first sweep of step 1, as
+    RecordingSolver keeps them."""
+    import torch
+
+    integ = build["integrator"]
+    rec = integ.solver = RecordingSolver(integ.solver)
+    integ.step_fn(build["grid"], ops, build["state"], torch.zeros_like(build["dt"]), build["dt"])
+    integ.solver = rec.inner
+    return rec.systems[:3], rec.inner.iters
+
+
+def batched_timing_rows(st, b, mask, iters, label):
+    """Timing rows of the batched solve and apply on one step-1 stack:
+    device time, wrapper call, plain version, bound (each input read once,
+    x written; the operations of the iterations each system takes)."""
+    import torch
+
+    from na_dd_tpu_torch.ops import kernels
+
+    planes = b.dim() == 3
+    solve = kernels.bicgstab_solve if planes else kernels.bicgstab_solve3
+    plain = kernels.bicgstab_solve_plain if planes else kernels.bicgstab_solve3_plain
+    apply = kernels.stencil5_apply if planes else kernels.stencil7_apply
+    apply_plain = kernels.stencil5_apply_plain if planes else kernels.stencil7_apply_plain
+    points = 5 if planes else 7
+    inv = jacobi(st, mask)
+    tol = 1e-13
+    used = solve(st, b, inv, mask, tol=tol, iters=iters)[1]["iters"].tolist()
+    n, item = b.numel(), b.element_size()
+    per_point = 2 * points - 1  # operations of one apply at one point
+    sweeps = sum(max(u, 1) for u in used)  # each system's iterations, at least pass A's
+
+    def k_solve():
+        return solve(st, b, inv, mask, tol=tol, iters=iters)
+
+    def k_apply():
+        return apply(st, b)
+
+    name_s = "bicgstab_solve" if planes else "bicgstab_solve3"
+    name_a = "stencil5_apply" if planes else "stencil7_apply"
+    rows = {
+        name_a: kernel_row(
+            name_a, b.dtype, label=label,
+            device_ms=kernel_device_ms(k_apply, 100, f"{name_a}_kernel"),
+            wrapper_ms=time_ms(k_apply, 500),
+            plain_ms=time_ms(lambda: apply_plain(st, b), 50),
+            nbytes=(points + 2) * n * item, ops=per_point * n),
+        name_s: kernel_row(
+            name_s, b.dtype, label=f"{label} (iterations {used})",
+            device_ms=kernel_device_ms(k_solve, 20, "bicgstab_kernel"),
+            wrapper_ms=time_ms(k_solve, 50),
+            plain_ms=time_ms(lambda: plain(st, b, inv, mask, tol=tol, iters=iters), 5),
+            nbytes=(points + 4) * n * item,
+            ops=(2 * per_point + 6 * 2 + 14) * (n // b.shape[0]) * sweeps),
+    }
+    log(f"[time] {name_s} {label}: one launch for {b.shape[0]} systems, iterations {used}")
+    return rows
+
+
+def steady_pair(runs, repeats=3):
+    """``repeats`` wall-clock times of each ``{name: callable}`` (each ends
+    in its own host transfer), after a warm-up of each, in turns."""
+    import torch
+
+    for fn in runs.values():
+        fn()
+    times = {name: [] for name in runs}
+    for _ in range(repeats):
+        for name, fn in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times[name].append(time.perf_counter() - t0)
+    return times
+
+
+def profile_batched(label, run_steps, steps):
+    """``steps`` batched steps under torch.profiler: launches a step and the
+    device's idle share."""
+    wall, found = profile_device(run_steps)
+    busy_us = sum(us for _, us in found.values())
+    launches = sum(c for c, _ in found.values())
+    log(f"[profile] {steps} steps of {label}: wall {wall:.6f} s, device busy "
+        f"{busy_us / 1e6:.6f} s ({100 * busy_us / 1e6 / wall:.2f} %), idle "
+        f"{100 * (1 - busy_us / 1e6 / wall):.2f} %, {launches} kernel launches "
+        f"({launches / steps:.0f} per step)")
+    return launches / steps, 100 * (1 - busy_us / 1e6 / wall)
+
+
+def phase_batched(device):
+    """The pol spatial ladder N=2..256 as ONE batch of 8 levels padded to
+    257^2 (run_spatial_ladder_batched), float64: the batched K1/K2 against
+    their plain versions and against the unbatched kernels on the ladder's
+    step-1 stacks and on edge-case stacks; the main path with its launch
+    counts (the finest level's 41 steps: 123 K1 and 123 K2); every level
+    against CPU-x64 (1e-8) and the port's serial ladder on the card (1e-10);
+    the batched and serial ladders' steady wall-clock in turns; five batched
+    steps under the profiler; the timing rows at 8 x 257^2."""
+    import torch
+
+    from na_dd_tpu_torch.harness.batched_ladder import (
+        build_spatial_ladder_batched,
+        run_spatial_ladder_batched,
+    )
+    from na_dd_tpu_torch.harness.trial import ALL_VARIABLES, DEFAULT_INTEGRAL_VARS, _simulate
+    from na_dd_tpu_torch.ops import kernels
+    from na_dd_tpu_torch.ops.shifts import BATCHED_OPS
+
+    ladder = build_spatial_ladder_batched("pol", levels=BATCH_LEVELS, device=device)
+    systems, iters = batched_step1(ladder, BATCHED_OPS)
+    check(tuple(systems[0][1].shape) == (8, 257, 257), "the ladder's stack should be 8 x 257^2")
+    err_solve, err_apply = batched_kernel_checks(systems, iters, "8x257^2 ladder")
+    batched_edge_cases(device, ((9, 9), (130, 257)))
+
+    # the main path: counts set to 0 just before, read just after
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    res = run_spatial_ladder_batched("pol", levels=BATCH_LEVELS, device=device, verbose=False)
+    launches = dict(kernels.LAUNCHES)
+    nsteps = max(ladder["nsteps"])
+    log(f"[batched] pol ladder N={res['Ns'][0]}..{res['Ns'][-1]} in one batch: {nsteps} steps, "
+        f"launches {launches}, Krylov budget {res['krylov_unroll']}, first run "
+        f"{res['compile_plus_run_s']:.3f} s")
+    check(nsteps == 41, "the batched ladder should run the finest level's 41 steps")
+    for name in ("bicgstab_solve", "stencil5_apply"):
+        check(launches[name] == 3 * nsteps,
+              f"{name} launched {launches[name]} times, expected {3 * nsteps}")
+    for name in ("bicgstab_solve3", "stencil7_apply", "triple_solve"):
+        check(launches[name] == 0, f"the batched 2-D ladder launched {name}")
+
+    # the serial ladder on the card: its trials, built once, then run
+    serial = {N: make_study_trial(N, torch.float64, device) for N in res["Ns"]}
+    serial_err = {N: tr.run_for_errors(Tf=TF, dt=dt).overall_combined_error
+                  for N, (tr, dt) in serial.items()}
+    for N, err in zip(res["Ns"], res["errors"]):
+        ref = POL_SPATIAL_CPU_X64[N]
+        rel_x64, rel_s = abs(err - ref) / ref, abs(err - serial_err[N]) / serial_err[N]
+        log(f"[batched] N={N}: error {err!r}, vs CPU-x64 rel {rel_x64:.3e} (limit 1e-8), vs the "
+            f"serial ladder {serial_err[N]!r} rel {rel_s:.3e} (limit 1e-10)")
+        check(math.isfinite(err) and rel_x64 <= 1e-8, f"batched N={N} off the CPU-x64 value")
+        check(rel_s <= 1e-10, f"batched N={N} off the serial ladder")
+
+    times = steady_pair({
+        "batched": ladder["run"],
+        "serial": lambda: [tr.run_for_errors(Tf=TF, dt=dt) for tr, dt in serial.values()],
+    })
+    steady = {k: min(v) for k, v in times.items()}
+    log("[batched] steady wall-clock in turns (min of 3 after a warm-up): batched ladder "
+        f"{steady['batched']:.6f} s (runs {', '.join(f'{x:.6f}' for x in times['batched'])}), "
+        f"serial ladder {steady['serial']:.6f} s (runs "
+        f"{', '.join(f'{x:.6f}' for x in times['serial'])}); serial / batched "
+        f"{steady['serial'] / steady['batched']:.2f}")
+    del serial
+
+    steps = 5
+    per_step, idle = profile_batched("the batched pol ladder (8 x 257^2)", lambda: _simulate(
+        grid=ladder["grid"], integrator=ladder["integrator"], exact_sol_pack=ladder["case"],
+        exact_stack=None, initial_state=ladder["state"], t0=0.0, dt=ladder["dt"],
+        num_steps=steps, variable_names=ALL_VARIABLES, integral_vars=DEFAULT_INTEGRAL_VARS,
+        ops=BATCHED_OPS, tail_grid=None, nsys=len(ladder["Ns"])).cpu(), steps)
+
+    st, b, mask = systems[0]
+    rows = batched_timing_rows(st, b, mask, iters, "f64 8x257^2 step-1 T")
+    return dict(launches=launches, steady=steady, errors=res["errors"], rows=rows,
+                err_solve=err_solve, err_apply=err_apply, per_step=per_step, idle=idle)
+
+
+def phase_eta_batched(device):
+    """The pol notebook's cell-13 sweep, 7 eta at N=32 and 20 steps, as ONE
+    batch (run_eta_study_batched, which runs it twice as the JAX function
+    does: 60 K1 and 60 K2 a run); every eta against CPU-x64 (1e-8) and the
+    port's serial sweep on the card (1e-10); steady wall-clock against the
+    serial sweep in turns."""
+    import torch
+
+    from na_dd_tpu_torch.harness import studies
+    from na_dd_tpu_torch.mms.cases import MMSCasePol
+    from na_dd_tpu_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    res = studies.run_eta_study_batched("pol", device=device, verbose=False)
+    launches = dict(kernels.LAUNCHES)
+    nsteps = round(res["Tf"] / res["dt"])
+    log(f"[eta batched] {len(res['etas'])} eta at N={res['N']} in one batch: {nsteps} steps, "
+        f"two runs (first {res['wallclock_s'][0]:.3f} s, steady {res['steady_s'][0]:.3f} s), "
+        f"launches {launches}")
+    check(nsteps == 20, "the eta sweep should take 20 steps")
+    for name in ("bicgstab_solve", "stencil5_apply"):
+        check(launches[name] == 2 * 3 * nsteps,
+              f"{name} launched {launches[name]} times, expected 2 runs x {3 * nsteps}")
+
+    cfg, mc = studies.STUDIES["pol"], studies.study_consts("pol")
+    dt = 5e-4  # the sweep's (notebook cell 13)
+    trials = [studies._make_trial(MMSCasePol, 32, eta, mc=mc, dtype=torch.float64, device=device,
+                                  krylov_unroll=studies._study_unroll(cfg, 32, dt, mc))
+              for eta in res["etas"]]
+    serial = [tr.run_for_errors(Tf=0.01, dt=dt).overall_combined_error for tr in trials]
+    for eta, err, ref, s in zip(res["etas"], res["errors"], ETA_BATCHED_CPU_X64, serial):
+        rel_x64, rel_s = abs(err - ref) / ref, abs(err - s) / s
+        log(f"[eta batched] eta={eta:g}: error {err!r}, vs CPU-x64 rel {rel_x64:.3e} (limit "
+            f"1e-8), vs the serial run rel {rel_s:.3e} (limit 1e-10)")
+        check(math.isfinite(err) and rel_x64 <= 1e-8, f"eta={eta} off the CPU-x64 value")
+        check(rel_s <= 1e-10, f"eta={eta} off the serial run")
+
+    sweep = studies.build_eta_study_batched("pol", device=device)
+    times = steady_pair({
+        "batched": sweep["run"],
+        "serial": lambda: [tr.run_for_errors(Tf=0.01, dt=dt) for tr in trials],
+    })
+    steady = {k: min(v) for k, v in times.items()}
+    log(f"[eta batched] steady wall-clock in turns (min of 3): batched {steady['batched']:.6f} s, "
+        f"serial {steady['serial']:.6f} s; serial / batched "
+        f"{steady['serial'] / steady['batched']:.2f}")
+    return dict(launches=launches, steady=steady, errors=res["errors"])
+
+
+def phase_batched3(device):
+    """The 3-D study ladder N=4..64 (ExpSin3, dt = 1e-2/2^k, two Newton sweeps)
+    as ONE batch of 5 levels padded to 65^3 (run_spatial_ladder3_batched):
+    the batched K5/K6 against their plain versions and the unbatched kernels
+    on its step-1 stacks and on edge-case stacks; the main path (the finest
+    level's 32 steps: 192 K5 and 192 K6); every level against CPU-x64 (1e-8),
+    every solve converged; steady wall-clock against the serial run_trial3
+    ladder in turns; five batched steps under the profiler; the timing rows
+    at 5 x 65^3."""
+    import torch
+
+    from na_dd_tpu_torch.models.coefficients import Model02
+    from na_dd_tpu_torch.models.consts import default_model_consts
+    from na_dd_tpu_torch.ops import kernels
+    from na_dd_tpu_torch.three_d.batched_ladder import (
+        build_spatial_ladder3_batched,
+        run_spatial_ladder3_batched,
+    )
+    from na_dd_tpu_torch.three_d.harness import run_trial3
+    from na_dd_tpu_torch.three_d.mms import MMSCaseExpSin3
+    from na_dd_tpu_torch.three_d.shifts import BATCHED_OPS3
+
+    model = Model02(default_model_consts._replace(**THREE_D_CONSTS))
+    kw = dict(model=model, levels=BATCH_LEVELS3, base_N=4, dt0=1e-2, Tf=TF3)
+    ladder = build_spatial_ladder3_batched(MMSCaseExpSin3, device=device, **kw)
+    systems, iters = batched_step1(ladder, BATCHED_OPS3)
+    check(tuple(systems[0][1].shape) == (5, 65, 65, 65), "the 3-D stack should be 5 x 65^3")
+    err_solve, err_apply = batched_kernel_checks(systems, iters, "5x65^3 ladder")
+    batched_edge_cases(device, ((5, 5, 5), (33, 20, 41)))
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    res = run_spatial_ladder3_batched(MMSCaseExpSin3, device=device, verbose=False, **kw)
+    launches = dict(kernels.LAUNCHES)
+    nsteps = max(ladder["nsteps"])
+    log(f"[batched3] ExpSin3 ladder N={res['Ns'][0]}..{res['Ns'][-1]} in one batch: {nsteps} "
+        f"steps, launches {launches}, first run {res['compile_plus_run_s']:.3f} s")
+    check(nsteps == 32, "the batched 3-D ladder should run the finest level's 32 steps")
+    for name in ("bicgstab_solve3", "stencil7_apply"):
+        check(launches[name] == 6 * nsteps,
+              f"{name} launched {launches[name]} times, expected {6 * nsteps}")
+    for name in ("bicgstab_solve", "stencil5_apply", "triple_solve"):
+        check(launches[name] == 0, f"the batched 3-D ladder launched {name}")
+    check(all(res["converged"]), f"batched 3-D ladder: a solve did not converge {res['converged']}")
+    for N, err in zip(res["Ns"], res["errors"]):
+        ref = THREE_D_CPU_X64[N]
+        rel = abs(err - ref) / ref
+        log(f"[batched3] N={N}: error {err!r}, vs CPU-x64 {ref!r} rel {rel:.3e} (limit 1e-8)")
+        check(math.isfinite(err) and rel <= 1e-8, f"batched 3-D N={N} off the CPU-x64 value")
+
+    serial = {N: make_trial3(N, torch.float64, device) for N in res["Ns"]}
+    times = steady_pair({
+        "batched": ladder["run"],
+        "serial": lambda: [run_trial3(g, case, integ, Tf=TF3, dt=dt3(N))
+                           for N, (g, case, integ) in serial.items()],
+    })
+    steady = {k: min(v) for k, v in times.items()}
+    log("[batched3] steady wall-clock in turns (min of 3 after a warm-up): batched ladder "
+        f"{steady['batched']:.6f} s (runs {', '.join(f'{x:.6f}' for x in times['batched'])}), "
+        f"serial run_trial3 ladder {steady['serial']:.6f} s (runs "
+        f"{', '.join(f'{x:.6f}' for x in times['serial'])}); serial / batched "
+        f"{steady['serial'] / steady['batched']:.2f}")
+    del serial
+
+    steps = 5
+    integ, grid, case = ladder["integrator"], ladder["grid"], ladder["case"]
+
+    def five_steps():
+        s = ladder["state"]
+        for k in range(steps):
+            s, _ = integ.step_fn(grid, BATCHED_OPS3, s, k * ladder["dt"], ladder["dt"])
+        return s.T.sum().cpu()
+
+    per_step, idle = profile_batched("the batched 3-D ladder (5 x 65^3)", five_steps, steps)
+    st, b, mask = systems[0]
+    rows = batched_timing_rows(st, b, mask, iters, "f64 5x65^3 step-1 T")
+    return dict(launches=launches, steady=steady, errors=res["errors"], rows=rows,
+                err_solve=err_solve, err_apply=err_apply, per_step=per_step, idle=idle)
+
+
+def phase_eta3(device):
+    """The 3-D study's eta sweep (studies/three_d_study.py --eta-sweep) at the
+    ladder's N=32 step, 7 eta in ONE batch (run_eta_sweep3): every eta
+    against CPU-x64 (1e-8), every solve converged; 16 steps of one Newton
+    sweep, 48 K5 and 48 K6 launches."""
+    import torch
+
+    from na_dd_tpu_torch.models.coefficients import Model02
+    from na_dd_tpu_torch.models.consts import default_model_consts
+    from na_dd_tpu_torch.ops import kernels
+    from na_dd_tpu_torch.three_d.harness import run_eta_sweep3
+    from na_dd_tpu_torch.three_d.mms import MMSCaseExpSin3
+
+    model = Model02(default_model_consts._replace(**THREE_D_CONSTS))
+    etas = [float(e) for e in np.logspace(1, 3, 7)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_eta_sweep3(MMSCaseExpSin3, model=model, etas=etas, device=device, **ETA3)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    nsteps = round(ETA3["Tf"] / ETA3["dt"])
+    log(f"[eta3] {len(etas)} eta at N={ETA3['N']} in one batch: {nsteps} steps in {wall:.3f} s, "
+        f"launches {launches}")
+    for name in ("bicgstab_solve3", "stencil7_apply"):
+        check(launches[name] == 3 * nsteps,
+              f"{name} launched {launches[name]} times, expected {3 * nsteps}")
+    check(all(res["converged"]), f"eta3: a solve did not converge {res['converged']}")
+    for eta, err, ref in zip(res["etas"], res["errors"], ETA3_CPU_X64):
+        rel = abs(err - ref) / ref
+        log(f"[eta3] eta={eta:g}: error {err!r}, vs CPU-x64 rel {rel:.3e} (limit 1e-8)")
+        check(math.isfinite(err) and rel <= 1e-8, f"eta3 eta={eta} off the CPU-x64 value")
+    return dict(launches=launches, wall=wall, errors=res["errors"])
+
+
 def ptxas_rows(text: str):
     """(kernel, registers, stack frame bytes, spill store bytes, spill load
     bytes) of each entry function in nvcc's ``-Xptxas -v`` report."""
@@ -2903,7 +3381,8 @@ def demangle(name: str) -> str:
 PHASES = ("k2", "k1", "k3", "k4", "slice", "f32", "analytic", "scale", "timings", "profile",
           "k6", "k5", "3d", "3d128", "3d_f32", "timings3", "profile3", "expsin", "golden",
           "variants3", "production", "mixed3", "timings_mixed", "simulate", "adaptive",
-          "checkpoint", "gradients", "direct", "fit")
+          "checkpoint", "gradients", "direct", "fit", "batched", "eta_batched", "batched3",
+          "eta3")
 
 
 def main(argv=None) -> int:
@@ -2983,6 +3462,10 @@ def main(argv=None) -> int:
     phase("gradients", phase_gradients, device)
     phase("direct", phase_direct, device)
     phase("fit", phase_fit, device)
+    phase("batched", phase_batched, device)
+    phase("eta_batched", phase_eta_batched, device)
+    phase("batched3", phase_batched3, device)
+    phase("eta3", phase_eta3, device)
     if set(only) != set(PHASES):
         log(f"[done] phases {only}; total {time.perf_counter() - t_all:.1f} s (no result line)")
         return 0
@@ -3001,6 +3484,7 @@ def main(argv=None) -> int:
     _, steady_ad = done["adaptive"]
     launches_grad, launches_grad32, grad_times, fwd_time, adjoint_rows = done["gradients"]
     _, steady_direct, steady_krylov, err_direct = done["direct"]
+    bl, be, bl3, be3 = done["batched"], done["eta_batched"], done["batched3"], done["eta3"]
     pk = "na_dd_tpu/ops/pallas_kernels.py"
     entries = []
     # (wrapper, source, TPU kernel, shape, error against the plain version,
@@ -3034,6 +3518,15 @@ def main(argv=None) -> int:
          adjoint_rows["adjoint"]["max_abs_err"], launches_grad, adjoint_rows["adjoint"]),
         ("bicgstab_solve", "bicgstab", f"{pk}:342", "65x65 f32 adjoint (mixed gradient)",
          adjoint_rows["adjoint_f32"]["max_abs_err"], launches_grad32, adjoint_rows["adjoint_f32"]),
+        # the batch axis: one launch for every level of a ladder
+        ("bicgstab_solve", "bicgstab", f"{pk}:342", "8x257x257 (batched pol ladder)",
+         bl["err_solve"], bl["launches"], bl["rows"]["bicgstab_solve"]),
+        ("stencil5_apply", "stencil5", f"{pk}:523", "8x257x257 (batched pol ladder)",
+         bl["err_apply"], bl["launches"], bl["rows"]["stencil5_apply"]),
+        ("bicgstab_solve3", "bicgstab3", f"{pk}:702", "5x65x65x65 (batched 3-D ladder)",
+         bl3["err_solve"], bl3["launches"], bl3["rows"]["bicgstab_solve3"]),
+        ("stencil7_apply", "stencil7", f"{pk}:615", "5x65x65x65 (batched 3-D ladder)",
+         bl3["err_apply"], bl3["launches"], bl3["rows"]["stencil7_apply"]),
     ):
         entries.append({
             "name": name, "route": "cuda", "source": f"na_dd_tpu_torch/csrc/{src}.cu",
@@ -3052,7 +3545,13 @@ def main(argv=None) -> int:
         f"simulate {steady_sim:.6f} s ({launches_sim['bicgstab_solve']} K1), adaptive "
         f"{steady_ad:.6f} s, forward {fwd_time:.6f} s, value-and-grad {grad_times[True][0]:.6f} s "
         f"({launches_grad['bicgstab_solve']} K1); pol N=256 direct {steady_direct:.6f} s against "
-        f"Krylov {steady_krylov:.6f} s, error {err_direct!r}; "
+        f"Krylov {steady_krylov:.6f} s, error {err_direct!r}; batched pol ladder "
+        f"{bl['steady']['batched']:.6f} s against serial {bl['steady']['serial']:.6f} s "
+        f"({bl['per_step']:.0f} launches a step, idle {bl['idle']:.2f} %); batched eta sweep "
+        f"{be['steady']['batched']:.6f} s against serial {be['steady']['serial']:.6f} s; "
+        f"batched 3-D ladder {bl3['steady']['batched']:.6f} s against serial "
+        f"{bl3['steady']['serial']:.6f} s ({bl3['per_step']:.0f} launches a step, idle "
+        f"{bl3['idle']:.2f} %); 3-D eta sweep {be3['wall']:.6f} s; "
         f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(nvidia_smi_line())

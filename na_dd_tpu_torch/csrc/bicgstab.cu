@@ -17,6 +17,10 @@
 // Measured on the H100 (PERF.md): 12.5 us an iteration, of which ~2.5 us is
 // each barrier, and almost no fixed cost; at the one to three iterations a
 // main-path solve takes, the barriers cost about as much as the streaming.
+//
+// A batch of nsys planes of one shape, one after another in every array (the
+// leading dimension of the wrapper's operands), is solved in the same launch
+// (bicgstab.cuh, Batch); iters_out holds one count a system.
 #include <cuda_runtime.h>
 
 #include "bicgstab.cuh"
@@ -27,11 +31,12 @@ namespace {
 template <typename T>
 int solve(const T* b, const T* c0, const T* cxm, const T* cxp, const T* cym,
           const T* cyp, const T* inv_diag, const T* mask, T* x, int* iters_out,
-          T* work, T* partials, int n0, int n1, int iters, double tol_sq_coef,
-          int blocks, void* stream) {
+          T* work, T* partials, int nsys, int n0, int n1, int iters,
+          double tol_sq_coef, int blocks, void* stream) {
   const Stencil5Op<T> A{c0, cxm, cxp, cym, cyp, n0, n1};
   return bicgstab::launch<T>(A, b, inv_diag, mask, x, iters_out, work,
-                             partials, iters, tol_sq_coef, blocks, stream);
+                             partials, nsys, iters, tol_sq_coef, blocks,
+                             stream);
 }
 
 }  // namespace
@@ -42,33 +47,35 @@ int bicgstab_num_slots() { return bicgstab::kNumSlots; }
 
 int bicgstab_work_planes() { return bicgstab::kWorkArrays; }
 
-int bicgstab_blocks_f64(int n, int* blocks) {
-  return bicgstab::grid_blocks<double, Stencil5Op<double>>(n, blocks);
+int bicgstab_max_batch() { return bicgstab::kMaxBatch; }
+
+int bicgstab_blocks_f64(int n, int nsys, int* blocks) {
+  return bicgstab::grid_blocks<double, Stencil5Op<double>>(n, nsys, blocks);
 }
 
-int bicgstab_blocks_f32(int n, int* blocks) {
-  return bicgstab::grid_blocks<float, Stencil5Op<float>>(n, blocks);
+int bicgstab_blocks_f32(int n, int nsys, int* blocks) {
+  return bicgstab::grid_blocks<float, Stencil5Op<float>>(n, nsys, blocks);
 }
 
 int bicgstab_solve_f64(const double* b, const double* c0, const double* cxm,
                        const double* cxp, const double* cym, const double* cyp,
                        const double* inv_diag, const double* mask, double* x,
-                       int* iters_out, double* work, double* partials, int n0,
-                       int n1, int iters, double tol_sq_coef, int blocks,
-                       void* stream) {
+                       int* iters_out, double* work, double* partials,
+                       int nsys, int n0, int n1, int iters, double tol_sq_coef,
+                       int blocks, void* stream) {
   return solve<double>(b, c0, cxm, cxp, cym, cyp, inv_diag, mask, x, iters_out,
-                       work, partials, n0, n1, iters, tol_sq_coef, blocks,
-                       stream);
+                       work, partials, nsys, n0, n1, iters, tol_sq_coef,
+                       blocks, stream);
 }
 
 int bicgstab_solve_f32(const float* b, const float* c0, const float* cxm,
                        const float* cxp, const float* cym, const float* cyp,
                        const float* inv_diag, const float* mask, float* x,
-                       int* iters_out, float* work, float* partials, int n0,
-                       int n1, int iters, double tol_sq_coef, int blocks,
-                       void* stream) {
+                       int* iters_out, float* work, float* partials, int nsys,
+                       int n0, int n1, int iters, double tol_sq_coef,
+                       int blocks, void* stream) {
   return solve<float>(b, c0, cxm, cxp, cym, cyp, inv_diag, mask, x, iters_out,
-                      work, partials, n0, n1, iters, tol_sq_coef, blocks,
+                      work, partials, nsys, n0, n1, iters, tol_sq_coef, blocks,
                       stream);
 }
 

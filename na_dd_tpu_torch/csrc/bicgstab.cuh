@@ -5,7 +5,8 @@
 // launch); the operator supplies size() and apply_of(u, k), the stencil at
 // flat index k of the values a callable u gives, with zero inflow.  The solve
 // itself is the __device__ function solve() of a cooperative grid;
-// bicgstab_kernel wraps one call of it.
+// bicgstab_kernel wraps one call of it, on one system or on a batch of
+// systems (K1 and K5), and K4 calls it three times on one system.
 //
 // It computes exactly _bicgstab_inline of na_dd_tpu/ops/pallas_kernels.py
 // (:83) with x0 = 0: the masked-early-exit update of bicgstab_unrolled,
@@ -61,6 +62,19 @@
 // The partials are still read through L2.
 // Scratch (seven working arrays and the partials) is allocated by the
 // caller.
+//
+// Batch (the leading dimension that jax.vmap of the TPU kernel gives): one
+// cooperative launch solves nsys systems of equal size, each on its own
+// contiguous share of the blocks (Share), grid-stride over its own points,
+// so each block still writes one partial a slot.  After each barrier warp 0
+// of every block sums the partials grouped by system (system_totals: the
+// same loads as one system's), so every block holds every system's scalars
+// and `done`; a done system's blocks skip their passes and meet every
+// barrier, and the loop ends when the last system is done or the budget is
+// spent.  Each system's arithmetic is that of the solve of one system on
+// its share of the grid.  A batch of one launches the solve of one system
+// itself (bicgstab_kernel).  The batch is bounded by kMaxBatch (the shared
+// totals) and by the co-resident blocks, at least one a system.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -74,10 +88,28 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kWorkArrays = 7;
 constexpr int kMaxSlotsPerBarrier = 3;
+constexpr int kBatchSlotsPerBarrier = 4;  // solve_batched's pass C
+constexpr int kMaxBatch = 32;  // systems in one launch of bicgstab_kernel
 
 // Dot-product slots in the partials array (slot * gridDim.x + block); the
-// slots one barrier sums are adjacent.
-enum Slot { kRhatV = 0, kBB, kSS, kTS, kTT, kRR, kRhatR, kNumSlots };
+// slots one barrier sums are adjacent.  kLast and kTolSq are the batched
+// solve's per-system flags (see solve_batched).
+enum Slot {
+  kRhatV = 0, kBB, kSS, kTS, kTT, kRR, kRhatR, kLast, kTolSq, kNumSlots
+};
+
+// The blocks of a batched launch: system `sys` of the `nsys` owns the `per`
+// consecutive blocks from sys * per (gridDim.x = nsys * per).
+struct Share {
+  int nsys;
+  int sys;
+  int per;
+
+  __device__ static Share of(int nsys) {
+    const int per = static_cast<int>(gridDim.x) / nsys;
+    return Share{nsys, static_cast<int>(blockIdx.x) / per, per};
+  }
+};
 
 // The seven working arrays of a solve and the dot-product partials.
 template <typename T>
@@ -88,6 +120,12 @@ struct Work {
   T* t;
   T* x;  // the unmasked iterate, kept while another iteration may follow
   T* partials;  // kNumSlots * gridDim.x
+
+  // The same arrays from point `off` on (one system of a batch).
+  __device__ Work offset(size_t off) const {
+    return Work{r + off, {p[0] + off, p[1] + off}, {v[0] + off, v[1] + off},
+                t + off, x + off, partials};
+  }
 };
 
 // `work` holds the seven working arrays of n points each.
@@ -118,8 +156,9 @@ struct Params {
   const T* inv_diag;
   const T* mask;
   T* x;
-  int* iters_out;
+  int* iters_out;  // one a system
   Work<T> W;
+  int nsys;  // systems, one after another in every array
   int iters;
   double tol_sq_coef;  // tol * tol, cast to T in the kernel
 };
@@ -198,6 +237,36 @@ __device__ __forceinline__ void grid_totals(const T* partials, int first,
   __syncthreads();
 #pragma unroll
   for (int s = 0; s < kS; ++s) out[s] = bcast[s];
+}
+
+// Totals of slots first .. first + kS - 1 over each system's blocks
+// (Share), into bcast[q * kS + s] for system q; each in one fixed order, so
+// every block gets bit-identical values.  One loop serves all kS slots, so
+// their loads are in flight together.  `bcast` holds sh.nsys * kS values.
+template <int kS, typename T>
+__device__ __forceinline__ void system_totals(const T* partials, int first,
+                                              const Share& sh, T* bcast) {
+  if (threadIdx.x < 32) {
+    const int g = gridDim.x;
+    for (int q = 0; q < sh.nsys; ++q) {
+      T acc[kS];
+#pragma unroll
+      for (int s = 0; s < kS; ++s) acc[s] = T(0);
+      const int end = (q + 1) * sh.per;
+#pragma unroll 4
+      for (int k = q * sh.per + threadIdx.x; k < end; k += 32) {
+#pragma unroll
+        for (int s = 0; s < kS; ++s)
+          acc[s] += __ldcg(partials + (first + s) * g + k);
+      }
+#pragma unroll
+      for (int s = 0; s < kS; ++s) {
+        acc[s] = warp_sum(acc[s]);
+        if (threadIdx.x == 0) bcast[q * kS + s] = acc[s];
+      }
+    }
+  }
+  __syncthreads();
 }
 
 // A value of an array that this launch writes, or may write (see above): a
@@ -385,25 +454,221 @@ __device__ __forceinline__ Result<T> solve(cg::grid_group& grid, const Op& A,
   return Result<T>{used, rr, tol_sq};
 }
 
-template <typename T, class Op>
-__global__ void __launch_bounds__(kThreads) bicgstab_kernel(Params<T, Op> P) {
-  cg::grid_group grid = cg::this_grid();
-  __shared__ T red[kMaxSlotsPerBarrier * kWarps];
-  __shared__ T bcast[kMaxSlotsPerBarrier];
-  const Result<T> res =
-      solve<T, Op>(grid, P.A, ArrayRhs<T>{P.b}, P.inv_diag, P.mask, P.x, P.W,
-                   P.iters, P.tol_sq_coef, red, bcast);
-  if (blockIdx.x == 0 && threadIdx.x == 0) *P.iters_out = res.used;
+// The solve of `solve` on a batch: the grid solves sh.nsys systems at once,
+// each on the sh.per blocks that Share gives it, and A, B, inv_diag, mask, x
+// and W are the calling block's own system's.  Every block sums the partials
+// of every system (system_totals), and pass C also reports, per system,
+// whether this iteration was its last (slot kLast) and its tol_sq (slot
+// kTolSq), so every block sees every system's `done` and all leave the loop
+// together, when the last system is done.  A done system's blocks skip their
+// passes but meet every barrier; its x, iteration count and r.r stay as they
+// were.  Each system's arithmetic is that of `solve` on its share of the
+// grid (the same passes, written out again so that the single-system solve
+// keeps its own registers: see bicgstab_kernel).  `red` holds
+// kBatchSlotsPerBarrier * kWarps values, `bcast` kMaxBatch *
+// kBatchSlotsPerBarrier.
+template <typename T, class Op, class Rhs>
+__device__ __forceinline__ Result<T> solve_batched(
+    cg::grid_group& grid, const Op& A, const Rhs& B, const T* inv_diag_in,
+    const T* mask_in, T* x, const Work<T>& W, int iters, double tol_sq_coef,
+    T* red, T* bcast, const Share& sh) {
+  const int n = A.size();
+  const int stride = sh.per * kThreads;
+  const int first =
+      (static_cast<int>(blockIdx.x) - sh.sys * sh.per) * kThreads + threadIdx.x;
+  const T* __restrict__ inv_diag = inv_diag_in;
+  const T* __restrict__ mask = mask_in;
+
+  // Iteration 0, pass A: x0 = 0 gives r = r^ = b, p = v = 0, and
+  // p' = b + beta (0 - 1 * 0) = b + 0 bit for bit.  Its barrier also brings
+  // b.b, hence tol_sq and `done` at the start.
+  {
+    T* Pn = W.p[1];
+    T* Vn = W.v[1];
+    T acc[2] = {T(0), T(0)};  // r^.v', b.b
+    const auto phat = [&](int j) {
+      return (B.first(j) + T(0)) * __ldg(inv_diag + j);
+    };
+    for (int k = first; k < n; k += stride) {
+      const T bk = B.own(k);
+      Pn[k] = bk + T(0);
+      const T vk = A.apply_of(phat, k);
+      Vn[k] = vk;
+      acc[0] += bk * vk;
+      acc[1] += bk * bk;
+    }
+    store_partials(acc, W.partials, kRhatV, red);
+  }
+  grid.sync();
+  system_totals<2>(W.partials, kRhatV, sh, bcast);
+  const T* b = B.stored();
+  T rv = bcast[2 * sh.sys];
+  const T bb = bcast[2 * sh.sys + 1];
+  const T tol_sq = static_cast<T>(tol_sq_coef) * bb;
+  T rr = bb;      // r.r
+  T rhat_r = bb;  // r^.r
+  bool active = !(rr <= tol_sq || iters <= 0);
+  if (!active) {
+    for (int k = first; k < n; k += stride) x[k] = T(0) * __ldg(mask + k);
+  }
+  bool any = false;
+  for (int q = 0; q < sh.nsys; ++q) {
+    const T bq = bcast[2 * q + 1];
+    any |= !(bq <= static_cast<T>(tol_sq_coef) * bq || iters <= 0);
+  }
+  if (!any) return Result<T>{0, rr, tol_sq};
+  T rho = T(1), alpha = T(1), omega = T(1);
+  int used = 0;
+
+  for (int it = 0;; ++it) {
+    const int end = active ? n : 0;  // a done system runs no pass
+    const T* r = it == 0 ? b : W.r;  // r of the last iteration
+    const T* Pc = W.p[it & 1];
+    const T* Vc = W.v[it & 1];
+    T* Pn = W.p[(it + 1) & 1];
+    T* Vn = W.v[(it + 1) & 1];
+    const T rho1 = rhat_r;
+    bool ok1 = true, ok2 = true, ok3, ok4;  // iteration 0: rho = omega = 1
+
+    if (it > 0) {
+      // pass A: p' stored; v' = A D^-1 p' with p' recomputed at neighbours
+      const T ratio = safe_div(rho1, rho, &ok1);
+      const T aw = safe_div(alpha, omega, &ok2);
+      const T beta = ratio * aw;
+      const auto phat = [&](int j) {
+        return next_p(ld(r, j), ld(Pc, j), ld(Vc, j), beta, omega) *
+               __ldg(inv_diag + j);
+      };
+      T acc[1] = {T(0)};  // r^.v'
+      for (int k = first; k < end; k += stride) {
+        Pn[k] = next_p(ld(r, k), ld(Pc, k), ld(Vc, k), beta, omega);
+        const T vk = A.apply_of(phat, k);
+        Vn[k] = vk;
+        acc[0] += ld(b, k) * vk;
+      }
+      store_partials(acc, W.partials, kRhatV, red);
+      grid.sync();
+      system_totals<1>(W.partials, kRhatV, sh, bcast);
+      rv = bcast[sh.sys];
+    }
+    const T alpha_new = safe_div(rho1, rv, &ok3);
+
+    // pass B: t = A D^-1 s, with s recomputed at every point it is read
+    {
+      const auto shat = [&](int j) {
+        return next_s(ld(r, j), ld(Vn, j), alpha_new) * __ldg(inv_diag + j);
+      };
+      T acc[3] = {T(0), T(0), T(0)};  // s.s, t.s, t.t
+      for (int k = first; k < end; k += stride) {
+        const T tk = A.apply_of(shat, k);
+        W.t[k] = tk;
+        const T sk = next_s(ld(r, k), ld(Vn, k), alpha_new);
+        acc[0] += sk * sk;
+        acc[1] += tk * sk;
+        acc[2] += tk * tk;
+      }
+      store_partials(acc, W.partials, kSS, red);
+    }
+    grid.sync();
+    system_totals<3>(W.partials, kSS, sh, bcast);
+    const T* sts = bcast + 3 * sh.sys;  // s.s, t.s, t.t
+    const bool s_conv = sts[0] <= tol_sq;
+    const T omega_new = safe_div(sts[1], sts[2], &ok4);
+    const bool breakdown = !(ok1 && ok2 && ok3 && ok4);
+    const bool last = s_conv || breakdown || it + 1 >= iters;
+
+    // pass C: x and r at the own point; x * mask into the output
+    constexpr int kC = kBatchSlotsPerBarrier;
+    {
+      T acc[kC] = {T(0), T(0), T(0), T(0)};  // r.r, r^.r, last, tol_sq
+      for (int k = first; k < end; k += stride) {
+        const T sk = next_s(ld(r, k), ld(Vn, k), alpha_new);
+        const T ik = __ldg(inv_diag + k);
+        const T x_old = it == 0 ? T(0) : ld(W.x, k);
+        const T x_half = x_old + alpha_new * (ld(Pn, k) * ik);
+        T xk, rk;
+        if (s_conv) {
+          xk = x_half;
+          rk = sk;
+        } else {
+          xk = x_half + omega_new * (sk * ik);
+          rk = sk - omega_new * ld(W.t, k);
+        }
+        x[k] = xk * __ldg(mask + k);
+        if (!last) W.x[k] = xk;
+        W.r[k] = rk;
+        acc[0] += rk * rk;
+        acc[1] += ld(b, k) * rk;
+      }
+      // one thread a block reports its system's flag, the system's first
+      // block its tol_sq: the block sums carry them exactly
+      if (threadIdx.x == 0) {
+        acc[2] = (last || !active) ? T(1) : T(0);
+        acc[3] = first == 0 ? tol_sq : T(0);
+      }
+      store_partials(acc, W.partials, kRR, red);
+    }
+    grid.sync();
+    system_totals<kC>(W.partials, kRR, sh, bcast);
+    if (active) {
+      rr = bcast[kC * sh.sys];
+      rhat_r = bcast[kC * sh.sys + 1];
+      rho = rho1;
+      alpha = alpha_new;
+      omega = omega_new;
+      ++used;
+      active = !(last || rr <= tol_sq);
+    }
+    any = false;
+    for (int q = 0; q < sh.nsys; ++q) {
+      const T* c = bcast + kC * q;  // r.r, r^.r, last, tol_sq
+      any |= !(c[2] > T(0) || c[0] <= c[3]);
+    }
+    if (!any) break;
+  }
+  return Result<T>{used, rr, tol_sq};
 }
 
-// Cooperative grid size of `kernel` for n points: the blocks that can be
-// co-resident, capped by the blocks n needs at `points` a thread.  On the
+// kBatched: one system of a batch per share of the grid (Share), the arrays
+// holding the nsys systems one after another, n points each (solve_batched).
+// Otherwise the one system on the whole grid (solve): a batch of one
+// launches that instantiation (launch), since the batched one spends
+// registers on the batch's bookkeeping (PERF.md, Findings: one system
+// through it was 29 % slower in K1 at 257^2 and took a smaller grid in K5).
+template <typename T, class Op, bool kBatched>
+__global__ void __launch_bounds__(kThreads) bicgstab_kernel(Params<T, Op> P) {
+  cg::grid_group grid = cg::this_grid();
+  constexpr int kSlots = kBatched ? kBatchSlotsPerBarrier : kMaxSlotsPerBarrier;
+  __shared__ T red[kSlots * kWarps];
+  __shared__ T bcast[(kBatched ? kMaxBatch : 1) * kSlots];
+  if constexpr (kBatched) {
+    const Share sh = Share::of(P.nsys);
+    const size_t off = static_cast<size_t>(sh.sys) * P.A.size();
+    const Result<T> res = solve_batched<T, Op, ArrayRhs<T>>(
+        grid, P.A.offset(off), ArrayRhs<T>{P.b + off}, P.inv_diag + off,
+        P.mask + off, P.x + off, P.W.offset(off), P.iters, P.tol_sq_coef, red,
+        bcast, sh);
+    if (blockIdx.x == sh.sys * sh.per && threadIdx.x == 0)
+      P.iters_out[sh.sys] = res.used;
+  } else {
+    const Result<T> res =
+        solve<T, Op>(grid, P.A, ArrayRhs<T>{P.b}, P.inv_diag, P.mask, P.x,
+                     P.W, P.iters, P.tol_sq_coef, red, bcast);
+    if (blockIdx.x == 0 && threadIdx.x == 0) *P.iters_out = res.used;
+  }
+}
+
+// Cooperative grid size of `kernel` for nsys systems of n points each: for
+// each system the blocks that can be co-resident divided among the systems,
+// capped by the blocks n needs at `points` a thread (so with nsys = 1 the
+// co-resident blocks capped by n's).  On the
 // H100, at one point a thread, this rule was within 5 % of the best of 1
 // block a SM, 2 a SM and itself at every main-path shape of K1 and K5, in
 // f64 and f32, and up to 1.9x faster than 1 a SM where the points fill the
 // card (PERF.md, Findings).
 template <class Kernel>
-int grid_blocks_of(Kernel kernel, int n, int* blocks, int points = 1) {
+int grid_blocks_of(Kernel kernel, int n, int* blocks, int points = 1,
+                   int nsys = 1) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -418,15 +683,19 @@ int grid_blocks_of(Kernel kernel, int n, int* blocks, int points = 1) {
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
                                                     0);
   if (e != cudaSuccess) return static_cast<int>(e);
+  if (nsys < 1 || nsys > kMaxBatch)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int need = (n + kThreads * points - 1) / (kThreads * points);
-  const int cap = per_sm * sms;
-  *blocks = need < cap ? need : cap;
+  const int cap = per_sm * sms / nsys;
+  if (cap < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  *blocks = (need < cap ? need : cap) * nsys;
   return static_cast<int>(cudaSuccess);
 }
 
 template <typename T, class Op>
-int grid_blocks(int n, int* blocks) {
-  return grid_blocks_of(bicgstab_kernel<T, Op>, n, blocks);
+int grid_blocks(int n, int nsys, int* blocks) {
+  if (nsys == 1) return grid_blocks_of(bicgstab_kernel<T, Op, false>, n, blocks);
+  return grid_blocks_of(bicgstab_kernel<T, Op, true>, n, blocks, 1, nsys);
 }
 
 // One cooperative launch of `kernel` on its one argument `params`.
@@ -440,21 +709,30 @@ int launch_cooperative(Kernel kernel, P& params, int blocks, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// `work` holds the seven working arrays of A.size() points each.
+// nsys systems of A.size() points each, one after another in b, inv_diag,
+// mask, x and A's coefficient arrays; `work` holds the seven working arrays
+// of nsys * A.size() points each, `iters_out` nsys counts.  `blocks` is a
+// multiple of nsys (grid_blocks).
 template <typename T, class Op>
 int launch(const Op& A, const T* b, const T* inv_diag, const T* mask, T* x,
-           int* iters_out, T* work, T* partials, int iters,
+           int* iters_out, T* work, T* partials, int nsys, int iters,
            double tol_sq_coef, int blocks, void* stream) {
-  Params<T, Op> P{A,
-                  b,
-                  inv_diag,
-                  mask,
-                  x,
-                  iters_out,
-                  make_work(work, static_cast<size_t>(A.size()), partials),
-                  iters,
-                  tol_sq_coef};
-  return launch_cooperative(bicgstab_kernel<T, Op>, P, blocks, stream);
+  if (nsys < 1 || nsys > kMaxBatch || blocks % nsys != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params<T, Op> P{
+      A,
+      b,
+      inv_diag,
+      mask,
+      x,
+      iters_out,
+      make_work(work, static_cast<size_t>(nsys) * A.size(), partials),
+      nsys,
+      iters,
+      tol_sq_coef};
+  if (nsys == 1)
+    return launch_cooperative(bicgstab_kernel<T, Op, false>, P, blocks, stream);
+  return launch_cooperative(bicgstab_kernel<T, Op, true>, P, blocks, stream);
 }
 
 }  // namespace bicgstab

@@ -25,6 +25,10 @@
 // Each input must come from device memory once per solve: 11 volumes (b,
 // seven coefficients, inv_diag, mask, and x written), 24.2 MB at N=64 and
 // 188.9 MB at N=128.
+//
+// A batch of nsys volumes of one shape, one after another in every array (the
+// leading dimension of the wrapper's operands), is solved in the same launch
+// (bicgstab.cuh, Batch); iters_out holds one count a system.
 #include <cuda_runtime.h>
 
 #include "bicgstab.cuh"
@@ -49,6 +53,14 @@ struct Stencil7Op {
 
   __host__ __device__ int size() const { return n0 * n1 * n2; }
 
+  // The operator of the volume `off` points further on (a batch's next
+  // system).
+  __device__ Stencil7Op offset(size_t off) const {
+    return Stencil7Op{c0 + off,  cxm + off, cxp + off, cym + off,
+                      cyp + off, czm + off, czp + off, n0,
+                      n1,        n2};
+  }
+
   template <class U>
   __device__ __forceinline__ T apply_of(U u, int k) const {
     return stencil7_of<T>(u, c0, cxm, cxp, cym, cyp, czm, czp, k, n0, n1, n2);
@@ -58,12 +70,13 @@ struct Stencil7Op {
 template <typename T>
 int solve(const T* b, const T* c0, const T* cxm, const T* cxp, const T* cym,
           const T* cyp, const T* czm, const T* czp, const T* inv_diag,
-          const T* mask, T* x, int* iters_out, T* work, T* partials, int n0,
-          int n1, int n2, int iters, double tol_sq_coef, int blocks,
+          const T* mask, T* x, int* iters_out, T* work, T* partials, int nsys,
+          int n0, int n1, int n2, int iters, double tol_sq_coef, int blocks,
           void* stream) {
   const Stencil7Op<T> A{c0, cxm, cxp, cym, cyp, czm, czp, n0, n1, n2};
   return bicgstab::launch<T>(A, b, inv_diag, mask, x, iters_out, work,
-                             partials, iters, tol_sq_coef, blocks, stream);
+                             partials, nsys, iters, tol_sq_coef, blocks,
+                             stream);
 }
 
 }  // namespace
@@ -74,12 +87,14 @@ int bicgstab3_num_slots() { return bicgstab::kNumSlots; }
 
 int bicgstab3_work_volumes() { return bicgstab::kWorkArrays; }
 
-int bicgstab3_blocks_f64(int n, int* blocks) {
-  return bicgstab::grid_blocks<double, Stencil7Op<double>>(n, blocks);
+int bicgstab3_max_batch() { return bicgstab::kMaxBatch; }
+
+int bicgstab3_blocks_f64(int n, int nsys, int* blocks) {
+  return bicgstab::grid_blocks<double, Stencil7Op<double>>(n, nsys, blocks);
 }
 
-int bicgstab3_blocks_f32(int n, int* blocks) {
-  return bicgstab::grid_blocks<float, Stencil7Op<float>>(n, blocks);
+int bicgstab3_blocks_f32(int n, int nsys, int* blocks) {
+  return bicgstab::grid_blocks<float, Stencil7Op<float>>(n, nsys, blocks);
 }
 
 int bicgstab3_solve_f64(const double* b, const double* c0, const double* cxm,
@@ -87,11 +102,11 @@ int bicgstab3_solve_f64(const double* b, const double* c0, const double* cxm,
                         const double* cyp, const double* czm,
                         const double* czp, const double* inv_diag,
                         const double* mask, double* x, int* iters_out,
-                        double* work, double* partials, int n0, int n1, int n2,
-                        int iters, double tol_sq_coef, int blocks,
-                        void* stream) {
+                        double* work, double* partials, int nsys, int n0,
+                        int n1, int n2, int iters, double tol_sq_coef,
+                        int blocks, void* stream) {
   return solve<double>(b, c0, cxm, cxp, cym, cyp, czm, czp, inv_diag, mask, x,
-                       iters_out, work, partials, n0, n1, n2, iters,
+                       iters_out, work, partials, nsys, n0, n1, n2, iters,
                        tol_sq_coef, blocks, stream);
 }
 
@@ -99,11 +114,11 @@ int bicgstab3_solve_f32(const float* b, const float* c0, const float* cxm,
                         const float* cxp, const float* cym, const float* cyp,
                         const float* czm, const float* czp,
                         const float* inv_diag, const float* mask, float* x,
-                        int* iters_out, float* work, float* partials, int n0,
-                        int n1, int n2, int iters, double tol_sq_coef,
+                        int* iters_out, float* work, float* partials, int nsys,
+                        int n0, int n1, int n2, int iters, double tol_sq_coef,
                         int blocks, void* stream) {
   return solve<float>(b, c0, cxm, cxp, cym, cyp, czm, czp, inv_diag, mask, x,
-                      iters_out, work, partials, n0, n1, n2, iters,
+                      iters_out, work, partials, nsys, n0, n1, n2, iters,
                       tol_sq_coef, blocks, stream);
 }
 

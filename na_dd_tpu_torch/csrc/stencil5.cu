@@ -17,6 +17,10 @@
 // per thread and the four edges read zero inflow.  Nothing is staged in
 // shared memory: a plane never fits one SM here, and the reuse of u is only
 // 5x, which the caches already capture.
+//
+// Batch: a stack of nb planes (the leading dimension jax.vmap gives) in one
+// launch, blockIdx.z the plane; each plane is offset on its own and has its
+// own zero inflow, so no row of one plane reads a row of the next.
 #include <cuda_runtime.h>
 
 #include "stencil5.cuh"
@@ -35,15 +39,18 @@ __global__ void __launch_bounds__(kBlockX* kBlockY)
   const int j = blockIdx.x * kBlockX + threadIdx.x;
   const int i = blockIdx.y * kBlockY + threadIdx.y;
   if (i >= n0 || j >= n1) return;
-  out[i * n1 + j] =
-      stencil5_at<T, false>(u, c0, cxm, cxp, cym, cyp, i, j, n0, n1);
+  const size_t off = static_cast<size_t>(blockIdx.z) * n0 * n1;
+  out[off + i * n1 + j] =
+      stencil5_at<T, false>(u + off, c0 + off, cxm + off, cxp + off,
+                            cym + off, cyp + off, i, j, n0, n1);
 }
 
 template <typename T>
 int launch(const T* u, const T* c0, const T* cxm, const T* cxp, const T* cym,
-           const T* cyp, T* out, int n0, int n1, void* stream) {
+           const T* cyp, T* out, int nb, int n0, int n1, void* stream) {
   const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((n1 + kBlockX - 1) / kBlockX, (n0 + kBlockY - 1) / kBlockY);
+  const dim3 grid((n1 + kBlockX - 1) / kBlockX, (n0 + kBlockY - 1) / kBlockY,
+                  nb);
   stencil5_apply_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       u, c0, cxm, cxp, cym, cyp, out, n0, n1);
   return static_cast<int>(cudaGetLastError());
@@ -55,14 +62,14 @@ extern "C" {
 
 int stencil5_apply_f64(const double* u, const double* c0, const double* cxm,
                        const double* cxp, const double* cym, const double* cyp,
-                       double* out, int n0, int n1, void* stream) {
-  return launch<double>(u, c0, cxm, cxp, cym, cyp, out, n0, n1, stream);
+                       double* out, int nb, int n0, int n1, void* stream) {
+  return launch<double>(u, c0, cxm, cxp, cym, cyp, out, nb, n0, n1, stream);
 }
 
 int stencil5_apply_f32(const float* u, const float* c0, const float* cxm,
                        const float* cxp, const float* cym, const float* cyp,
-                       float* out, int n0, int n1, void* stream) {
-  return launch<float>(u, c0, cxm, cxp, cym, cyp, out, n0, n1, stream);
+                       float* out, int nb, int n0, int n1, void* stream) {
+  return launch<float>(u, c0, cxm, cxp, cym, cyp, out, nb, n0, n1, stream);
 }
 
 const char* error_string(int code) {

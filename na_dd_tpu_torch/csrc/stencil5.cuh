@@ -71,6 +71,13 @@ struct Stencil5Op {
 
   __host__ __device__ int size() const { return n0 * n1; }
 
+  // The operator of the plane `off` points further on (a batch's next
+  // system).
+  __device__ Stencil5Op offset(size_t off) const {
+    return Stencil5Op{c0 + off, cxm + off, cxp + off, cym + off, cyp + off,
+                      n0, n1};
+  }
+
   template <class U>
   __device__ __forceinline__ T apply_of(U u, int k) const {
     const int i = k / n1;

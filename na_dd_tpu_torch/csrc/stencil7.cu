@@ -23,6 +23,10 @@
 // that neighbouring warps and blocks load.  The faces read zero inflow by
 // index.  Nothing is staged in shared memory: the reuse of u is 7x, which
 // the caches capture, and the coefficients are read once.
+//
+// Batch: a stack of nb volumes (the leading dimension jax.vmap gives) in one
+// launch, blockIdx.y the volume; each volume is offset on its own and has
+// its own zero inflow, so no face of one volume reads the next.
 #include <cuda_runtime.h>
 
 #include "stencil7.cuh"
@@ -40,16 +44,18 @@ __global__ void __launch_bounds__(kThreads) stencil7_apply_kernel(
     int n0, int n1, int n2) {
   const int k = blockIdx.x * kThreads + threadIdx.x;
   if (k >= n0 * n1 * n2) return;
-  out[k] = stencil7_at<T, false>(u, c0, cxm, cxp, cym, cyp, czm, czp, k, n0,
-                                 n1, n2);
+  const size_t off = static_cast<size_t>(blockIdx.y) * n0 * n1 * n2;
+  out[off + k] = stencil7_at<T, false>(u + off, c0 + off, cxm + off, cxp + off,
+                                       cym + off, cyp + off, czm + off,
+                                       czp + off, k, n0, n1, n2);
 }
 
 template <typename T>
 int launch(const T* u, const T* c0, const T* cxm, const T* cxp, const T* cym,
-           const T* cyp, const T* czm, const T* czp, T* out, int n0, int n1,
-           int n2, void* stream) {
+           const T* cyp, const T* czm, const T* czp, T* out, int nb, int n0,
+           int n1, int n2, void* stream) {
   const int n = n0 * n1 * n2;
-  const int blocks = (n + kThreads - 1) / kThreads;
+  const dim3 blocks((n + kThreads - 1) / kThreads, nb);
   stencil7_apply_kernel<T>
       <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
           u, c0, cxm, cxp, cym, cyp, czm, czp, out, n0, n1, n2);
@@ -63,17 +69,17 @@ extern "C" {
 int stencil7_apply_f64(const double* u, const double* c0, const double* cxm,
                        const double* cxp, const double* cym, const double* cyp,
                        const double* czm, const double* czp, double* out,
-                       int n0, int n1, int n2, void* stream) {
-  return launch<double>(u, c0, cxm, cxp, cym, cyp, czm, czp, out, n0, n1, n2,
-                        stream);
+                       int nb, int n0, int n1, int n2, void* stream) {
+  return launch<double>(u, c0, cxm, cxp, cym, cyp, czm, czp, out, nb, n0, n1,
+                        n2, stream);
 }
 
 int stencil7_apply_f32(const float* u, const float* c0, const float* cxm,
                        const float* cxp, const float* cym, const float* cyp,
-                       const float* czm, const float* czp, float* out, int n0,
-                       int n1, int n2, void* stream) {
-  return launch<float>(u, c0, cxm, cxp, cym, cyp, czm, czp, out, n0, n1, n2,
-                       stream);
+                       const float* czm, const float* czp, float* out, int nb,
+                       int n0, int n1, int n2, void* stream) {
+  return launch<float>(u, c0, cxm, cxp, cym, cyp, czm, czp, out, nb, n0, n1,
+                       n2, stream);
 }
 
 const char* error_string(int code) {

@@ -1,6 +1,7 @@
 """harness (port of na_dd_tpu.harness): MMS trials, error norms and
-convergence rates; the production entry points (simulate, adaptive steps,
-checkpoints) and adjoint gradients with calibration."""
+convergence rates; the spatial ladder as one batch of levels; the
+production entry points (simulate, adaptive steps, checkpoints) and adjoint
+gradients with calibration."""
 
 from na_dd_tpu_torch.harness.rates import (
     RateStatus,
@@ -15,6 +16,7 @@ from na_dd_tpu_torch.harness.trial import (
     calculate_combined_error_norm,
     run_simulation_collect_data,
 )
+from na_dd_tpu_torch.harness.batched_ladder import pad_grid, pad_state, run_spatial_ladder_batched
 from na_dd_tpu_torch.harness.simulate import (
     dissolved_drug_fraction,
     make_integrator,
@@ -30,6 +32,9 @@ __all__ = [
     "calculate_combined_error_norm",
     "NumericalErrorSummary",
     "MMSTrial",
+    "pad_grid",
+    "pad_state",
+    "run_spatial_ladder_batched",
     "RateStatus",
     "calculate_observed_rates",
     "observed_rates_report",

@@ -12,7 +12,10 @@ Same protocols, constants and error functional as the JAX package, with the
 wall-clock of each level.  Every run is one :class:`MMSTrial` on the card
 unless the caller passes ``device="cpu"``.  Results are plain dicts.  The
 JAX package's compile-sharing options (``parallel_compile``,
-``shared_compile``) have no counterpart in an eager loop.
+``shared_compile``) have no counterpart in an eager loop.  The batched
+forms, every level or every η in one batch, are
+:func:`na_dd_tpu_torch.harness.batched_ladder.run_spatial_ladder_batched`
+and :func:`run_eta_study_batched`.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ from __future__ import annotations
 import math
 import time
 from typing import Dict, List, Optional
+
+import torch
 
 from na_dd_tpu_torch.core.fields import FieldRegHCsTriple
 from na_dd_tpu_torch.core.forcing import MMSForcingRegHCsTriple
@@ -333,4 +338,124 @@ def run_eta_study(
         etas=list(etas),
         errors=errors,
         wallclock_s=times,
+    )
+
+
+def build_eta_study_batched(
+    study: str,
+    *,
+    N: int = 32,
+    dt: float = 5e-4,
+    Tf: float = 0.01,
+    etas: Optional[List[float]] = None,
+    dtype=None,
+    device=None,
+) -> dict:
+    """Everything the batched η sweep runs, built once: ``etas``, the
+    adjusted ``dt`` and ``num_steps``, the Krylov ``budget``, the shared
+    ``grid``, the stacked initial ``state``, the ``case`` and
+    ``integrator`` (η an (E, 1, 1) tensor), and ``run()``, which runs the
+    whole sweep and returns its norms and diagnostics on the host after the
+    run's one transfer (the packing of
+    :func:`na_dd_tpu_torch.harness.trial._simulate`)."""
+    from na_dd_tpu_torch.harness.batched_ladder import stack_states
+    from na_dd_tpu_torch.harness.trial import ALL_VARIABLES, DEFAULT_INTEGRAL_VARS, _simulate
+    from na_dd_tpu_torch.mms.engine import state_from_mms_when
+    from na_dd_tpu_torch.ops.shifts import BATCHED_OPS
+
+    cfg = STUDIES[study]
+    mc = study_consts(study)
+    etas = list(etas or ETA_LADDER)
+    grid = make_uniform_grid(N, N, dtype=dtype, device=device)
+    model = Model02(mc)
+    case = cfg["case_cls"](grid=grid, model=model)
+    s0 = state_from_mms_when(mms_case=case, t=0.0, grid=grid)
+    num_steps = math.ceil(Tf / dt)
+    dt_adj = Tf / num_steps
+    unroll = _study_unroll(cfg, N, dt_adj, mc)
+
+    eta = torch.tensor(etas, dtype=grid.dtype, device=grid.device).reshape(-1, 1, 1)
+    forcing = MMSForcingRegHCsTriple(mms_case=case, model=model, regularization_factor=eta)
+    field = FieldRegHCsTriple(grid=grid, model=model, forcing=forcing, regularization_factor=eta)
+    integ = PCTrapezoidalRegHCsTriple(
+        field, regularization_factor=eta, track_residuals=False, krylov_unroll=unroll
+    )
+    states = stack_states([s0] * len(etas))
+
+    def run():
+        # the run's only host transfer
+        return _simulate(
+            grid=grid, integrator=integ, exact_sol_pack=case, exact_stack=None,
+            initial_state=states, t0=0.0, dt=dt_adj, num_steps=num_steps,
+            variable_names=ALL_VARIABLES, integral_vars=DEFAULT_INTEGRAL_VARS,
+            ops=BATCHED_OPS, tail_grid=None, nsys=len(etas),
+        ).cpu().numpy()
+
+    return dict(etas=etas, dt=dt_adj, num_steps=num_steps, budget=unroll, grid=grid,
+                state=states, case=case, integrator=integ, run=run)
+
+
+def run_eta_study_batched(
+    study: str,
+    *,
+    N: int = 32,
+    dt: float = 5e-4,
+    Tf: float = 0.01,
+    etas: Optional[List[float]] = None,
+    verbose: bool = True,
+    dtype=None,
+    device=None,
+) -> dict:
+    """Notebook cell 13's sweep with every η in one batch (the JAX package
+    vmaps it; the reference loops serially).
+
+    One shared grid; η rides as an (E, 1, 1) tensor through the field, the
+    forcing and the corrector, the state is the stack of the E runs', and
+    each Newton solve is one launch of the batched kernel for all E.  The
+    masked early exits of the solve and of the pointwise Newton make every
+    η's run the serial one's up to the order of the kernel's sums.  Runs
+    twice, as the JAX function does: ``wallclock_s`` the first run,
+    ``steady_s`` the second.  On the card unless ``device="cpu"``.
+    """
+    from na_dd_tpu_torch.harness.trial import (
+        ALL_VARIABLES,
+        DEFAULT_INTEGRAL_VARS,
+        NumericalErrorSummary,
+        _error_series,
+        _unpack,
+    )
+
+    sweep = build_eta_study_batched(
+        study, N=N, dt=dt, Tf=Tf, etas=etas, dtype=dtype, device=device
+    )
+    etas, dt_adj, num_steps = sweep["etas"], sweep["dt"], sweep["num_steps"]
+    t0 = time.perf_counter()
+    packed = sweep["run"]()
+    elapsed = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sweep["run"]()
+    steady = time.perf_counter() - t0
+
+    mats, diags = _unpack(packed, len(ALL_VARIABLES), num_steps, len(etas))
+    errors = []
+    for i, eta_i in enumerate(etas):
+        series = _error_series(mats[..., i], diags[..., i], ALL_VARIABLES, 0.0, dt_adj)
+        summary = NumericalErrorSummary(
+            dt_adj, series, list(ALL_VARIABLES), list(DEFAULT_INTEGRAL_VARS)
+        )
+        errors.append(summary.overall_combined_error)
+        if verbose:
+            print(f"  [eta-batched {study}] eta={eta_i:7.1f} err={errors[-1]:.6e}")
+    if verbose:
+        print(f"  [eta-batched {study}] total wall-clock {elapsed:.2f}s for {len(etas)} runs")
+    return dict(
+        study=study,
+        kind="eta_batched",
+        N=N,
+        dt=dt_adj,
+        Tf=Tf,
+        etas=etas,
+        errors=errors,
+        wallclock_s=[elapsed],
+        steady_s=[steady],
     )

@@ -68,7 +68,8 @@ def _error_norms(
     g: Grid, ops: Ops, s: State, exact: State, variable_names, integral_vars,
     tail_grid: Optional[Grid] = None,
 ):
-    """Squared error norms of ``s`` against ``exact``, as 0-d tensors.
+    """Squared error norms of ``s`` against ``exact``, as 0-d tensors (on a
+    batch of states with a batched ops provider, one each a system, (B, 1, 1)).
 
     ``tail_grid``: a downcast copy of ``g`` (:func:`_tail_grid`).  With it
     the error ``s − exact`` is still formed in the working dtype (a
@@ -90,7 +91,7 @@ def _error_norms(
                     (ey * ey * gt.w_hp).to(err.dtype)
                 )
             else:
-                grad_sq[var] = torch.zeros((), dtype=err.dtype, device=err.device)
+                grad_sq[var] = torch.zeros_like(h_sq[var])
             continue
         h_sq[var] = inner_products.inner_H(ops, g, err, err)
         if var in integral_vars:
@@ -99,7 +100,7 @@ def _error_norms(
             ex, ey = gx_n - gx_e, gy_n - gy_e
             grad_sq[var] = inner_products.inner_p(ops, g, ex, ey, ex, ey)
         else:
-            grad_sq[var] = torch.zeros((), dtype=err.dtype, device=err.device)
+            grad_sq[var] = torch.zeros_like(h_sq[var])
     return h_sq, grad_sq
 
 
@@ -188,16 +189,22 @@ def _tabled_run(*, grid, integrator, exact_sol_pack, ops, t0, dt, num_steps):
 
 
 def _simulate(*, grid, integrator, exact_sol_pack, exact_stack, initial_state, t0, dt,
-              num_steps, variable_names, integral_vars, ops, tail_grid):
+              num_steps, variable_names, integral_vars, ops, tail_grid, nsys=1):
     """The time loop of :func:`run_simulation_collect_data`, on the device:
     ``num_steps`` steps from ``initial_state`` with the error norms after
     each (against ``exact_stack[k]`` where the time tables are given, else
     the MMS case at t_k), packed into one float64 tensor — the squared H
-    and gradient norms, (2·vars, num_steps+1), then the diagnostics
-    [hcs_ok, converged, resnorm_sq, iters], (4, num_steps).  Never
+    and gradient norms, (2·vars, num_steps+1, nsys), then the diagnostics
+    [hcs_ok, converged, resnorm_sq, iters], (4, num_steps, nsys), one column
+    a system of a batch (``nsys`` systems: a batched state, ops provider
+    and ``dt``; see :mod:`na_dd_tpu_torch.harness.batched_ladder`).  Never
     synchronises with the host."""
     dtype, device = grid.dtype, grid.device
     ks = torch.arange(num_steps, dtype=dtype, device=device)
+
+    def column(v):
+        """A value of one system, or one a system, as (nsys,)."""
+        return v.reshape(-1).expand(nsys)
 
     def norms_row(s, t, k):
         """Error norms of the state after k steps, at time t."""
@@ -222,11 +229,52 @@ def _simulate(*, grid, integrator, exact_sol_pack, exact_stack, initial_state, t
         s, diag = _step_with_diagnostics(integrator, grid, ops, s, t_k, dt)
         rows.append(norms_row(s, t_k + dt, k + 1))
         small.append(diag)
-    norms = torch.stack([torch.stack(r) for r in rows], dim=1).to(torch.float64)
+    norms = torch.stack(
+        [torch.stack([column(v) for v in r]) for r in rows], dim=1
+    ).to(torch.float64)
     diags = torch.stack(
-        [torch.stack([v.to(torch.float64) for v in r]) for r in small], dim=1
+        [torch.stack([column(v.to(torch.float64)) for v in r]) for r in small], dim=1
     )
     return torch.cat([norms.reshape(-1), diags.reshape(-1)])
+
+
+def _unpack(packed: np.ndarray, nv: int, num_steps: int, nsys: int = 1):
+    """(norms (2·nv, num_steps+1, nsys), diagnostics (4, num_steps, nsys))
+    of a :func:`_simulate` result on the host."""
+    n_norms = 2 * nv * (num_steps + 1) * nsys
+    return (
+        packed[:n_norms].reshape(2 * nv, num_steps + 1, nsys),
+        packed[n_norms:].reshape(4, num_steps, nsys),
+    )
+
+
+def _error_series(mats, diags, variable_names, t0: float, dt: float) -> ErrorTimeSeries:
+    """One system's :class:`ErrorTimeSeries` from its norms (2·nv, K+1) and
+    diagnostics (4, K); raises :class:`HCsCorrectorPositivityError` if a
+    step lost the HCs corrector's positivity, and warns if a Krylov solve
+    missed its tolerance."""
+    nv = len(variable_names)
+    num_steps = diags.shape[1]
+    hcs_ok, converged, resnorm_sq, iters = diags
+    if not bool(np.all(hcs_ok > 0.5)):
+        raise HCsCorrectorPositivityError(
+            "Denominator 2 - dt Kd (Sd - Cd1) (1 + Cl1) below positiveness threshold."
+        )
+    n_unconverged = int(np.sum(converged < 0.5))
+    if n_unconverged:
+        warnings.warn(
+            f"{n_unconverged}/{num_steps} steps had a Krylov solve that missed "
+            f"its tolerance (worst resnorm_sq {float(np.max(resnorm_sq)):.3e}); "
+            "increase krylov_unroll.",
+            stacklevel=3,
+        )
+    return ErrorTimeSeries(
+        t=t0 + dt * np.arange(num_steps + 1),
+        h_norm_sq_errors={v: mats[i] for i, v in enumerate(variable_names)},
+        grad_h_norm_p_sq_errors={v: mats[nv + i] for i, v in enumerate(variable_names)},
+        krylov_iters=iters.astype(np.int64),
+        krylov_converged=converged > 0.5,
+    )
 
 
 def run_simulation_collect_data(
@@ -277,33 +325,8 @@ def run_simulation_collect_data(
         num_steps=num_steps, variable_names=variable_names, integral_vars=integral_vars,
         ops=ops, tail_grid=_tail_grid(grid, torch.float32) if collect_tail else None,
     ).cpu().numpy()
-    nv = len(variable_names)
-    n_norms = 2 * nv * (num_steps + 1)
-    mats = packed[:n_norms].reshape(2 * nv, num_steps + 1)
-    hcs_ok, converged, resnorm_sq, iters = packed[n_norms:].reshape(4, num_steps)
-
-    if not bool(np.all(hcs_ok > 0.5)):
-        raise HCsCorrectorPositivityError(
-            "Denominator 2 - dt Kd (Sd - Cd1) (1 + Cl1) below positiveness threshold."
-        )
-    n_unconverged = int(np.sum(converged < 0.5))
-    if n_unconverged:
-        warnings.warn(
-            f"{n_unconverged}/{num_steps} steps had a Krylov solve that missed "
-            f"its tolerance (worst resnorm_sq {float(np.max(resnorm_sq)):.3e}); "
-            "increase krylov_unroll.",
-            stacklevel=2,
-        )
-
-    ts = t0 + dt_adj * np.arange(num_steps + 1)
-    series = ErrorTimeSeries(
-        t=ts,
-        h_norm_sq_errors={v: mats[i] for i, v in enumerate(variable_names)},
-        grad_h_norm_p_sq_errors={v: mats[nv + i] for i, v in enumerate(variable_names)},
-        krylov_iters=iters.astype(np.int64),
-        krylov_converged=converged > 0.5,
-    )
-    return series, dt_adj
+    mats, diags = _unpack(packed, len(variable_names), num_steps)
+    return _error_series(mats[..., 0], diags[..., 0], variable_names, t0, dt_adj), dt_adj
 
 
 def calculate_combined_error_norm(

@@ -47,6 +47,16 @@ such switch (its wrappers pick the kernel by the tensor's device), so
 (the fused kernel is 2-D only, as in the JAX package), takes three separate
 solves with the coupling planes applied between them.
 
+The step also takes a leading batch dimension, the written-out counterpart
+of ``jax.vmap`` over (grid, state, dt) or over η: a stack of states (B, ...)
+with a stack of grids or one shared grid, ``t0``/``dt`` and the
+regularization factor as (B, 1, 1) tensors, and a batched ops provider
+(:class:`~na_dd_tpu_torch.ops.shifts.BatchedOps`), whose reductions give
+each system its own Krylov verdict, positivity flag and Newton early exit.
+Each Newton solve is then one launch of the batched kernel for all B
+systems; the fused triple solve takes one system, so a batch with analytic
+couplings takes the per-solve route.
+
 The step is dimension-agnostic: the
 3-D integrators (:mod:`na_dd_tpu_torch.three_d.integrator`) override only
 :meth:`PCTrapezoidalBase._newton_planes` and the ops provider of the eager
@@ -140,6 +150,7 @@ class KrylovBackend:
         ``noise_sq`` (the rhs's squared rounding floor) is for the backends
         that judge a true residual; this one's kernel judges its own."""
         bicgstab, _ = self._kernels(st)
+        st, rhs, mask = _one_shape(st, rhs, mask)
         x, info = bicgstab(
             st, rhs * mask, self._inv_diag(st, mask), mask,
             tol=default_krylov_tol(rhs.dtype), iters=self.iters,
@@ -168,14 +179,35 @@ class KrylovBackend:
         return dT, dcl, dcd, infos
 
 
-def _true_verdict(r, b, iters, noise_sq):
-    """The verdict of a solve judged by its true residual ``r = (b − A·x)·m``:
+def _ndim(st) -> int:
+    """Spatial dimensions of a stencil's systems: 3 for Stencil7, else 2."""
+    return 3 if isinstance(st, Stencil7) else 2
+
+
+def _one_shape(st, rhs, mask):
+    """The planes, rhs and mask of a solve at one shape, as the kernels take
+    them: where the solve is a batch (B, ...) and an operand is one
+    system's (the planes of a grid shared by the batch, such as η sweeps
+    have), that operand is expanded to the batch."""
+    shape = torch.broadcast_shapes(rhs.shape, mask.shape, *(p.shape for p in st))
+    if len(shape) == _ndim(st):
+        return st, rhs, mask
+
+    def full(t):
+        return t if t.shape == shape else t.expand(shape).contiguous()
+
+    return type(st)(*(full(p) for p in st)), full(rhs), full(mask)
+
+
+def _true_verdict(r, b, iters, noise_sq, nd=2):
+    """The verdict of a solve judged by its true residual ``r = (b − A·x)·m``
+    (``nd`` spatial dimensions; per system of a batch):
     ``resnorm_sq ≤ max(tol²·‖b‖², noise_sq)`` with tol the dtype's
     :func:`default_krylov_tol` and ``noise_sq`` the rhs's squared rounding
     floor."""
-    rsq = torch.sum(r * r)
+    rsq = kernels.system_sum(r * r, nd)
     tol = default_krylov_tol(b.dtype)
-    floor = torch.clamp_min(tol * tol * torch.sum(b * b), noise_sq)
+    floor = torch.clamp_min(tol * tol * kernels.system_sum(b * b, nd), noise_sq)
     return {"iters": iters, "resnorm_sq": rsq, "converged": rsq <= floor}
 
 
@@ -190,6 +222,8 @@ class DirectBackend:
 
     def solve(self, st, rhs, mask, noise_sq=0.0):
         b = rhs * mask
+        if b.dim() != 2:
+            raise ValueError("DirectBackend: one system of planes; a batch takes the Krylov solver")
         x = direct_solve.stencil5_solve_direct(st, b, mask)
         one = torch.ones((), dtype=torch.int32, device=b.device)
         return x, _true_verdict((b - kernels.stencil5_apply(st, x)) * mask, b, one, noise_sq)
@@ -226,6 +260,7 @@ class MixedBackend(KrylovBackend):
 
     def solve(self, st, rhs, mask, noise_sq=0.0):
         bicgstab, apply = self._kernels(st)
+        st, rhs, mask = _one_shape(st, rhs, mask)
         f32 = torch.float32
         st32 = self._f32(st)
         # the f64 inverse diagonal, downcast (not the inverse of the f32 planes)
@@ -244,7 +279,7 @@ class MixedBackend(KrylovBackend):
                 "resnorm_sq": info["resnorm_sq"].to(b.dtype),
                 "converged": info["converged"],
             }
-        return x, _true_verdict((b - apply(st, x)) * mask, b, iters, noise_sq)
+        return x, _true_verdict((b - apply(st, x)) * mask, b, iters, noise_sq, _ndim(st))
 
     def solve_triple(
         self, J_T, J_cl, J_cd, C_clT, C_cdT, d_cdcl, rhs_T, base_cl, base_cd, mask, dt,
@@ -493,6 +528,7 @@ class PCTrapezoidalBase:
             and self.linear_solver == "krylov"
             and not self.differentiable
             and isinstance(J_T, linsolve.Stencil5)
+            and rhs_T.dim() == 2
         ):
             # the whole sweep's linear algebra in one call
             fcl0 = field.Fcl(g, ops, s, t1)

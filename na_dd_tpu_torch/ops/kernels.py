@@ -13,6 +13,13 @@ wrapper                     replaces (na_dd_tpu/ops/pallas_kernels.py)
 :func:`bicgstab_solve3`     ``bicgstab_solve3_pallas`` (:702) — K5
 ==========================  ===================================================
 
+K1, K2, K5 and K6 take an optional leading batch dimension, the written-out
+counterpart of ``jax.vmap`` over the TPU kernel: a stack of B planes
+(B, n0, n1) or volumes (B, n0, n1, n2) of one shape goes to ONE launch, each
+system with its own zero inflow, and a solve's ``info`` holds one entry a
+system (``iters`` (B,), ``resnorm_sq`` and ``converged`` (B, 1, 1) or
+(B, 1, 1, 1)).  K4 takes one system.
+
 Dispatch is by the tensor's device and nothing else: a CPU tensor takes the
 plain version (which autograd traces like any PyTorch code); a CUDA tensor
 is checked (device, dtype, shape, contiguity, and no operand that requires
@@ -96,40 +103,51 @@ def _count(name: str, dtype) -> None:
 # ---------------------------------------------------------------------------
 # plain PyTorch twins (the CPU path; also the yardstick on the card)
 # ---------------------------------------------------------------------------
+def system_sum(u, nd: int):
+    """Sum over each system of ``u``: the whole array when it is one system
+    (``nd`` dimensions), else each of its leading-dimension entries alone,
+    kept as (B, 1, ...) to broadcast against the stack."""
+    if u.dim() == nd:
+        return torch.sum(u)
+    return torch.sum(u, dim=tuple(range(-nd, 0)), keepdim=True)
+
+
 def stencil5_apply_plain(stencil: Stencil5, u):
     """out = c0·u + cxm·u[i-1,j] + cxp·u[i+1,j] + cym·u[i,j-1] + cyp·u[i,j+1],
-    zero inflow."""
+    zero inflow; on a stack of planes, plane by plane."""
     return stencil.apply(LOCAL_OPS, u)
 
 
-def _residual_info(apply, stencil, b, x, iters, tol):
+def _residual_info(apply, stencil, b, x, iters, tol, nd):
     """True-residual diagnostics, as bicgstab_solve_pallas computes them
-    outside its kernel (pallas_kernels.py:385-392)."""
+    outside its kernel (pallas_kernels.py:385-392), per system."""
     r = b - apply(stencil, x)
-    rsq = torch.sum(r * r)
-    tol_sq = tol * tol * torch.sum(b * b)
+    rsq = system_sum(r * r, nd)
+    tol_sq = tol * tol * system_sum(b * b, nd)
     return {"iters": iters, "resnorm_sq": rsq, "converged": rsq <= tol_sq}
 
 
-def _bicgstab_plain(apply, stencil, b, inv_diag, mask, tol, iters):
-    """:func:`bicgstab_unrolled` from x0 = 0 with the Jacobi preconditioner,
-    then ``x * mask`` and the true-residual info."""
+def _bicgstab_plain(apply, stencil, b, inv_diag, mask, tol, iters, nd):
+    """:func:`bicgstab_unrolled` from x0 = 0 with the Jacobi preconditioner
+    and per-system dot products, then ``x * mask`` and the true-residual
+    info; ``iters`` has the batch's shape, (B,) or ()."""
     x, info = bicgstab_unrolled(
         lambda w: apply(stencil, w),
         b,
         torch.zeros_like(b),
-        dot=lambda u, v: torch.sum(u * v),
+        dot=lambda u, v: system_sum(u * v, nd),
         minv=lambda r: r * inv_diag,
         tol=tol,
         iters=iters,
     )
     x = x * mask
-    return x, _residual_info(apply, stencil, b, x, info["iters"], tol)
+    used = info["iters"].reshape(b.shape[: b.dim() - nd])
+    return x, _residual_info(apply, stencil, b, x, used, tol, nd)
 
 
 def bicgstab_solve_plain(stencil: Stencil5, b, inv_diag, mask, *, tol: float, iters: int):
-    """Plain twin of K1."""
-    return _bicgstab_plain(stencil5_apply_plain, stencil, b, inv_diag, mask, tol, iters)
+    """Plain twin of K1 (a plane, or a stack of planes solved each alone)."""
+    return _bicgstab_plain(stencil5_apply_plain, stencil, b, inv_diag, mask, tol, iters, 2)
 
 
 def triple_solve_plain(
@@ -168,13 +186,14 @@ def triple_solve_plain(
 
 def stencil7_apply_plain(stencil: Stencil7, u):
     """out = c0·u + cxm·u[i-1,j,k] + cxp·u[i+1,j,k] + cym·u[i,j-1,k]
-    + cyp·u[i,j+1,k] + czm·u[i,j,k-1] + czp·u[i,j,k+1], zero inflow."""
+    + cyp·u[i,j+1,k] + czm·u[i,j,k-1] + czp·u[i,j,k+1], zero inflow; on a
+    stack of volumes, volume by volume."""
     return stencil.apply(LOCAL_OPS3, u)
 
 
 def bicgstab_solve3_plain(stencil: Stencil7, b, inv_diag, mask, *, tol: float, iters: int):
-    """Plain twin of K5."""
-    return _bicgstab_plain(stencil7_apply_plain, stencil, b, inv_diag, mask, tol, iters)
+    """Plain twin of K5 (a volume, or a stack of volumes solved each alone)."""
+    return _bicgstab_plain(stencil7_apply_plain, stencil, b, inv_diag, mask, tol, iters, 3)
 
 
 # ---------------------------------------------------------------------------
@@ -204,30 +223,32 @@ def _declare(name: str, lib) -> None:
     lib.error_string.restype = ctypes.c_char_p
     if name == "stencil5":
         for fn in (lib.stencil5_apply_f64, lib.stencil5_apply_f32):
-            fn.argtypes = [vp] * 7 + [i32, i32, vp]
+            fn.argtypes = [vp] * 7 + [i32, i32, i32, vp]
             fn.restype = i32
     elif name == "stencil7":
         for fn in (lib.stencil7_apply_f64, lib.stencil7_apply_f32):
-            fn.argtypes = [vp] * 9 + [i32, i32, i32, vp]
+            fn.argtypes = [vp] * 9 + [i32, i32, i32, i32, vp]
             fn.restype = i32
     elif name == "bicgstab":
         for fn in (lib.bicgstab_blocks_f64, lib.bicgstab_blocks_f32):
-            fn.argtypes = [i32, ctypes.POINTER(i32)]
+            fn.argtypes = [i32, i32, ctypes.POINTER(i32)]
             fn.restype = i32
         for fn in (lib.bicgstab_solve_f64, lib.bicgstab_solve_f32):
-            fn.argtypes = [vp] * 12 + [i32, i32, i32, f64, i32, vp]
+            fn.argtypes = [vp] * 12 + [i32, i32, i32, i32, f64, i32, vp]
             fn.restype = i32
         lib.bicgstab_num_slots.restype = i32
         lib.bicgstab_work_planes.restype = i32
+        lib.bicgstab_max_batch.restype = i32
     elif name == "bicgstab3":
         for fn in (lib.bicgstab3_blocks_f64, lib.bicgstab3_blocks_f32):
-            fn.argtypes = [i32, ctypes.POINTER(i32)]
+            fn.argtypes = [i32, i32, ctypes.POINTER(i32)]
             fn.restype = i32
         for fn in (lib.bicgstab3_solve_f64, lib.bicgstab3_solve_f32):
-            fn.argtypes = [vp] * 14 + [i32, i32, i32, i32, f64, i32, vp]
+            fn.argtypes = [vp] * 14 + [i32, i32, i32, i32, i32, f64, i32, vp]
             fn.restype = i32
         lib.bicgstab3_num_slots.restype = i32
         lib.bicgstab3_work_volumes.restype = i32
+        lib.bicgstab3_max_batch.restype = i32
     elif name == "triple_solve":
         for fn in (lib.triple_solve_blocks_f64, lib.triple_solve_blocks_f32):
             fn.argtypes = [i32, ctypes.POINTER(i32)]
@@ -292,10 +313,12 @@ def _check_launch(lib, code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} ({lib.error_string(code).decode()})")
 
 
-def _check_operands(what: str, ndim: int, ref: torch.Tensor, *others: torch.Tensor) -> None:
-    """Device, dtype, rank (2 for planes, 3 for volumes), shape and
-    contiguity of every operand; raises on anything the kernel does not
-    take.  A kernel has no autograd formula and reads raw pointers, so an
+def _check_operands(
+    what: str, ndim: int, ref: torch.Tensor, *others: torch.Tensor, batched: bool = True
+) -> None:
+    """Device, dtype, rank (2 for planes, 3 for volumes, one more for a
+    stack of them where the kernel takes a batch), shape and contiguity of
+    every operand; raises on anything the kernel does not take.  A kernel has no autograd formula and reads raw pointers, so an
     operand that requires grad while autograd records is refused too:
     differentiating through a solve is the IFT adjoint's work
     (:mod:`na_dd_tpu_torch.ops.adjoint`), which calls the kernels on
@@ -309,9 +332,12 @@ def _check_operands(what: str, ndim: int, ref: torch.Tensor, *others: torch.Tens
         raise ValueError(f"{what}: tensors must lie on the CPU or a CUDA device; got {ref.device}")
     if ref.dtype not in (torch.float64, torch.float32):
         raise TypeError(f"{what}: dtype must be float64 or float32; got {ref.dtype}")
-    if ref.dim() != ndim:
+    if ref.dim() != ndim and not (batched and ref.dim() == ndim + 1):
         kind = "2-D planes" if ndim == 2 else "3-D volumes"
+        kind += " or a stack of them" if batched else ""
         raise ValueError(f"{what}: operands must be {kind}; got shape {tuple(ref.shape)}")
+    if ref.dim() == ndim + 1 and ref.shape[0] < 1:
+        raise ValueError(f"{what}: an empty batch; got shape {tuple(ref.shape)}")
     if ref.numel() >= 2**31:
         raise ValueError(f"{what}: the kernels index with 32-bit ints; got {ref.numel()} points")
     for t in (ref, *others):
@@ -331,67 +357,99 @@ def _stream(t: torch.Tensor) -> int:
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
+def _batch(u: torch.Tensor, nd: int):
+    """(B, shape of one system) of an operand of ``nd`` dimensions or a stack
+    of them."""
+    return (1 if u.dim() == nd else u.shape[0]), tuple(u.shape[-nd:])
+
+
 def stencil5_apply(stencil: Stencil5, u):
-    """K2/K3, any plane shape.  CPU tensor → :func:`stencil5_apply_plain`; CUDA tensor → kernel."""
+    """K2/K3, any plane shape, or a stack of planes (B, n0, n1) in one
+    launch.  CPU tensor → :func:`stencil5_apply_plain`; CUDA tensor →
+    kernel."""
     if u.device.type == "cpu":
         return stencil5_apply_plain(stencil, u)
     _check_operands("stencil5_apply", 2, u, *stencil)
     lib = _lib("stencil5")
     fn = lib.stencil5_apply_f64 if u.dtype == torch.float64 else lib.stencil5_apply_f32
     out = torch.empty_like(u)
-    n0, n1 = u.shape
+    nb, (n0, n1) = _batch(u, 2)
     code = fn(
         u.data_ptr(), *(c.data_ptr() for c in stencil), out.data_ptr(),
-        n0, n1, _stream(u),
+        nb, n0, n1, _stream(u),
     )
     _check_launch(lib, code, "stencil5_apply")
     _count("stencil5_apply", u.dtype)
     return out
 
 
-def _bicgstab_blocks(lib, prefix: str, dtype, n: int) -> int:
+def _bicgstab_blocks(lib, prefix: str, dtype, n: int, nsys: int = 1) -> int:
     """The cooperative grid of a BiCGStab kernel (``prefix`` "bicgstab",
-    "bicgstab3" or "triple_solve") for n points, as its library reports it."""
-    key = (prefix, dtype, n)
+    "bicgstab3" or "triple_solve") for ``nsys`` systems of n points, as its
+    library reports it; keyed (prefix, dtype, n) for one system and
+    (prefix, dtype, n, nsys) for a batch."""
+    key = (prefix, dtype, n) if nsys == 1 else (prefix, dtype, n, nsys)
     if key not in _BLOCKS:
         suffix = "f64" if dtype == torch.float64 else "f32"
         fn = getattr(lib, f"{prefix}_blocks_{suffix}")
         blocks = ctypes.c_int(0)
-        _check_launch(lib, fn(n, ctypes.byref(blocks)), f"{prefix} occupancy")
+        args = (n, ctypes.byref(blocks)) if prefix == "triple_solve" else (
+            n, nsys, ctypes.byref(blocks))
+        _check_launch(lib, fn(*args), f"{prefix} occupancy")
         _BLOCKS[key] = blocks.value
     return _BLOCKS[key]
 
 
-def bicgstab_solve(stencil: Stencil5, b, inv_diag, mask, *, tol: float, iters: int):
-    """K1: whole Jacobi-BiCGStab solve (x0 = 0, ``iters`` masked-early-exit
-    iterations) of ``stencil · x = b``.
-
-    Returns ``(x, info)`` with ``info = {"iters", "resnorm_sq", "converged"}``:
-    the in-kernel iteration count and the true residual ``b − A·x`` through
-    :func:`stencil5_apply`, as ``bicgstab_solve_pallas`` reports them.  CPU
-    tensors take :func:`bicgstab_solve_plain`.  The solve never synchronises
-    with the host.
-    """
-    if b.device.type == "cpu":
-        return bicgstab_solve_plain(stencil, b, inv_diag, mask, tol=tol, iters=iters)
-    _check_operands("bicgstab_solve", 2, b, *stencil, inv_diag, mask)
-    lib = _lib("bicgstab")
-    n0, n1 = b.shape
-    blocks = _bicgstab_blocks(lib, "bicgstab", b.dtype, n0 * n1)
+def _solve(name: str, prefix: str, nd: int, apply, stencil, b, inv_diag, mask, tol, iters):
+    """K1 (``nd`` = 2) or K5 (3) on CUDA operands: one cooperative launch
+    for the one system or the whole stack, then the true residual through
+    ``apply``."""
+    _check_operands(name, nd, b, *stencil, inv_diag, mask)
+    lib = _lib(prefix)
+    nsys, shape = _batch(b, nd)
+    if nsys > getattr(lib, f"{prefix}_max_batch")():
+        raise ValueError(
+            f"{name}: at most {getattr(lib, f'{prefix}_max_batch')()} systems a launch; "
+            f"got {nsys}"
+        )
+    n = b[0].numel() if b.dim() > nd else b.numel()
+    blocks = _bicgstab_blocks(lib, prefix, b.dtype, n, nsys)
     x = torch.empty_like(b)
-    iters_out = torch.empty(1, dtype=torch.int32, device=b.device)
-    work = torch.empty((lib.bicgstab_work_planes(), n0, n1), dtype=b.dtype, device=b.device)
-    partials = torch.empty(lib.bicgstab_num_slots() * blocks, dtype=b.dtype, device=b.device)
-    fn = lib.bicgstab_solve_f64 if b.dtype == torch.float64 else lib.bicgstab_solve_f32
+    iters_out = torch.empty(nsys, dtype=torch.int32, device=b.device)
+    slots = getattr(lib, f"{prefix}_num_slots")()
+    work_arrays = getattr(lib, f"{prefix}_work_{'planes' if nd == 2 else 'volumes'}")()
+    work = torch.empty((work_arrays, *b.shape), dtype=b.dtype, device=b.device)
+    partials = torch.empty(slots * blocks, dtype=b.dtype, device=b.device)
+    suffix = "f64" if b.dtype == torch.float64 else "f32"
+    fn = getattr(lib, f"{prefix}_solve_{suffix}")
     code = fn(
         b.data_ptr(), *(c.data_ptr() for c in stencil), inv_diag.data_ptr(),
         mask.data_ptr(), x.data_ptr(), iters_out.data_ptr(), work.data_ptr(),
-        partials.data_ptr(), n0, n1, int(iters), float(tol) * float(tol), blocks,
+        partials.data_ptr(), nsys, *shape, int(iters), float(tol) * float(tol), blocks,
         _stream(b),
     )
-    _check_launch(lib, code, "bicgstab_solve")
-    _count("bicgstab_solve", b.dtype)
-    return x, _residual_info(stencil5_apply, stencil, b, x, iters_out[0], tol)
+    _check_launch(lib, code, name)
+    _count(name, b.dtype)
+    used = iters_out if b.dim() > nd else iters_out[0]
+    return x, _residual_info(apply, stencil, b, x, used, tol, nd)
+
+
+def bicgstab_solve(stencil: Stencil5, b, inv_diag, mask, *, tol: float, iters: int):
+    """K1: whole Jacobi-BiCGStab solve (x0 = 0, ``iters`` masked-early-exit
+    iterations) of ``stencil · x = b``, on a plane or on a stack of B planes
+    (each system solved alone, all in one launch).
+
+    Returns ``(x, info)`` with ``info = {"iters", "resnorm_sq", "converged"}``:
+    the in-kernel iteration count and the true residual ``b − A·x`` through
+    :func:`stencil5_apply`, as ``bicgstab_solve_pallas`` reports them, one
+    each a system of a stack.  CPU tensors take :func:`bicgstab_solve_plain`.
+    The solve never synchronises with the host.
+    """
+    if b.device.type == "cpu":
+        return bicgstab_solve_plain(stencil, b, inv_diag, mask, tol=tol, iters=iters)
+    return _solve(
+        "bicgstab_solve", "bicgstab", 2, stencil5_apply, stencil, b, inv_diag, mask, tol, iters
+    )
 
 
 def triple_solve(
@@ -410,6 +468,11 @@ def triple_solve(
     them.  CPU tensors take :func:`triple_solve_plain`.  Never synchronises
     with the host.
     """
+    if rhs_T.dim() != 2:
+        raise ValueError(
+            "triple_solve: one system of planes; a batch takes the per-solve route "
+            f"(K1 with a batch dimension); got shape {tuple(rhs_T.shape)}"
+        )
     if rhs_T.device.type == "cpu":
         return triple_solve_plain(
             J_T, J_cl, J_cd, C_clT, C_cdT, d_cdcl, rhs_T, base_cl, base_cd,
@@ -419,7 +482,7 @@ def triple_solve(
         *J_T, *J_cl, *J_cd, *C_clT, *C_cdT,
         d_cdcl, rhs_T, base_cl, base_cd, invd_T, invd_cl, invd_cd, mask,
     )
-    _check_operands("triple_solve", 2, rhs_T, *planes)
+    _check_operands("triple_solve", 2, rhs_T, *planes, batched=False)
     lib = _lib("triple_solve")
     if len(planes) != lib.triple_solve_input_planes():
         raise ValueError(f"triple_solve: expected {lib.triple_solve_input_planes()} planes")
@@ -448,18 +511,18 @@ def triple_solve(
 
 
 def stencil7_apply(stencil: Stencil7, u):
-    """K6/K7.  CPU tensor → :func:`stencil7_apply_plain`; CUDA tensor →
-    kernel."""
+    """K6/K7, a volume or a stack of volumes (B, n0, n1, n2) in one launch.
+    CPU tensor → :func:`stencil7_apply_plain`; CUDA tensor → kernel."""
     if u.device.type == "cpu":
         return stencil7_apply_plain(stencil, u)
     _check_operands("stencil7_apply", 3, u, *stencil)
     lib = _lib("stencil7")
     fn = lib.stencil7_apply_f64 if u.dtype == torch.float64 else lib.stencil7_apply_f32
     out = torch.empty_like(u)
-    n0, n1, n2 = u.shape
+    nb, (n0, n1, n2) = _batch(u, 3)
     code = fn(
         u.data_ptr(), *(c.data_ptr() for c in stencil), out.data_ptr(),
-        n0, n1, n2, _stream(u),
+        nb, n0, n1, n2, _stream(u),
     )
     _check_launch(lib, code, "stencil7_apply")
     _count("stencil7_apply", u.dtype)
@@ -468,7 +531,8 @@ def stencil7_apply(stencil: Stencil7, u):
 
 def bicgstab_solve3(stencil: Stencil7, b, inv_diag, mask, *, tol: float, iters: int):
     """K5: whole Jacobi-BiCGStab solve (x0 = 0, ``iters`` masked-early-exit
-    iterations) of ``stencil · x = b`` on a volume.
+    iterations) of ``stencil · x = b`` on a volume, or on a stack of B
+    volumes in one launch.
 
     Returns ``(x, info)`` as :func:`bicgstab_solve` does, the true residual
     through :func:`stencil7_apply`.  CPU tensors take
@@ -477,21 +541,6 @@ def bicgstab_solve3(stencil: Stencil7, b, inv_diag, mask, *, tol: float, iters: 
     """
     if b.device.type == "cpu":
         return bicgstab_solve3_plain(stencil, b, inv_diag, mask, tol=tol, iters=iters)
-    _check_operands("bicgstab_solve3", 3, b, *stencil, inv_diag, mask)
-    lib = _lib("bicgstab3")
-    n0, n1, n2 = b.shape
-    blocks = _bicgstab_blocks(lib, "bicgstab3", b.dtype, b.numel())
-    x = torch.empty_like(b)
-    iters_out = torch.empty(1, dtype=torch.int32, device=b.device)
-    work = torch.empty((lib.bicgstab3_work_volumes(), *b.shape), dtype=b.dtype, device=b.device)
-    partials = torch.empty(lib.bicgstab3_num_slots() * blocks, dtype=b.dtype, device=b.device)
-    fn = lib.bicgstab3_solve_f64 if b.dtype == torch.float64 else lib.bicgstab3_solve_f32
-    code = fn(
-        b.data_ptr(), *(c.data_ptr() for c in stencil), inv_diag.data_ptr(),
-        mask.data_ptr(), x.data_ptr(), iters_out.data_ptr(), work.data_ptr(),
-        partials.data_ptr(), n0, n1, n2, int(iters), float(tol) * float(tol), blocks,
-        _stream(b),
+    return _solve(
+        "bicgstab_solve3", "bicgstab3", 3, stencil7_apply, stencil, b, inv_diag, mask, tol, iters
     )
-    _check_launch(lib, code, "bicgstab_solve3")
-    _count("bicgstab_solve3", b.dtype)
-    return x, _residual_info(stencil7_apply, stencil, b, x, iters_out[0], tol)

@@ -126,7 +126,13 @@ def bicgstab_unrolled(
     Once ``done`` trips the remaining iterations keep every carried value, so
     the result equals a loop that stops there; ``iters_used`` counts only the
     iterations taken while not done.  Everything stays in tensors: no host
-    synchronisation inside the solve.  ``safe_div``'s guard is
+    synchronisation inside the solve.
+
+    ``dot`` sets the systems: a whole-array sum solves one, a sum per entry of
+    a leading batch dimension (kept as (B, 1, ...)) solves each entry alone
+    under ``jax.vmap``'s semantics: every system carries its own scalars,
+    ``done`` and ``iters_used`` (shaped as ``dot``'s result), and a system
+    that is done keeps its ``x`` while the others iterate.  ``safe_div``'s guard is
     ``|den| > 1e-300`` cast to the dtype, which is ``|den| > 0`` in float32.
     """
     if minv is None:
@@ -142,7 +148,7 @@ def bicgstab_unrolled(
     p, v = z, z
     rho = alpha = omega = one
     done = dot(r, r) <= tol_sq
-    iters_used = torch.zeros((), dtype=torch.int32, device=b.device)
+    iters_used = torch.zeros_like(done, dtype=torch.int32)
 
     def keep(old, new):
         return torch.where(done, old, new)

@@ -7,8 +7,13 @@
     shift_yp(u)[i, j] = u[i, j+1]     (col M of the result is 0)
     asum(u), amax(u)  = sum / max over the whole array
 
-Every discrete operator of the port is written through these, so a sharded
-provider can later take the place of :class:`LocalOps`.
+The shifts act on the two trailing dimensions, so a stack of planes
+(B, N+1, M+1), the batch axis of :mod:`na_dd_tpu_torch.harness.batched_ladder`,
+shifts plane by plane and nothing crosses from one plane to the next.
+:class:`BatchedOps` reduces each plane of such a stack on its own, to a
+(B, 1, 1) tensor that broadcasts against the stack where ``jax.vmap`` would
+broadcast a scalar.  Every discrete operator of the port is written through
+these, so a sharded provider can later take the place of :class:`LocalOps`.
 """
 
 from __future__ import annotations
@@ -39,19 +44,20 @@ class Ops:
 
 
 class LocalOps(Ops):
-    """Single-device shifts: slice + concatenate of a zero edge line."""
+    """Single-device shifts along the two trailing dimensions: slice +
+    concatenate of a zero edge line."""
 
     def shift_xm(self, u):
-        return torch.cat([torch.zeros_like(u[:1, :]), u[:-1, :]], dim=0)
+        return torch.cat([torch.zeros_like(u[..., :1, :]), u[..., :-1, :]], dim=-2)
 
     def shift_xp(self, u):
-        return torch.cat([u[1:, :], torch.zeros_like(u[:1, :])], dim=0)
+        return torch.cat([u[..., 1:, :], torch.zeros_like(u[..., :1, :])], dim=-2)
 
     def shift_ym(self, u):
-        return torch.cat([torch.zeros_like(u[:, :1]), u[:, :-1]], dim=1)
+        return torch.cat([torch.zeros_like(u[..., :1]), u[..., :-1]], dim=-1)
 
     def shift_yp(self, u):
-        return torch.cat([u[:, 1:], torch.zeros_like(u[:, :1])], dim=1)
+        return torch.cat([u[..., 1:], torch.zeros_like(u[..., :1])], dim=-1)
 
     def asum(self, u):
         return torch.sum(u)
@@ -60,4 +66,16 @@ class LocalOps(Ops):
         return torch.amax(u)
 
 
+class BatchedOps(LocalOps):
+    """:class:`LocalOps` on a stack of planes (B, N+1, M+1): the reductions
+    run over each plane alone and keep its dimensions, (B, 1, 1)."""
+
+    def asum(self, u):
+        return torch.sum(u, dim=(-2, -1), keepdim=True)
+
+    def amax(self, u):
+        return torch.amax(u, dim=(-2, -1), keepdim=True)
+
+
 LOCAL_OPS = LocalOps()
+BATCHED_OPS = BatchedOps()

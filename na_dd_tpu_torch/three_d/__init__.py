@@ -4,8 +4,10 @@ The 3-D extension on (N+1, M+1, P+1) grids: ``grid``, ``shifts``,
 ``stencils``, ``inner_products``, ``quadrature`` (discretization),
 ``diffusion`` (Stencil7 planes), ``fields``, ``forcing``, ``mms`` (physics),
 ``integrator`` (the 2-D PC step with Stencil7 Newton planes, its Cs, HCs and
-RegHCs variants, and forward Euler) and ``harness`` (``make_setup3``,
-``make_integrator3``, ``build_runner3``, ``run_trial3``, ``mms_error3``).
+RegHCs variants, and forward Euler), ``harness`` (``make_setup3``,
+``make_integrator3``, ``build_runner3``, ``run_trial3``, ``mms_error3``, the
+batched η sweep ``run_eta_sweep3``) and ``batched_ladder`` (the study ladder
+as one batch of levels).
 The Newton solves run through the hand-written 7-point kernels of
 :mod:`na_dd_tpu_torch.ops.kernels` on CUDA tensors.
 
@@ -18,7 +20,7 @@ import importlib
 
 _EXPORTS = {
     "grid": ("Grid3", "make_grid3", "make_uniform_grid3"),
-    "shifts": ("LOCAL_OPS3", "LocalOps3", "Ops3"),
+    "shifts": ("BATCHED_OPS3", "BatchedOps3", "LOCAL_OPS3", "LocalOps3", "Ops3"),
     "stencils": ("Dx_reg3", "Dx_star3", "Dy_reg3", "Dy_star3", "Dz_reg3", "Dz_star3",
                  "Mx3", "My3", "Mz3", "grad_H3"),
     "inner_products": ("inner_H3", "inner_p3", "norm_H3", "norm_p3"),
@@ -32,7 +34,9 @@ _EXPORTS = {
                    "PCTrapezoidalHCsTriple3", "PCTrapezoidalRegHCsTriple3"),
     "mms": ("MMSCaseCsZeroCrossing3", "MMSCaseExpSin3", "MMSCasePol3", "MMSCaseSymbolic3",
             "pack_symbolic_txyz_with_derivatives", "state_from_mms_when3", "z_sym"),
-    "harness": ("build_runner3", "make_integrator3", "make_setup3", "mms_error3", "run_trial3"),
+    "harness": ("build_runner3", "err_sq3", "make_integrator3", "make_setup3", "mms_error3",
+                "run_eta_sweep3", "run_trial3"),
+    "batched_ladder": ("pad_grid3", "pad_state3", "run_spatial_ladder3_batched"),
 }
 _MODULE_OF = {name: module for module, names in _EXPORTS.items() for name in names}
 

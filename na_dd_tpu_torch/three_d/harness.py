@@ -14,6 +14,11 @@ max-integral norm
 
 with the gradient taken of the error e_v itself, as the JAX 3-D harness
 does (not the 2-D harness's difference of gradients).
+
+:func:`run_eta_sweep3` runs every η of a sweep in one batch: the state is
+the stack of the runs', η an (E, 1, 1, 1) tensor, the reductions per run
+(:data:`~na_dd_tpu_torch.three_d.shifts.BATCHED_OPS3`), and each Newton
+solve one launch of the batched kernel.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ from na_dd_tpu_torch.three_d.integrator import (
     PCTrapezoidalRegHCsTriple3,
 )
 from na_dd_tpu_torch.three_d.mms import state_from_mms_when3
-from na_dd_tpu_torch.three_d.shifts import LOCAL_OPS3, Ops3
+from na_dd_tpu_torch.three_d.shifts import BATCHED_OPS3, LOCAL_OPS3, Ops3
 from na_dd_tpu_torch.three_d.stencils import grad_H3
 
 #: BiCGStab iteration budget per 3-D solve (masked early exit), the budget of
@@ -113,6 +118,25 @@ def make_integrator3(
     return integ_cls(field_cls(**field_kwargs), track_residuals=False, **integ_kwargs)
 
 
+def err_sq3(ops: Ops3, g: Grid3, case, s: State, t, integral_vars=("T", "cl", "cd")):
+    """(Σ_v ||e_v||_H², Σ_{v∈integral} ||∇e_v||_p², per-var H²) of ``s``
+    against the exact solution at ``t``; one value a system with a batched
+    ops provider."""
+    ex = state_from_mms_when3(mms_case=case, t=t, grid=g)
+    total = 0.0
+    grad_total = 0.0
+    per_var = {}
+    for v in State._fields:
+        e = getattr(s, v) - getattr(ex, v)
+        sq = inner_H3(ops, g, e, e)
+        per_var[v] = sq
+        total = total + sq
+        if v in integral_vars:
+            gx, gy, gz = grad_H3(ops, g, e)
+            grad_total = grad_total + inner_p3(ops, g, gx, gy, gz, gx, gy, gz)
+    return total, grad_total, per_var
+
+
 def build_runner3(
     g: Grid3,
     case,
@@ -129,28 +153,16 @@ def build_runner3(
     Returns ``(run, s0)``: ``run(s0)`` steps from ``s0`` at ``t0`` to the
     absolute final time ``Tf`` in equal steps and returns ``(final State,
     worst combined err², all-solves-converged flag, HCs-positivity flag,
-    {var: final H err²})``, every value a device tensor.  ``run`` may be
-    called again for warm timings.
+    {var: final H err²})``, every value a device tensor (one a run, with a
+    batched state and ops provider).  ``run`` may be called again for warm
+    timings.
     """
     num_steps = max(1, int(math.ceil((Tf - t0) / dt)))
     dt_adj = (Tf - t0) / num_steps
     s0 = state_from_mms_when3(mms_case=case, t=t0, grid=g)
 
     def err_sq(s: State, t):
-        """(Σ_v ||e_v||_H², Σ_{v∈integral} ||∇e_v||_p², per-var H²)."""
-        ex = state_from_mms_when3(mms_case=case, t=t, grid=g)
-        total = 0.0
-        grad_total = 0.0
-        per_var = {}
-        for v in State._fields:
-            e = getattr(s, v) - getattr(ex, v)
-            sq = inner_H3(ops, g, e, e)
-            per_var[v] = sq
-            total = total + sq
-            if v in integral_vars:
-                gx, gy, gz = grad_H3(ops, g, e)
-                grad_total = grad_total + inner_p3(ops, g, gx, gy, gz, gx, gy, gz)
-        return total, grad_total, per_var
+        return err_sq3(ops, g, case, s, t, integral_vars)
 
     def run(s):
         ks = torch.arange(num_steps, dtype=g.dtype, device=g.device)
@@ -210,6 +222,55 @@ def run_trial3(
         },
         "state": s_fin,
         "krylov_converged": ok_h > 0.5,
+    }
+
+
+def run_eta_sweep3(
+    case_cls,
+    *,
+    model,
+    N: int,
+    Tf: float,
+    dt: float,
+    etas,
+    krylov_unroll: int = KRYLOV_BUDGET3,
+    dtype=None,
+    device=None,
+):
+    """The regularization-factor sweep of the 3-D study with every η in one
+    batch (the 2-D twin is ``run_eta_study_batched``): the RegHCs trial of
+    ``case_cls`` on the uniform N³ grid from 0 to ``Tf`` in steps of ``dt``,
+    η an (E, 1, 1, 1) tensor through field, forcing and corrector.  Raises
+    :class:`HCsCorrectorPositivityError` naming each η whose corrector lost
+    positivity.  Returns ``{"etas", "errors", "converged"}``.  On the card
+    unless ``device="cpu"``.  The JAX function's ``krylov_scanned`` (an XLA
+    compile-time option) has no counterpart here."""
+    g = make_uniform_grid3(N, N, N, dtype=dtype, device=device)
+    case = case_cls(g, model)
+    etas = [float(e) for e in etas]
+    eta = torch.tensor(etas, dtype=g.dtype, device=g.device).reshape(-1, 1, 1, 1)
+    forcing = MMSForcingRegHCsTriple3(mms_case=case, model=model, regularization_factor=eta)
+    field = FieldRegHCsTriple3(grid=g, model=model, forcing=forcing, regularization_factor=eta)
+    integ = PCTrapezoidalRegHCsTriple3(
+        field, regularization_factor=eta, track_residuals=False, krylov_unroll=krylov_unroll
+    )
+    run, s0 = build_runner3(g, case, integ, Tf=Tf, dt=dt, ops=BATCHED_OPS3)
+    _s, worst, ok, hcs_ok, _per_var = run(
+        State(*(v.expand(len(etas), *v.shape).contiguous() for v in s0))
+    )
+    # the sweep's only host transfer
+    packed = torch.stack(
+        [v.to(torch.float64).reshape(-1).expand(len(etas)) for v in (worst, ok, hcs_ok)]
+    ).cpu()
+    bad = [e for e, h in zip(etas, packed[2].tolist()) if h < 0.5]
+    if bad:
+        raise HCsCorrectorPositivityError(
+            f"HCs corrector denominator lost positivity for eta in {bad}"
+        )
+    return {
+        "etas": etas,
+        "errors": [math.sqrt(w) for w in packed[0].tolist()],
+        "converged": [o > 0.5 for o in packed[1].tolist()],
     }
 
 

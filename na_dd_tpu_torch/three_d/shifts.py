@@ -6,9 +6,11 @@
     shift_zm(u)[i,j,k] = u[i,j,k-1]       shift_zp(u)[i,j,k] = u[i,j,k+1]
     asum(u), amax(u)   = sum / max over the whole array
 
-Out-of-range entries are 0.  Every 3-D operator of the port is written
-through these, so a sharded provider can later take the place of
-:class:`LocalOps3`.
+Out-of-range entries are 0.  The shifts act on the three trailing
+dimensions, so a stack of volumes (B, N+1, M+1, P+1) shifts volume by volume;
+:class:`BatchedOps3` reduces each volume alone, to (B, 1, 1, 1).  Every 3-D
+operator of the port is written through these, so a sharded provider can
+later take the place of :class:`LocalOps3`.
 """
 
 from __future__ import annotations
@@ -45,25 +47,26 @@ class Ops3:
 
 
 class LocalOps3(Ops3):
-    """Single-device shifts: slice + concatenate of a zero edge plane."""
+    """Single-device shifts along the three trailing dimensions: slice +
+    concatenate of a zero edge plane."""
 
     def shift_xm(self, u):
-        return torch.cat([torch.zeros_like(u[:1]), u[:-1]], dim=0)
+        return torch.cat([torch.zeros_like(u[..., :1, :, :]), u[..., :-1, :, :]], dim=-3)
 
     def shift_xp(self, u):
-        return torch.cat([u[1:], torch.zeros_like(u[:1])], dim=0)
+        return torch.cat([u[..., 1:, :, :], torch.zeros_like(u[..., :1, :, :])], dim=-3)
 
     def shift_ym(self, u):
-        return torch.cat([torch.zeros_like(u[:, :1]), u[:, :-1]], dim=1)
+        return torch.cat([torch.zeros_like(u[..., :1, :]), u[..., :-1, :]], dim=-2)
 
     def shift_yp(self, u):
-        return torch.cat([u[:, 1:], torch.zeros_like(u[:, :1])], dim=1)
+        return torch.cat([u[..., 1:, :], torch.zeros_like(u[..., :1, :])], dim=-2)
 
     def shift_zm(self, u):
-        return torch.cat([torch.zeros_like(u[:, :, :1]), u[:, :, :-1]], dim=2)
+        return torch.cat([torch.zeros_like(u[..., :1]), u[..., :-1]], dim=-1)
 
     def shift_zp(self, u):
-        return torch.cat([u[:, :, 1:], torch.zeros_like(u[:, :, :1])], dim=2)
+        return torch.cat([u[..., 1:], torch.zeros_like(u[..., :1])], dim=-1)
 
     def asum(self, u):
         return torch.sum(u)
@@ -72,4 +75,17 @@ class LocalOps3(Ops3):
         return torch.amax(u)
 
 
+class BatchedOps3(LocalOps3):
+    """:class:`LocalOps3` on a stack of volumes (B, N+1, M+1, P+1): the
+    reductions run over each volume alone and keep its dimensions,
+    (B, 1, 1, 1)."""
+
+    def asum(self, u):
+        return torch.sum(u, dim=(-3, -2, -1), keepdim=True)
+
+    def amax(self, u):
+        return torch.amax(u, dim=(-3, -2, -1), keepdim=True)
+
+
 LOCAL_OPS3 = LocalOps3()
+BATCHED_OPS3 = BatchedOps3()

@@ -1,0 +1,304 @@
+"""The port's batch axis (the written-out ``jax.vmap``) against the JAX
+package on CPU float64, fed the same numpy inputs:
+
+* ``pad_grid``/``pad_state`` and ``pad_grid3``/``pad_state3`` against the
+  JAX package's, field by field, exactly; padding is inert (a PC step on a
+  padded grid is the unpadded step at the real nodes, to 1e-13, and exactly
+  0 at the dead ones);
+* the batch-safe shifts: a plane (volume) of ones stacked beside one of
+  zeros leaks nothing into it, and the batched reductions are each plane's;
+* the batched plain K1/K2/K5/K6 against their unbatched plain versions
+  element by element, with a b = 0 element, one that the budget cuts and
+  one that converges, each with its own iteration count: ≤1e-13 relative;
+* ``run_spatial_ladder_batched("pol", levels=3)`` against the JAX package's
+  and the port's serial ladder (1e-10 each); ``run_eta_study_batched`` at
+  N=6 with two η against the JAX package's (1e-10) and the port's serial
+  sweep (1e-12); ``run_spatial_ladder3_batched(levels=2)`` and
+  ``run_eta_sweep3`` at N=4 with two η against the JAX package's (1e-10)
+  and the port's serial ``mms_error3`` (1e-12).
+
+Each JAX run is made once, in a module-scoped fixture."""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from na_dd_tpu.harness import batched_ladder as j_bl
+from na_dd_tpu.harness.studies import run_eta_study_batched as j_run_eta_study_batched
+from na_dd_tpu.models import Model02 as JModel02
+from na_dd_tpu.models import default_model_consts as J_DEFAULT_CONSTS
+from na_dd_tpu.ops import make_uniform_grid as j_make_uniform_grid
+from na_dd_tpu.three_d import MMSCaseExpSin3 as JCase3
+from na_dd_tpu.three_d import batched_ladder as j_bl3
+from na_dd_tpu.three_d.grid import make_uniform_grid3 as j_make_uniform_grid3
+from na_dd_tpu.three_d.harness import run_eta_sweep3 as j_run_eta_sweep3
+from na_dd_tpu_torch.convert import consts_from_dict, stencil5_from_numpy, stencil7_from_numpy
+from na_dd_tpu_torch.convert import tensor_from_numpy
+from na_dd_tpu_torch.core.fields import FieldRegHCsTriple
+from na_dd_tpu_torch.core.forcing import MMSForcingRegHCsTriple
+from na_dd_tpu_torch.core.state import State
+from na_dd_tpu_torch.harness.batched_ladder import pad_grid, pad_state, run_spatial_ladder_batched
+from na_dd_tpu_torch.harness.studies import run_eta_study, run_eta_study_batched, run_spatial_study
+from na_dd_tpu_torch.integrators.pc_trapezoidal import PCTrapezoidalRegHCsTriple
+from na_dd_tpu_torch.mms.cases import MMSCasePol
+from na_dd_tpu_torch.mms.engine import state_from_mms_when
+from na_dd_tpu_torch.models.coefficients import Model02
+from na_dd_tpu_torch.ops import kernels
+from na_dd_tpu_torch.ops.grid import make_uniform_grid
+from na_dd_tpu_torch.ops.shifts import BATCHED_OPS, LOCAL_OPS
+from na_dd_tpu_torch.three_d import MMSCaseExpSin3, mms_error3, run_eta_sweep3
+from na_dd_tpu_torch.three_d.batched_ladder import (
+    pad_grid3,
+    pad_state3,
+    run_spatial_ladder3_batched,
+)
+from na_dd_tpu_torch.three_d.grid import make_uniform_grid3
+from na_dd_tpu_torch.three_d.shifts import BATCHED_OPS3, LOCAL_OPS3
+
+# the 3-D study's constants (studies/three_d_study.py)
+THREE_D_CONSTS = dict(K1=1e-3, K2=1e-3, K3=1e-3, K4=1e-3, Dl_max=1e-5, Kd=1e-2, Sd=1.0, Dd_max=1e-6)
+ETA_KW = dict(N=6, dt=2.5e-3, Tf=0.005, etas=[10.0, 100.0])
+SWEEP3_KW = dict(N=4, Tf=0.02, dt=1e-2, etas=[10.0, 100.0])
+
+
+def _rel(a, b):
+    return abs(a - b) / abs(b)
+
+
+@pytest.fixture(scope="module")
+def model3():
+    mc = J_DEFAULT_CONSTS._replace(**THREE_D_CONSTS)
+    return JModel02(mc), Model02(consts_from_dict(mc._asdict()))
+
+
+# ---------------------------------------------------------------------------
+# padding
+# ---------------------------------------------------------------------------
+def test_pad_grid_and_state_match_jax():
+    jg = j_bl.pad_grid(j_make_uniform_grid(6, 5), 11, 9)
+    tg = pad_grid(make_uniform_grid(6, 5, device="cpu"), 11, 9)
+    assert (tg.N, tg.M) == (jg.N, jg.M) == (11, 9)
+    for f in dataclasses.fields(tg):
+        if isinstance(getattr(tg, f.name), torch.Tensor):
+            np.testing.assert_array_equal(getattr(tg, f.name).numpy(), np.asarray(getattr(jg, f.name)))
+    rng = np.random.default_rng(90)
+    fields = [rng.standard_normal((7, 6)) for _ in range(5)]
+    js = j_bl.pad_state(tuple(jax.numpy.asarray(a) for a in fields), 11, 9)
+    ts = pad_state(State(*(torch.as_tensor(a) for a in fields)), 11, 9)
+    for a, b in zip(ts, js):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_pad_grid3_and_state3_match_jax():
+    jg = j_bl3.pad_grid3(j_make_uniform_grid3(3, 4, 2), 5, 6, 4)
+    tg = pad_grid3(make_uniform_grid3(3, 4, 2, device="cpu"), 5, 6, 4)
+    assert (tg.N, tg.M, tg.P) == (jg.N, jg.M, jg.P) == (5, 6, 4)
+    for f in dataclasses.fields(tg):
+        if isinstance(getattr(tg, f.name), torch.Tensor):
+            np.testing.assert_array_equal(getattr(tg, f.name).numpy(), np.asarray(getattr(jg, f.name)))
+    rng = np.random.default_rng(91)
+    fields = [rng.standard_normal((4, 5, 3)) for _ in range(5)]
+    js = j_bl3.pad_state3(tuple(jax.numpy.asarray(a) for a in fields), 5, 6, 4)
+    ts = pad_state3(State(*(torch.as_tensor(a) for a in fields)), 5, 6, 4)
+    for a, b in zip(ts, js):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_padded_grid_is_inert():
+    """The twin of the JAX package's test: reductions, gradients and a whole
+    PC step on a zero-padded grid are the unpadded ones, and the dead nodes
+    stay exactly 0."""
+    from na_dd_tpu_torch.ops import inner_products, stencils
+
+    g = make_uniform_grid(6, 6, device="cpu")
+    gp = pad_grid(g, 11, 11)
+    model = Model02(consts_from_dict(J_DEFAULT_CONSTS._asdict()))
+    case = MMSCasePol(grid=g, model=model)
+    s = state_from_mms_when(mms_case=case, t=0.3, grid=g)
+    sp = pad_state(s, 11, 11)
+    a = float(inner_products.inner_H(LOCAL_OPS, g, s.T, s.T))
+    b = float(inner_products.inner_H(LOCAL_OPS, gp, sp.T, sp.T))
+    assert b == pytest.approx(a, rel=1e-14)
+    gx, gy = stencils.grad_H(LOCAL_OPS, g, s.T)
+    gxp, gyp = stencils.grad_H(LOCAL_OPS, gp, sp.T)
+    np.testing.assert_array_equal(gxp[:7, :7].numpy(), gx.numpy())
+    assert bool((gxp[7:, :] == 0).all()) and bool((gyp[:, 7:] == 0).all())
+
+    forcing = MMSForcingRegHCsTriple(mms_case=case, model=model, regularization_factor=50.0)
+    field = FieldRegHCsTriple(grid=g, model=model, forcing=forcing, regularization_factor=50.0)
+    integ = PCTrapezoidalRegHCsTriple(field, regularization_factor=50.0, krylov_unroll=8)
+    s1, _ = integ.step_fn(g, LOCAL_OPS, s, 0.3, 1e-3)
+    s1p, _ = integ.step_fn(gp, LOCAL_OPS, sp, 0.3, 1e-3)
+    for v in State._fields:
+        real, padded = getattr(s1, v).numpy(), getattr(s1p, v).numpy()
+        assert np.all(padded[7:, :] == 0.0) and np.all(padded[:, 7:] == 0.0), v
+        np.testing.assert_allclose(padded[:7, :7], real, rtol=0, atol=1e-13)
+
+
+# ---------------------------------------------------------------------------
+# batch-safe shifts and reductions
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dim", [2, 3])
+def test_batched_shifts_leak_nothing(dim):
+    ops, batched = (LOCAL_OPS, BATCHED_OPS) if dim == 2 else (LOCAL_OPS3, BATCHED_OPS3)
+    shape = (5, 4) if dim == 2 else (5, 4, 3)
+    ones = torch.ones(shape, dtype=torch.float64)
+    stack = torch.stack([ones, torch.zeros(shape, dtype=torch.float64), ones])
+    names = [n for n in dir(ops) if n.startswith("shift_")]
+    assert len(names) == 2 * dim
+    for name in names:
+        out = getattr(batched, name)(stack)
+        assert bool((out[1] == 0).all()), name
+        assert torch.equal(out[0], getattr(ops, name)(ones)), name
+        assert torch.equal(out[2], getattr(ops, name)(ones)), name
+    rng = np.random.default_rng(92)
+    u = torch.as_tensor(rng.standard_normal((3, *shape)))
+    sums, maxes = batched.asum(u), batched.amax(u)
+    assert sums.shape == maxes.shape == (3,) + (1,) * dim
+    for k in range(3):
+        assert float(sums[k].squeeze()) == pytest.approx(float(ops.asum(u[k])), rel=1e-15)
+        assert float(maxes[k].squeeze()) == float(ops.amax(u[k]))
+
+
+# ---------------------------------------------------------------------------
+# batched plain kernels against the unbatched ones, element by element
+# ---------------------------------------------------------------------------
+def _system(seed, shape):
+    """A diagonally dominant Stencil5 (2-D) or Stencil7 (3-D) Newton-shaped
+    system: planes, rhs, inverse diagonal, mask (numpy)."""
+    rng = np.random.default_rng(seed)
+    mask = np.zeros(shape)
+    mask[(slice(1, -1),) * len(shape)] = 1.0
+    c0 = (2.2 + 2.0 * (len(shape) - 2) + rng.random(shape)) * mask
+    planes = [c0] + [-rng.random(shape) * mask for _ in range(2 * len(shape))]
+    b = rng.standard_normal(shape) * mask
+    inv = np.where(mask > 0, 1.0 / np.where(c0 == 0, 1.0, c0), 0.0)
+    return planes, b, inv, mask
+
+
+def _batch(shape):
+    """Three systems: b = 0, A = c0·I (one iteration) and a dominant one."""
+    systems = [_system(93 + k, shape) for k in range(3)]
+    systems[0] = (systems[0][0], np.zeros(shape), *systems[0][2:])
+    planes1 = systems[1][0]
+    systems[1] = ([planes1[0]] + [np.zeros(shape)] * (len(planes1) - 1), *systems[1][1:])
+    to_st = stencil5_from_numpy if len(shape) == 2 else stencil7_from_numpy
+    one = [(to_st(p, torch.float64, "cpu"), *(tensor_from_numpy(a, torch.float64, "cpu")
+                                                for a in (b, inv, m))) for p, b, inv, m in systems]
+    stacked = (type(one[0][0])(*(torch.stack(c) for c in zip(*(s[0] for s in one)))),
+               *(torch.stack([s[k] for s in one]) for k in (1, 2, 3)))
+    return one, stacked
+
+
+@pytest.mark.parametrize("shape", [(9, 8), (6, 7, 5)], ids=["planes", "volumes"])
+@pytest.mark.parametrize("budget", [4, 60])
+def test_batched_plain_solve_is_each_system_alone(shape, budget):
+    solve = kernels.bicgstab_solve if len(shape) == 2 else kernels.bicgstab_solve3
+    one, (st, b, inv, mask) = _batch(shape)
+    x, info = solve(st, b, inv, mask, tol=1e-13, iters=budget)
+    assert info["iters"].shape == (3,)
+    assert info["resnorm_sq"].shape == info["converged"].shape == (3,) + (1,) * len(shape)
+    used = info["iters"].tolist()
+    assert used[:2] == [0, 1]
+    if budget == 4:
+        assert used[2] == 4 and not bool(info["converged"][2])  # the budget cuts it
+    else:
+        assert 4 < used[2] < budget and bool(info["converged"].all())
+    for k, (st_k, b_k, inv_k, mask_k) in enumerate(one):
+        x_k, info_k = solve(st_k, b_k, inv_k, mask_k, tol=1e-13, iters=budget)
+        assert int(info_k["iters"]) == used[k]
+        scale = max(float(x_k.abs().max()), 1e-300)
+        assert float((x[k] - x_k).abs().max()) <= 1e-13 * scale
+        assert float(info["resnorm_sq"][k].squeeze()) == pytest.approx(
+            float(info_k["resnorm_sq"]), rel=1e-10, abs=1e-300)
+
+
+@pytest.mark.parametrize("shape", [(9, 8), (6, 7, 5)], ids=["planes", "volumes"])
+def test_batched_plain_apply_is_each_system_alone(shape):
+    apply = kernels.stencil5_apply if len(shape) == 2 else kernels.stencil7_apply
+    one, (st, b, _inv, _mask) = _batch(shape)
+    rng = np.random.default_rng(94)
+    u = torch.as_tensor(rng.standard_normal(b.shape))
+    out = apply(st, u)
+    for k, (st_k, *_rest) in enumerate(one):
+        torch.testing.assert_close(out[k], apply(st_k, u[k]), rtol=0, atol=0)
+
+
+def test_triple_solve_takes_one_system():
+    one, (st, b, inv, mask) = _batch((9, 8))
+    with pytest.raises(ValueError, match="one system"):
+        kernels.triple_solve(st, st, st, st, st, b, b, b, b, inv, inv, inv, mask, 1e-3,
+                             tol=1e-13, iters=4)
+
+
+# ---------------------------------------------------------------------------
+# the batched entry points against the JAX package and the serial port
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def ladder():
+    return (
+        j_bl.run_spatial_ladder_batched("pol", levels=3, verbose=False),
+        run_spatial_ladder_batched("pol", levels=3, verbose=False, device="cpu"),
+        run_spatial_study("pol", levels=3, verbose=False, device="cpu"),
+    )
+
+
+def test_spatial_ladder_batched_matches_jax_and_serial(ladder):
+    jax_res, port, serial = ladder
+    assert port["Ns"] == jax_res["Ns"] == serial["Ns"] == [2, 4, 8]
+    assert port["kind"] == jax_res["kind"] and port["krylov_unroll"] == jax_res["krylov_unroll"]
+    assert set(port) >= set(jax_res)
+    for e_p, e_j, e_s in zip(port["errors"], jax_res["errors"], serial["errors"]):
+        assert _rel(e_p, e_j) <= 1e-10
+        assert _rel(e_p, e_s) <= 1e-10
+
+
+@pytest.fixture(scope="module")
+def eta_sweep():
+    return (
+        j_run_eta_study_batched("pol", verbose=False, **ETA_KW),
+        run_eta_study_batched("pol", verbose=False, device="cpu", **ETA_KW),
+        run_eta_study("pol", verbose=False, device="cpu", **ETA_KW),
+    )
+
+
+def test_eta_study_batched_matches_jax_and_serial(eta_sweep):
+    jax_res, port, serial = eta_sweep
+    assert port["etas"] == jax_res["etas"] == ETA_KW["etas"]
+    assert port["dt"] == jax_res["dt"] and set(port) == set(jax_res)
+    for e_p, e_j, e_s in zip(port["errors"], jax_res["errors"], serial["errors"]):
+        assert _rel(e_p, e_j) <= 1e-10
+        assert _rel(e_p, e_s) <= 1e-12
+
+
+def test_spatial_ladder3_batched_matches_jax_and_serial(model3):
+    j_model, t_model = model3
+    jax_res = j_bl3.run_spatial_ladder3_batched(JCase3, model=j_model, levels=2, base_N=4,
+                                                verbose=False)
+    port = run_spatial_ladder3_batched(MMSCaseExpSin3, model=t_model, levels=2, base_N=4,
+                                       verbose=False, device="cpu")
+    assert port["Ns"] == jax_res["Ns"] == [4, 8] and all(port["converged"])
+    assert set(port) == set(jax_res)
+    for k, (N, e_p, e_j) in enumerate(zip(port["Ns"], port["errors"], jax_res["errors"])):
+        assert _rel(e_p, e_j) <= 1e-10
+        e_s = mms_error3(MMSCaseExpSin3, N=N, model=t_model, Tf=0.02, dt=1e-2 / 2**k,
+                         integrator_params=dict(num_newton_steps=2), device="cpu")
+        assert _rel(e_p, e_s) <= 1e-12
+    with pytest.raises(NotImplementedError, match="mixed"):
+        run_spatial_ladder3_batched(MMSCaseExpSin3, model=t_model, levels=2, precision="mixed",
+                                    verbose=False, device="cpu")
+
+
+def test_eta_sweep3_matches_jax_and_serial(model3):
+    j_model, t_model = model3
+    jax_res = j_run_eta_sweep3(JCase3, model=j_model, **SWEEP3_KW)
+    port = run_eta_sweep3(MMSCaseExpSin3, model=t_model, device="cpu", **SWEEP3_KW)
+    assert port["etas"] == jax_res["etas"] and port["converged"] == jax_res["converged"] == [True] * 2
+    for eta, e_p, e_j in zip(port["etas"], port["errors"], jax_res["errors"]):
+        assert _rel(e_p, e_j) <= 1e-10
+        e_s = mms_error3(MMSCaseExpSin3, N=SWEEP3_KW["N"], model=t_model, Tf=SWEEP3_KW["Tf"],
+                         dt=SWEEP3_KW["dt"], eta=eta, device="cpu")
+        assert _rel(e_p, e_s) <= 1e-12

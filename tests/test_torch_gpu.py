@@ -529,3 +529,128 @@ def test_simulate_on_the_card_matches_the_cpu(card):
     assert kernels.LAUNCHES["bicgstab_solve"] == 30
     for a, b in zip(out[card], out["cpu"]):
         assert_close(a, b, 1e-10)
+
+
+# ---------------------------------------------------------------------------
+# the batch dimension of K1/K2/K5/K6
+# ---------------------------------------------------------------------------
+def _batch_of(seed, shape, dtype, device, n=3):
+    """A stack of systems of one shape: b = 0 (done at iteration 0), A = c0·I
+    (one iteration), then dominant ones; and the same systems one by one."""
+    systems = [list(_system(seed + k, shape, dtype, device)) for k in range(n)]
+    systems[0][1] = torch.zeros_like(systems[0][1])
+    st1 = systems[1][0]
+    systems[1][0] = type(st1)(st1[0], *(torch.zeros_like(c) for c in st1[1:]))
+    stacked = (type(systems[0][0])(*(torch.stack(c) for c in zip(*(s[0] for s in systems)))),
+               *(torch.stack([s[k] for s in systems]) for k in (1, 2, 3)))
+    return systems, stacked
+
+
+BATCH_SHAPES = [(65, 65), (5, 3), (130, 257), (17, 19, 21), (5, 5, 5), (33, 20, 41)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("budget", [3, 40])
+@pytest.mark.parametrize("shape", BATCH_SHAPES)
+def test_batched_solve_kernels_vs_plain_and_one_by_one(card, dtype, budget, shape):
+    """K1 (planes) and K5 (volumes) on a stack: ONE launch for the stack,
+    each system's iteration count and solution the batched plain version's
+    and the unbatched kernel's (at 1e-12 / 1e-5: the blocks split the sums
+    differently), grids under one block and ragged ones included."""
+    solve = kernels.bicgstab_solve if len(shape) == 2 else kernels.bicgstab_solve3
+    plain = kernels.bicgstab_solve_plain if len(shape) == 2 else kernels.bicgstab_solve3_plain
+    name = "bicgstab_solve" if len(shape) == 2 else "bicgstab_solve3"
+    systems, (st, b, inv, mask) = _batch_of(60, shape, dtype, card, n=4)
+    kernels.reset_launch_counts()
+    xk, ik = solve(st, b, inv, mask, tol=KRYLOV_TOL[dtype], iters=budget)
+    assert kernels.LAUNCHES[name] == 1
+    xp, ip = plain(st, b, inv, mask, tol=KRYLOV_TOL[dtype], iters=budget)
+    used = ik["iters"].tolist()
+    assert ik["iters"].shape == (4,) and used == ip["iters"].tolist()
+    assert used[:2] == [0, 1] and all(0 < u <= budget for u in used[2:])
+    assert float(xk[0].abs().max()) == 0.0
+    assert_close(xk, xp, TOL[dtype])
+    for k, (st_k, b_k, inv_k, mask_k) in enumerate(systems):
+        x1, i1 = solve(st_k, b_k, inv_k, mask_k, tol=KRYLOV_TOL[dtype], iters=budget)
+        assert int(i1["iters"]) == used[k]
+        assert_close(xk[k], x1, TOL[dtype])
+
+
+@pytest.mark.parametrize("shape", [(257, 257), (65, 65, 65)])
+def test_batch_of_one_is_the_unbatched_kernel_bit_for_bit(card, shape):
+    solve = kernels.bicgstab_solve if len(shape) == 2 else kernels.bicgstab_solve3
+    st, b, inv, mask = _system(61, shape, torch.float64, card)
+    x1, i1 = solve(st, b, inv, mask, tol=1e-13, iters=40)
+    xb, ib = solve(type(st)(*(c[None] for c in st)), b[None], inv[None], mask[None],
+                   tol=1e-13, iters=40)
+    assert ib["iters"].tolist() == [int(i1["iters"])]
+    assert torch.equal(xb[0], x1)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(8, 257, 257), (3, 5, 3), (5, 65, 65, 65), (2, 5, 3, 4)])
+def test_batched_apply_kernels_vs_plain(card, dtype, shape):
+    """K2/K6 on a stack: one launch; each plane's (volume's) own zero
+    inflow, so a stack of ones beside zeros leaks nothing."""
+    rng = np.random.default_rng(62)
+    to_st = stencil5_from_numpy if len(shape) == 3 else stencil7_from_numpy
+    apply = kernels.stencil5_apply if len(shape) == 3 else kernels.stencil7_apply
+    name = "stencil5_apply" if len(shape) == 3 else "stencil7_apply"
+    st = to_st([rng.standard_normal(shape) for _ in range(2 * len(shape) - 1)], dtype, card)
+    u = tensor_from_numpy(rng.standard_normal(shape), dtype, card)
+    u[1:2] = 0.0
+    kernels.reset_launch_counts()
+    out = apply(st, u)
+    assert kernels.LAUNCHES[name] == 1
+    plain = kernels.stencil5_apply_plain if len(shape) == 3 else kernels.stencil7_apply_plain
+    assert_close(out, plain(st, u), TOL[dtype])
+    assert float(out[1].abs().max()) == 0.0
+
+
+def test_batched_wrappers_refuse_bad_stacks(card):
+    st, b, inv, mask = _batch_of(63, (17, 17), torch.float64, card)[1]
+    with pytest.raises(ValueError, match="2-D planes or a stack"):
+        kernels.bicgstab_solve(type(st)(*(c[None] for c in st)), b[None], inv[None], mask[None],
+                               tol=1e-13, iters=4)
+    with pytest.raises(ValueError, match="must match"):  # a mismatched batch
+        kernels.bicgstab_solve(st, b[:2], inv[:2], mask[:2], tol=1e-13, iters=4)
+    with pytest.raises(ValueError, match="must match"):
+        kernels.stencil5_apply(st, b[:2])
+    big = 1 + kernels._lib("bicgstab").bicgstab_max_batch()
+    many = (type(st)(*(c[:1].expand(big, -1, -1).contiguous() for c in st)),
+            *(t[:1].expand(big, -1, -1).contiguous() for t in (b, inv, mask)))
+    with pytest.raises(ValueError, match="systems a launch"):
+        kernels.bicgstab_solve(*many, tol=1e-13, iters=4)
+    with pytest.raises(ValueError, match="one system"):
+        kernels.triple_solve(st, st, st, st, st, b, b, b, b, inv, inv, inv, mask, 1e-3,
+                             tol=1e-13, iters=4)
+
+
+def test_batched_solve_never_syncs(card):
+    """A batched K1 and K5 call, with their true residuals, under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    planes = _batch_of(64, (65, 65), torch.float64, card)[1]
+    volumes = _batch_of(65, (17, 17, 17), torch.float64, card)[1]
+    kernels.bicgstab_solve(*planes, tol=1e-13, iters=40)  # builds and sizes the grid
+    kernels.bicgstab_solve3(*volumes, tol=1e-13, iters=40)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        x, info = kernels.bicgstab_solve(*planes, tol=1e-13, iters=40)
+        x3, info3 = kernels.bicgstab_solve3(*volumes, tol=1e-13, iters=40)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(info["converged"].all()) and bool(info3["converged"].all())
+
+
+def test_batched_ladder_on_the_card_matches_the_cpu(card):
+    """The pol ladder N=2..64 as one batch on the card against the CPU plain
+    run (1e-10): 3 K1 launches a step of the finest level, 6 steps."""
+    from na_dd_tpu_torch.harness.batched_ladder import run_spatial_ladder_batched
+
+    cpu = run_spatial_ladder_batched("pol", levels=6, verbose=False, device="cpu")
+    kernels.reset_launch_counts()
+    gpu = run_spatial_ladder_batched("pol", levels=6, verbose=False, device=card)
+    assert kernels.LAUNCHES["bicgstab_solve"] == 3 * 6  # N=64: 6 steps
+    for a, b in zip(gpu["errors"], cpu["errors"]):
+        assert abs(a - b) <= 1e-10 * b

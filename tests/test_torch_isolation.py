@@ -53,6 +53,8 @@ def test_port_files_were_found():
         assert f"na_dd_tpu_torch/harness/{module}.py" in names
     assert "na_dd_tpu_torch/ops/direct_solve.py" in names
     assert "na_dd_tpu_torch/ops/adjoint.py" in names
+    for module in ("harness/batched_ladder", "three_d/batched_ladder"):
+        assert f"na_dd_tpu_torch/{module}.py" in names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
