@@ -48,7 +48,19 @@ version on the card, and drives the port's paths:
   and the 3-D eta sweep at N=32 (``run_eta_sweep3``), each against CPU-x64
   and, where it has one, the serial path on the card, with the batched
   K1/K2/K5/K6 (one launch a stack) against their batched plain versions
-  and against the unbatched kernels system by system.
+  and against the unbatched kernels system by system;
+* the solver options: the pol N=256 level with colour-probed planes
+  (``stencil_source="probe"``, K1/K2) and with the while form
+  (``krylov_unroll=None``: K1 at a budget of 300, bit for bit the default
+  level); the matrix-free route (``assemble_stencil=False``, no kernel) at
+  N=64; the 3-D ExpSin3 N=64 level with 7-colour probed volumes (K5/K6),
+  N=32 with ``linear_solver="direct"`` (x-plane BCR, the K6 verdict);
+  ``heat_mms_error`` at N=16..128 (Crank-Nicolson: K5 a step, K6 for the
+  rhs); ``differentiable=True`` on the 3-D sin bump (the adjoints by K5 on
+  transposed volumes) against CPU-x64 ``jax.grad``; both batched ladders in
+  ``precision="mixed"`` (float32 batched K1/K5 under per-level f64
+  refinement), each route's steady wall-clock in turns with the one it
+  mirrors.
 
 It checks the errors against the reference values and the launch counts of
 each path's main level (counts set to 0 just before it, read just after),
@@ -219,8 +231,9 @@ def nvidia_smi_line() -> str:
 
 
 def make_trial(N: int, dtype, device, dt=None, **integrator_kw):
-    """The pol level N; ``integrator_kw`` (coupling_source, fused_triple)
-    goes to the integrator."""
+    """The pol level N; ``integrator_kw`` (coupling_source, fused_triple,
+    stencil_source, krylov_unroll, ...) goes to the integrator, over the
+    protocol's Krylov budget."""
     from na_dd_tpu_torch.core.fields import FieldRegHCsTriple
     from na_dd_tpu_torch.core.forcing import MMSForcingRegHCsTriple
     from na_dd_tpu_torch.harness.studies import choose_krylov_unroll
@@ -241,12 +254,12 @@ def make_trial(N: int, dtype, device, dt=None, **integrator_kw):
         PCTrapezoidalRegHCsTriple,
         forcing_terms_params=dict(regularization_factor=ETA),
         field_params=dict(regularization_factor=ETA),
-        integrator_params=dict(
-            regularization_factor=ETA,
-            track_residuals=False,
-            krylov_unroll=choose_krylov_unroll(N, dt, POL_PEAKS_CONSTS),
+        integrator_params={
+            "regularization_factor": ETA,
+            "track_residuals": False,
+            "krylov_unroll": choose_krylov_unroll(N, dt, POL_PEAKS_CONSTS),
             **integrator_kw,
-        ),
+        },
     )
     return trial, dt
 
@@ -2657,21 +2670,9 @@ def check_adjoint(label, operands):
 
 def adjoint_row(label, operands):
     """:func:`check_adjoint`, then the timing row of K1 on that system."""
-    from na_dd_tpu_torch.ops import kernels
-
-    xk, xp, n_it = check_adjoint(label, operands)
+    xk, xp, _ = check_adjoint(label, operands)
     st_t, rhs, inv, m, tol, iters = operands
-    n = rhs.numel()
-
-    def k1():
-        return kernels.bicgstab_solve(st_t, rhs, inv, m, tol=tol, iters=iters)
-
-    row = kernel_row(
-        "bicgstab_solve", rhs.dtype, label=f"{label} ({n_it} iterations)",
-        device_ms=kernel_device_ms(k1, 100, "bicgstab_kernel"), wrapper_ms=time_ms(k1, 300),
-        plain_ms=time_ms(lambda: kernels.bicgstab_solve_plain(st_t, rhs, inv, m, tol=tol,
-                                                               iters=iters), 20),
-        nbytes=9 * n * rhs.element_size(), ops=(2 * 9 + 6 * 2 + 14) * n * max(n_it, 1))
+    row = solve_row(st_t, rhs, m, tol=tol, iters=iters, label=label, inv=inv)
     row["max_abs_err"] = float((xk - xp).abs().max())
     return row
 
@@ -3027,68 +3028,19 @@ def batched_step1(build, ops):
 
 
 def batched_timing_rows(st, b, mask, iters, label):
-    """Timing rows of the batched solve and apply on one step-1 stack:
-    device time, wrapper call, plain version, bound (each input read once,
-    x written; the operations of the iterations each system takes)."""
-    import torch
-
-    from na_dd_tpu_torch.ops import kernels
-
-    planes = b.dim() == 3
-    solve = kernels.bicgstab_solve if planes else kernels.bicgstab_solve3
-    plain = kernels.bicgstab_solve_plain if planes else kernels.bicgstab_solve3_plain
-    apply = kernels.stencil5_apply if planes else kernels.stencil7_apply
-    apply_plain = kernels.stencil5_apply_plain if planes else kernels.stencil7_apply_plain
-    points = 5 if planes else 7
-    inv = jacobi(st, mask)
-    tol = 1e-13
-    used = solve(st, b, inv, mask, tol=tol, iters=iters)[1]["iters"].tolist()
-    n, item = b.numel(), b.element_size()
-    per_point = 2 * points - 1  # operations of one apply at one point
-    sweeps = sum(max(u, 1) for u in used)  # each system's iterations, at least pass A's
-
-    def k_solve():
-        return solve(st, b, inv, mask, tol=tol, iters=iters)
-
-    def k_apply():
-        return apply(st, b)
-
-    name_s = "bicgstab_solve" if planes else "bicgstab_solve3"
-    name_a = "stencil5_apply" if planes else "stencil7_apply"
-    rows = {
-        name_a: kernel_row(
-            name_a, b.dtype, label=label,
-            device_ms=kernel_device_ms(k_apply, 100, f"{name_a}_kernel"),
-            wrapper_ms=time_ms(k_apply, 500),
-            plain_ms=time_ms(lambda: apply_plain(st, b), 50),
-            nbytes=(points + 2) * n * item, ops=per_point * n),
-        name_s: kernel_row(
-            name_s, b.dtype, label=f"{label} (iterations {used})",
-            device_ms=kernel_device_ms(k_solve, 20, "bicgstab_kernel"),
-            wrapper_ms=time_ms(k_solve, 50),
-            plain_ms=time_ms(lambda: plain(st, b, inv, mask, tol=tol, iters=iters), 5),
-            nbytes=(points + 4) * n * item,
-            ops=(2 * per_point + 6 * 2 + 14) * (n // b.shape[0]) * sweeps),
-    }
-    log(f"[time] {name_s} {label}: one launch for {b.shape[0]} systems, iterations {used}")
-    return rows
+    """Timing rows of the batched solve and apply on one step-1 stack."""
+    name_s, name_a = (("bicgstab_solve", "stencil5_apply") if len(st) == 5
+                      else ("bicgstab_solve3", "stencil7_apply"))
+    return {name_a: apply_row(st, b, label),
+            name_s: solve_row(st, b, mask, tol=1e-13, iters=iters, label=label)}
 
 
 def steady_pair(runs, repeats=3):
     """``repeats`` wall-clock times of each ``{name: callable}`` (each ends
     in its own host transfer), after a warm-up of each, in turns."""
-    import torch
-
     for fn in runs.values():
         fn()
-    times = {name: [] for name in runs}
-    for _ in range(repeats):
-        for name, fn in runs.items():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            times[name].append(time.perf_counter() - t0)
-    return times
+    return turns(runs, repeats)[1]
 
 
 def profile_batched(label, run_steps, steps):
@@ -3160,9 +3112,9 @@ def phase_batched(device):
     times = steady_pair({
         "batched": ladder["run"],
         "serial": lambda: [tr.run_for_errors(Tf=TF, dt=dt) for tr, dt in serial.values()],
-    })
+    }, repeats=1)
     steady = {k: min(v) for k, v in times.items()}
-    log("[batched] steady wall-clock in turns (min of 3 after a warm-up): batched ladder "
+    log("[batched] steady wall-clock in turns (one run after a warm-up): batched ladder "
         f"{steady['batched']:.6f} s (runs {', '.join(f'{x:.6f}' for x in times['batched'])}), "
         f"serial ladder {steady['serial']:.6f} s (runs "
         f"{', '.join(f'{x:.6f}' for x in times['serial'])}); serial / batched "
@@ -3224,12 +3176,27 @@ def phase_eta_batched(device):
     times = steady_pair({
         "batched": sweep["run"],
         "serial": lambda: [tr.run_for_errors(Tf=0.01, dt=dt) for tr in trials],
-    })
+    }, repeats=1)
     steady = {k: min(v) for k, v in times.items()}
-    log(f"[eta batched] steady wall-clock in turns (min of 3): batched {steady['batched']:.6f} s, "
+    log(f"[eta batched] steady wall-clock in turns (one run after a warm-up): batched {steady['batched']:.6f} s, "
         f"serial {steady['serial']:.6f} s; serial / batched "
         f"{steady['serial'] / steady['batched']:.2f}")
-    return dict(launches=launches, steady=steady, errors=res["errors"])
+
+    # K1 on the sweep's step-1 T stack (7 x 33^2: one grid, seven states)
+    from na_dd_tpu_torch.integrators.pc_trapezoidal import _one_shape
+    from na_dd_tpu_torch.ops.shifts import BATCHED_OPS
+
+    integ = sweep["integrator"]
+    rec = integ.solver = RecordingSolver(integ.solver)
+    integ.step_fn(sweep["grid"], BATCHED_OPS, sweep["state"],
+                  torch.zeros((), dtype=torch.float64, device=device), sweep["dt"])
+    integ.solver = rec.inner
+    st, b, mask = _one_shape(*rec.systems[0])
+    err, _ = compare_batched_solve(st, b, jacobi(st, mask), mask, tol=1e-13, iters=rec.inner.iters,
+                                   xtol=1e-12, label="f64 7x33^2 eta sweep step-1 T")
+    row = solve_row(st, b, mask, tol=1e-13, iters=rec.inner.iters, label="f64 7x33^2 eta sweep")
+    row["max_abs_err"] = err
+    return dict(launches=launches, steady=steady, errors=res["errors"], row=row)
 
 
 def phase_batched3(device):
@@ -3287,9 +3254,9 @@ def phase_batched3(device):
         "batched": ladder["run"],
         "serial": lambda: [run_trial3(g, case, integ, Tf=TF3, dt=dt3(N))
                            for N, (g, case, integ) in serial.items()],
-    })
+    }, repeats=1)
     steady = {k: min(v) for k, v in times.items()}
-    log("[batched3] steady wall-clock in turns (min of 3 after a warm-up): batched ladder "
+    log("[batched3] steady wall-clock in turns (one run after a warm-up): batched ladder "
         f"{steady['batched']:.6f} s (runs {', '.join(f'{x:.6f}' for x in times['batched'])}), "
         f"serial run_trial3 ladder {steady['serial']:.6f} s (runs "
         f"{', '.join(f'{x:.6f}' for x in times['serial'])}); serial / batched "
@@ -3347,6 +3314,601 @@ def phase_eta3(device):
     return dict(launches=launches, wall=wall, errors=res["errors"])
 
 
+# ---------------------------------------------------------------------------
+# the solver options: probed planes, the while form, matrix-free, and in 3-D
+# probing, the direct solve, the Crank-Nicolson heat solve, gradients; the
+# batched ladders in mixed precision
+# ---------------------------------------------------------------------------
+# The JAX package's CPU-x64 values of the options (studies/options_cpu_x64.py,
+# into studies/results/options_cpu_x64.json): the pol level N=64, 10 steps of
+# dt = h^1.5, matrix-free with the while form; heat_mms_error (D=0.1,
+# Tf=0.1, dt=Tf/20); the 3-D sin bump's sum of w_H*cd after 8 steps and its
+# gradients in Kd and in the initial amplitude.
+MATRIX_FREE = dict(N=64, steps=10)
+MATRIX_FREE_CPU_X64 = 1.3439022196462837e-07
+HEAT3_CPU_X64 = {16: 0.0002760560264005336, 32: 6.901137879103326e-05,
+                 64: 1.7210125861546553e-05, 128: 4.257307425284447e-06}
+# The heat errors differ from CPU-x64 by rounding of the solution (|u| <= 1):
+# the port applies I - dt/2 L as assembled planes (K5's form), the JAX package
+# as m*(w - dt/2 L w); 1-2 iterations a solve. Its floor is ~1e-14 absolute,
+# 3e-10 of the N=64 error on the CPU plain run as on the card, so the gate to
+# CPU-x64 is 1e-10 relative plus HEAT3_FLOOR; the card is held to the CPU
+# plain run at 1e-10 relative.
+HEAT3_FLOOR = 1e-13
+GRAD3 = dict(N=64, steps=8, dt=1e-3)
+GRAD3_CPU_X64 = {"value": 0.012964192303252466, "Kd": 0.007134464291374704,
+                 "amplitude": 0.012895434415324552}
+DIRECT3_N = 32
+WHILE_BUDGET = 300  # the integrator's krylov_maxiter, the while form's cap
+
+
+def counted(fn):
+    """``fn()`` with the kernel launch counts set to 0 just before and read
+    just after: (result, launches, float32 launches)."""
+    import torch
+
+    from na_dd_tpu_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(kernels.LAUNCHES), dict(kernels.LAUNCHES_F32)
+
+
+def turns(runs, repeats=1):
+    """Wall-clock of each ``{name: callable}``, ``repeats`` rounds taken in
+    turns, with no warm-up of their own (each route has run before in this
+    process, or, for a route's first run, its kernels have).  Returns (the
+    min of each, the times, each callable's last result)."""
+    import torch
+
+    times = {name: [] for name in runs}
+    results = {}
+    for _ in range(repeats):
+        for name, fn in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results[name] = fn()
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+    return {name: min(v) for name, v in times.items()}, times, results
+
+
+def solve_row(st, b, mask, *, tol, iters, label, inv=None):
+    """The timing row of K1 (planes) or K5 (volumes) on one system or a
+    stack: device time, wrapper call, plain version, bound (each input read
+    once, x written; the operations of the iterations each system takes)."""
+    from na_dd_tpu_torch.ops import kernels
+
+    nd = 2 if len(st) == 5 else 3
+    solve = kernels.bicgstab_solve if nd == 2 else kernels.bicgstab_solve3
+    plain = kernels.bicgstab_solve_plain if nd == 2 else kernels.bicgstab_solve3_plain
+    inv = jacobi(st, mask) if inv is None else inv
+    used = solve(st, b, inv, mask, tol=tol, iters=iters)[1]["iters"].reshape(-1).tolist()
+    nsys = b.shape[0] if b.dim() > nd else 1
+    points = 2 * nd + 1
+    per_point = 2 * points - 1
+
+    def k_solve():
+        return solve(st, b, inv, mask, tol=tol, iters=iters)
+
+    return kernel_row(
+        "bicgstab_solve" if nd == 2 else "bicgstab_solve3", b.dtype,
+        label=f"{label} (iterations {used})",
+        device_ms=kernel_device_ms(k_solve, 20, "bicgstab_kernel"), wrapper_ms=time_ms(k_solve, 50),
+        plain_ms=time_ms(lambda: plain(st, b, inv, mask, tol=tol, iters=iters), 3),
+        nbytes=(points + 4) * b.numel() * b.element_size(),
+        ops=(2 * per_point + 6 * 2 + 14) * (b.numel() // nsys) * sum(max(u, 1) for u in used))
+
+
+def apply_row(st, u, label):
+    """The timing row of K2 (planes) or K6 (volumes) on one operand."""
+    from na_dd_tpu_torch.ops import kernels
+
+    nd = 2 if len(st) == 5 else 3
+    apply = kernels.stencil5_apply if nd == 2 else kernels.stencil7_apply
+    plain = kernels.stencil5_apply_plain if nd == 2 else kernels.stencil7_apply_plain
+    points = 2 * nd + 1
+    name = "stencil5_apply" if nd == 2 else "stencil7_apply"
+    k, p = apply(st, u), plain(st, u)
+    # relative to the sum of the terms' magnitudes (a diffusion apply of a
+    # smooth field cancels them by orders of magnitude)
+    scale = float(plain(type(st)(*(c.abs() for c in st)), u.abs()).max())
+    rel = float((k - p).abs().max()) / max(scale, 1e-300)
+    log(f"[{'k2' if nd == 2 else 'k6'}] {label}: max diff to the plain version {rel:.3e} of the "
+        "terms' magnitude (limit 1e-14)")
+    check(bool(k.isfinite().all()) and rel <= 1e-14, f"{name} {label} disagrees")
+    row = kernel_row(
+        name, u.dtype, label=label,
+        device_ms=kernel_device_ms(lambda: apply(st, u), 100, f"{name}_kernel"),
+        wrapper_ms=time_ms(lambda: apply(st, u), 300), plain_ms=time_ms(lambda: plain(st, u), 30),
+        nbytes=(points + 2) * u.numel() * u.element_size(), ops=(2 * points - 1) * u.numel())
+    row["max_abs_err"] = float((k - p).abs().max())
+    return row
+
+
+def check_counts(tag, launches, expected):
+    """Each kernel's launches exactly as ``expected`` (absent: 0)."""
+    for name, count in launches.items():
+        want = expected.get(name, 0)
+        check(count == want, f"{tag}: {name} launched {count} times, expected {want}")
+
+
+def phase_probe(device):
+    """The pol N=256 main level with stencil_source="probe": the Newton
+    planes from 5 colour probes of the linearized field graph, solved by K1
+    (123 launches, 123 K2 for the verdicts); ≤1e-8 to CPU-x64 and ≤1e-12 to
+    the analytic-plane level; the step-1 probed planes against the closed
+    form on the card; steady wall-clock in turns with the analytic route."""
+    import torch
+
+    from na_dd_tpu_torch.ops import linsolve
+
+    # the step-1 T planes, probed and closed-form, on the card
+    trial, dt = make_trial(MAIN_N, torch.float64, device, stencil_source="probe")
+    systems, _ = step1_systems(torch.float64, device, N=MAIN_N)
+    integ = trial.integrator
+    rec = integ.solver = RecordingSolver(integ.solver)
+    integ.step_fn(trial.grid, trial.ops, trial.initial_state,
+                  torch.zeros((), dtype=torch.float64, device=device), dt)
+    integ.solver = rec.inner
+    worst = max(rel_to_max(p, a) for (sp, _, _), (sa, _, _) in zip(rec.systems, systems)
+                for p, a in zip(sp, sa))
+    log(f"[probe] step-1 probed planes against the closed form: max rel {worst:.3e} (limit 1e-12)")
+    check(worst <= 1e-12, "probe: the probed planes are off the closed form")
+    check(isinstance(rec.systems[0][0], linsolve.Stencil5), "probe: planes are not a Stencil5")
+
+    trial_an, _ = make_trial(MAIN_N, torch.float64, device)
+    trial_an.run_for_errors(Tf=TF, dt=dt)  # warm-up of the analytic route
+    steady, _, results = turns({
+        "probe": lambda: counted(lambda: trial.run_for_errors(Tf=TF, dt=dt)),
+        "analytic": lambda: trial_an.run_for_errors(Tf=TF, dt=dt),
+    })
+    s, launches, _ = results["probe"]
+    err = s.overall_combined_error
+    rel_x64 = abs(err - N256_CPU_X64) / N256_CPU_X64
+    rel_an = abs(err - N256_F64_PORT) / N256_F64_PORT
+    log(f"[probe] pol N=256 probed planes: error {err!r}, vs CPU-x64 rel {rel_x64:.3e} (limit "
+        f"1e-8), vs the analytic-plane level {N256_F64_PORT!r} rel {rel_an:.3e} (limit 1e-12); "
+        f"launches {launches}; Krylov iterations {int(s.series.krylov_iters.sum())}")
+    check(math.isfinite(err) and rel_x64 <= 1e-8 and rel_an <= 1e-12, "probe: off the references")
+    check(bool(s.series.krylov_converged.all()), "probe: a solve did not converge")
+    check_counts("probe", launches, {"bicgstab_solve": 123, "stencil5_apply": 123})
+
+    g, ops = trial.grid, trial.ops
+    t0 = torch.zeros((), dtype=torch.float64, device=device)
+    per_step = {}
+    for route, tr in (("probe", trial), ("analytic", trial_an)):
+        per_step[route] = launches_of(
+            lambda tr=tr: tr.integrator.step_fn(g, ops, tr.initial_state, t0, dt)[0].T.sum().cpu())
+    log(f"[probe] launches a step: probe {per_step['probe']}, analytic {per_step['analytic']}")
+    log(f"[probe] wall-clock in turns (each route warm): probe {steady['probe']:.6f} s, analytic "
+        f"{steady['analytic']:.6f} s")
+    return dict(launches=launches, err=err, steady=steady, per_step=per_step)
+
+
+def phase_while_form(device):
+    """The same level with krylov_unroll=None (the JAX package's while form):
+    K1 with a budget of krylov_maxiter = 300, which breaks when done, so the
+    level is bit for bit the default route's; K1 at budget 300 against 8 on
+    the step-1 T system, in turns; steady wall-clock in turns."""
+    import torch
+
+    from na_dd_tpu_torch.ops import kernels
+
+    trial, dt = make_trial(MAIN_N, torch.float64, device, krylov_unroll=None)
+    check(trial.integrator.solver.iters == WHILE_BUDGET, "while form: the budget is not 300")
+    s, launches, _ = counted(lambda: trial.run_for_errors(Tf=TF, dt=dt))
+    err = s.overall_combined_error
+    log(f"[while] pol N=256, krylov_unroll=None: error {err!r} (the port's {N256_F64_PORT!r}); "
+        f"launches {launches}; Krylov iterations {int(s.series.krylov_iters.sum())}")
+    check(err == N256_F64_PORT, "while form: the level moved from the default route's bits")
+    check_counts("while form", launches, {"bicgstab_solve": 123, "stencil5_apply": 123})
+
+    systems, solver = step1_systems(torch.float64, device, N=MAIN_N)
+    st, b, mask = systems[0]
+    inv = jacobi(st, mask)
+    err300, it300 = compare_solve(st, b, inv, mask, tol=1e-13, iters=WHILE_BUDGET, xtol=1e-12,
+                                  label="step-1 T, budget 300")
+    x8 = kernels.bicgstab_solve(st, b, inv, mask, tol=1e-13, iters=solver.iters)[0]
+    x300 = kernels.bicgstab_solve(st, b, inv, mask, tol=1e-13, iters=WHILE_BUDGET)[0]
+    check(torch.equal(x8, x300), "while form: budget 300 and the default budget differ")
+    pair = {}
+    for _ in range(2):
+        for budget in (WHILE_BUDGET, solver.iters):
+            ms = kernel_device_ms(lambda: kernels.bicgstab_solve(
+                st, b, inv, mask, tol=1e-13, iters=budget), 50, "bicgstab_kernel")
+            pair.setdefault(budget, []).append(ms)
+    log(f"[while] K1 on the step-1 T system ({it300} iterations), device time in turns: budget "
+        f"{WHILE_BUDGET} " + ", ".join(f"{1e3 * v:.2f}" for v in pair[WHILE_BUDGET])
+        + f" us; budget {solver.iters} " + ", ".join(f"{1e3 * v:.2f}" for v in pair[solver.iters])
+        + " us")
+    row = solve_row(st, b, mask, tol=1e-13, iters=WHILE_BUDGET, label="f64 257^2 budget 300",
+                    inv=inv)
+    row["max_abs_err"] = err300
+    trial_d, _ = make_trial(MAIN_N, torch.float64, device)
+    steady, runs, _ = turns({
+        "while": lambda: trial.run_for_errors(Tf=TF, dt=dt),
+        "default": lambda: trial_d.run_for_errors(Tf=TF, dt=dt),
+    }, repeats=2)
+    log(f"[while] steady wall-clock in turns: while form {steady['while']:.6f} s, default budget "
+        f"{steady['default']:.6f} s (min of 2; runs {runs})")
+    return dict(launches=launches, err=err, steady=steady, row=row, pair=pair)
+
+
+def phase_matrix_free(device):
+    """assemble_stencil=False at pol N=64, 10 steps of the protocol's dt:
+    the plain while-form BiCGStab on the linearized graph (no kernel solves
+    a graph: no launch of any kernel); ≤1e-9 to the analytic route on the
+    card and ≤1e-8 to CPU-x64; steady wall-clock in turns."""
+    import torch
+
+    from na_dd_tpu_torch.harness.studies import _make_trial, study_consts
+    from na_dd_tpu_torch.mms.cases import MMSCasePol
+
+    N, steps = MATRIX_FREE["N"], MATRIX_FREE["steps"]
+    dt = (1.0 / N) ** 1.5
+    kw = dict(mc=study_consts("pol"), krylov_unroll=None, dtype=torch.float64, device=device)
+    trial = _make_trial(MMSCasePol, N, ETA, assemble_stencil=False, **kw)
+    trial_an = _make_trial(MMSCasePol, N, ETA, **kw)
+    s, launches, _ = counted(lambda: trial.run_for_errors(Tf=steps * dt, dt=dt))
+    err = s.overall_combined_error
+    s_an, launches_an, _ = counted(lambda: trial_an.run_for_errors(Tf=steps * dt, dt=dt))
+    err_an = s_an.overall_combined_error
+    rel_an = abs(err - err_an) / err_an
+    rel_x64 = abs(err - MATRIX_FREE_CPU_X64) / MATRIX_FREE_CPU_X64
+    log(f"[matrix_free] pol N={N}, {steps} steps: error {err!r}, vs the analytic route on the "
+        f"card {err_an!r} rel {rel_an:.3e} (limit 1e-9), vs CPU-x64 {MATRIX_FREE_CPU_X64!r} rel "
+        f"{rel_x64:.3e} (limit 1e-8); launches {launches} (analytic {launches_an}); Krylov "
+        f"iterations {int(s.series.krylov_iters.sum())} (analytic "
+        f"{int(s_an.series.krylov_iters.sum())})")
+    check(math.isfinite(err) and rel_an <= 1e-9 and rel_x64 <= 1e-8, "matrix_free: off")
+    check(bool(s.series.krylov_converged.all()), "matrix_free: a solve did not converge")
+    check_counts("matrix_free", launches, {})
+    steady, runs, _ = turns({
+        "matrix_free": lambda: trial.run_for_errors(Tf=steps * dt, dt=dt),
+        "analytic": lambda: trial_an.run_for_errors(Tf=steps * dt, dt=dt),
+    }, repeats=2)
+    log(f"[matrix_free] steady wall-clock in turns: matrix-free {steady['matrix_free']:.6f} s, "
+        f"analytic planes {steady['analytic']:.6f} s (min of 2; runs {runs})")
+    return dict(launches=launches, err=err, steady=steady)
+
+
+def phase_probe3(device):
+    """The 3-D ExpSin3 level N=64 (32 steps) with stencil_source="probe":
+    7-colour probes, K5/K6 (192 each); ≤1e-8 to CPU-x64; steady wall-clock in
+    turns with the analytic level."""
+    import torch
+
+    from na_dd_tpu_torch.three_d.harness import run_trial3
+
+    N, dt = MAIN_N3, dt3(MAIN_N3)
+    g, case, integ = make_trial3(N, torch.float64, device, stencil_source="probe")
+    g_a, case_a, integ_a = make_trial3(N, torch.float64, device)
+    run_trial3(g_a, case_a, integ_a, Tf=TF3, dt=dt)  # warm-up of the analytic route
+    steady, _, results = turns({
+        "probe": lambda: counted(lambda: run_trial3(g, case, integ, Tf=TF3, dt=dt)),
+        "analytic": lambda: run_trial3(g_a, case_a, integ_a, Tf=TF3, dt=dt),
+    })
+    r, launches, _ = results["probe"]
+    err, ref = r["error"], THREE_D_CPU_X64[N]
+    rel = abs(err - ref) / ref
+    log(f"[probe3] ExpSin3 N={N} probed volumes: error {err!r}, vs CPU-x64 rel {rel:.3e} (limit "
+        f"1e-8); launches {launches}")
+    check(math.isfinite(err) and rel <= 1e-8 and r["krylov_converged"], "probe3: off CPU-x64")
+    check_counts("probe3", launches, {"bicgstab_solve3": 192, "stencil7_apply": 192})
+    log(f"[probe3] wall-clock in turns (each route warm): probe {steady['probe']:.6f} s, analytic "
+        f"{steady['analytic']:.6f} s")
+    return dict(launches=launches, err=err, steady=steady)
+
+
+def phase_direct3(device):
+    """ExpSin3 N=32 with linear_solver="direct" (block cyclic reduction over
+    x-plane blocks, the K6 verdict a solve: 96 K6, no K5) against the Krylov
+    level on the card and CPU-x64 (1e-8 each); the step-1 BCR solutions
+    against K5's; one BCR solve's time beside one K5 call's; the K6 verdict
+    row at 33^3; steady wall-clock in turns."""
+    import torch
+
+    from na_dd_tpu_torch.ops import kernels
+    from na_dd_tpu_torch.three_d.direct_solve import stencil7_solve_direct
+    from na_dd_tpu_torch.three_d.harness import run_trial3
+
+    N = DIRECT3_N
+    systems, solver = step1_systems3(N, torch.float64, device)
+    for (st, b, mask), name in zip(systems[:3], ("T", "cl", "cd")):
+        x_bcr = stencil7_solve_direct(st, b, mask)
+        x_k5, info = kernels.bicgstab_solve3(st, b, jacobi(st, mask), mask, tol=1e-13,
+                                             iters=solver.iters)
+        rel = rel_to_max(x_bcr, x_k5)
+        res = float(torch.linalg.norm((b - kernels.stencil7_apply(st, x_bcr)) * mask)
+                    / torch.linalg.norm(b))
+        log(f"[direct3] step-1 {name}: BCR vs K5 rel {rel:.3e} (limit 1e-10), BCR true residual "
+            f"{res:.3e} of |b| (limit 1e-12); K5 {int(info['iters'])} iterations")
+        check(rel <= 1e-10 and res <= 1e-12, f"direct3: step-1 {name} BCR solve")
+    st, b, mask = systems[0]
+    x_bcr = stencil7_solve_direct(st, b, mask)
+    bcr_ms = time_ms(lambda: stencil7_solve_direct(st, b, mask), 3)
+    k5_ms = time_ms(lambda: kernels.bicgstab_solve3(st, b, jacobi(st, mask), mask, tol=1e-13,
+                                                    iters=solver.iters), 20)
+    log(f"[direct3] one BCR solve of the step-1 T system at {N + 1}^3 {bcr_ms:.3f} ms against the "
+        f"K5 call {k5_ms:.3f} ms (CUDA events, calls back to back)")
+    verdict_row = apply_row(st, x_bcr, f"f64 {N + 1}^3 direct verdict")
+    del systems, st, b, mask, x_bcr
+
+    dt = dt3(N)
+    g, case, integ = make_trial3(N, torch.float64, device, linear_solver="direct")
+    g_k, case_k, integ_k = make_trial3(N, torch.float64, device)
+    run_trial3(g_k, case_k, integ_k, Tf=TF3, dt=dt)  # warm-up of the Krylov route
+    steady, _, results = turns({
+        "direct": lambda: counted(lambda: run_trial3(g, case, integ, Tf=TF3, dt=dt)),
+        "krylov": lambda: run_trial3(g_k, case_k, integ_k, Tf=TF3, dt=dt),
+    })
+    (r, launches, _), r_k = results["direct"], results["krylov"]
+    err, err_k, ref = r["error"], r_k["error"], THREE_D_CPU_X64[N]
+    rel_k, rel_x64 = abs(err - err_k) / err_k, abs(err - ref) / ref
+    nsteps = round(TF3 / dt)
+    log(f"[direct3] ExpSin3 N={N} direct: error {err!r}, vs Krylov on the card {err_k!r} rel "
+        f"{rel_k:.3e}, vs CPU-x64 rel {rel_x64:.3e} (limits 1e-8); launches {launches}")
+    check(math.isfinite(err) and rel_k <= 1e-8 and rel_x64 <= 1e-8, "direct3: off")
+    check(r["krylov_converged"], "direct3: a true-residual verdict failed")
+    check_counts("direct3", launches, {"stencil7_apply": 6 * nsteps})
+    log(f"[direct3] wall-clock in turns (each route warm): direct {steady['direct']:.6f} s, "
+        f"Krylov {steady['krylov']:.6f} s")
+    return dict(launches=launches, err=err, steady=steady, bcr_ms=bcr_ms, k5_ms=k5_ms,
+                row=verdict_row)
+
+
+def phase_heat3(device):
+    """heat_mms_error at N=16, 32, 64, 128 (D=0.1, Tf=0.1, dt=Tf/20): each
+    ≤1e-10 to CPU-x64, the observed rate within 0.05 of 2 at the finest
+    pair, one K5 a step (and two K6: the rhs and the verdict); K5 on the
+    129^3 Crank-Nicolson planes and K6 on the diffusion planes against their
+    plain versions, and their timing rows."""
+    import torch
+
+    from na_dd_tpu_torch.three_d.diffusion import diffusion_planes3, heat_mms_error, heat_planes
+    from na_dd_tpu_torch.three_d.grid import make_uniform_grid3
+    from na_dd_tpu_torch.three_d.shifts import LOCAL_OPS3
+
+    errors, walls = {}, {}
+    steps = 20
+    for N in sorted(HEAT3_CPU_X64):
+        t0 = time.perf_counter()
+        e, launches, _ = counted(lambda N=N: heat_mms_error(N, D=0.1, Tf=0.1, device=device))
+        walls[N] = time.perf_counter() - t0
+        errors[N] = e
+        ref = HEAT3_CPU_X64[N]
+        diff = abs(e - ref)
+        log(f"[heat3] N={N}: error {e!r}, vs CPU-x64 rel {diff / ref:.3e}, abs {diff:.3e} (limit "
+            f"1e-10 rel + {HEAT3_FLOOR:g}); {walls[N]:.3f} s (first run); launches {launches}")
+        check(math.isfinite(e) and diff <= 1e-10 * ref + HEAT3_FLOOR, f"heat3 N={N} off CPU-x64")
+        if N <= 64:
+            e_cpu = heat_mms_error(N, D=0.1, Tf=0.1, device="cpu")
+            rel_cpu = abs(e - e_cpu) / e_cpu
+            log(f"[heat3] N={N}: card vs the CPU plain run {e_cpu!r} rel {rel_cpu:.3e} (limit 1e-10)")
+            check(rel_cpu <= 1e-10, f"heat3 N={N}: the card and the CPU disagree")
+        check_counts(f"heat3 N={N}", launches, {"bicgstab_solve3": steps,
+                                                "stencil7_apply": 2 * steps})
+    coarse, fine = sorted(errors)[-2:]
+    rate = math.log2(errors[coarse] / errors[fine])
+    log(f"[heat3] observed rate at N={coarse}/{fine} {rate:.4f} (limit |rate - 2| <= 0.05)")
+    check(abs(rate - 2.0) <= 0.05, "heat3: the rate is off 2")
+    heat_launches = launches
+    t0 = time.perf_counter()
+    heat_mms_error(fine, D=0.1, Tf=0.1, device=device)
+    steady = time.perf_counter() - t0
+    log(f"[heat3] N={fine} steady wall-clock {steady:.6f} s ({steps} steps)")
+
+    g = make_uniform_grid3(fine, fine, fine, device=device)
+    aD = torch.full_like(g.xx, 0.1)
+    st = diffusion_planes3(g, LOCAL_OPS3, aD, aD, aD)
+    planes = heat_planes(g, LOCAL_OPS3, st, 0.1 / steps)
+    u = torch.sin(math.pi * g.xx) * torch.sin(math.pi * g.yy) * torch.sin(math.pi * g.zz)
+    u = u * g.interior_mask
+    side = f"{fine + 1}^3"
+    err_k5, _ = compare_solve(planes, u, jacobi(planes, g.interior_mask), g.interior_mask,
+                                tol=1e-12, iters=32, xtol=1e-12, label=f"{side} CN planes")
+    solve = solve_row(planes, u, g.interior_mask, tol=1e-12, iters=32, label=f"f64 {side} CN heat")
+    solve["max_abs_err"] = err_k5
+    rhs = apply_row(st, u, f"f64 {side} CN rhs")
+    return dict(launches=heat_launches, errors=errors, steady=steady, rows={
+        "bicgstab_solve3": solve, "stencil7_apply": rhs})
+
+
+def grad3_run(device, Kd, amp, differentiable, solver_wrap=None):
+    """The 3-D sin bump (tests/test_three_d_model.py's, N=64) for GRAD3
+    steps; returns (Σ w_H·cd at the end, the integrator).  With
+    ``differentiable`` each step runs under torch.utils.checkpoint."""
+    import torch
+
+    from na_dd_tpu_torch.core.state import State
+    from na_dd_tpu_torch.models.coefficients import Model02
+    from na_dd_tpu_torch.models.consts import default_model_consts
+    from na_dd_tpu_torch.three_d.grid import make_uniform_grid3
+    from na_dd_tpu_torch.three_d.harness import make_integrator3
+    from na_dd_tpu_torch.three_d.shifts import LOCAL_OPS3
+
+    N, dt = GRAD3["N"], GRAD3["dt"]
+    g = make_uniform_grid3(N, N, N, device=device)
+    bump = (torch.sin(math.pi * g.xx) * torch.sin(math.pi * g.yy) * torch.sin(math.pi * g.zz)
+            ) * g.interior_mask
+    mc = default_model_consts._replace(gamma_T=1e-2, **THREE_D_CONSTS)._replace(Kd=Kd)
+    integ = make_integrator3(g, Model02(mc), differentiable=differentiable)
+    if solver_wrap is not None:
+        integ.solver = solver_wrap(integ.solver)
+
+    def step(t, *fields):
+        return tuple(integ.step_fn(g, LOCAL_OPS3, State(*fields), t, dt)[0])
+
+    s = (0.2 * amp * bump, 0.1 * amp * bump, 0.0 * bump, 0.05 * amp * bump, amp * bump)
+    for k in range(GRAD3["steps"]):
+        t = torch.tensor(k * dt, dtype=torch.float64, device=device)
+        if differentiable:
+            s = torch.utils.checkpoint.checkpoint(step, t, *s, use_reentrant=False,
+                                                  preserve_rng_state=False)
+        else:
+            s = step(t, *s)
+    return LOCAL_OPS3.asum(g.w_H * s[3]), integ
+
+
+def phase_gradients3(device):
+    """differentiable=True on the 3-D sin bump (N=64, 8 steps): the forward
+    bit for bit the non-differentiable run; the value and its gradients in
+    Kd and the initial amplitude ≤1e-8 to CPU-x64 jax.grad; the adjoint K5
+    solves on transposed volumes, their launches and iterations beside the
+    forward's; one adjoint system held against the plain K5."""
+    import torch
+
+    from na_dd_tpu_torch.integrators.pc_trapezoidal import default_krylov_tol
+
+    (v_plain, _), launches_fwd, _ = counted(
+        lambda: grad3_run(device, 1e-2, 1.0, False))
+    Kd = torch.tensor(1e-2, dtype=torch.float64, device=device, requires_grad=True)
+    amp = torch.tensor(1.0, dtype=torch.float64, device=device, requires_grad=True)
+    tallies = []
+
+    def wrap(inner):
+        tallies.append(IterTally(RecordingSolver(inner)))
+        return tallies[-1]
+
+    t0 = time.perf_counter()
+    (value, _), launches_fwd_d, _ = counted(lambda: grad3_run(device, Kd, amp, True, wrap))
+    tally = tallies[0]
+    rec = tally.inner
+
+    def total_iters():
+        return int(torch.stack([torch.as_tensor(i).reshape(()) for i in tally.iters]).sum())
+
+    n_fwd = len(rec.systems)
+    fwd_iters = total_iters()
+    grads, launches_bwd, _ = counted(lambda: torch.autograd.grad(value, (Kd, amp)))
+    wall = time.perf_counter() - t0
+    bwd_iters = total_iters() - fwd_iters
+    # the backward recomputes each step's forward (the same systems and
+    # iterations) and solves each transposed system once
+    adj_iters = bwd_iters - fwd_iters
+    check(value.item() == v_plain.item(), "gradients3: the differentiable forward moved")
+    got = {"value": value.item(), "Kd": grads[0].item(), "amplitude": grads[1].item()}
+    for key, ref in GRAD3_CPU_X64.items():
+        rel = abs(got[key] - ref) / abs(ref)
+        log(f"[gradients3] {key}: {got[key]!r}, vs CPU-x64 {ref!r} rel {rel:.3e} (limit 1e-8)")
+        check(math.isfinite(got[key]) and rel <= 1e-8, f"gradients3: {key} off CPU-x64")
+    log(f"[gradients3] value-and-grad {wall:.3f} s (first run); forward launches {launches_fwd_d} "
+        f"({n_fwd} solves, {fwd_iters} K5 iterations); backward launches {launches_bwd} "
+        f"(recompute + adjoint: {len(rec.systems) - n_fwd} solves, {bwd_iters} iterations, of "
+        f"them the adjoint solves' {adj_iters})")
+    check_counts("gradients3 forward", launches_fwd, {"bicgstab_solve3": 24, "stencil7_apply": 24})
+    check_counts("gradients3 backward", launches_bwd, {"bicgstab_solve3": 48, "stencil7_apply": 48})
+
+    # the last step's T adjoint system: the backward recomputes its T, cl,
+    # cd solves, then solves the adjoints of cd, cl, T
+    from na_dd_tpu_torch.three_d.shifts import LOCAL_OPS3
+
+    st_t, rhs, mask = rec.systems[n_fwd + 5]
+    check(torch.equal(st_t.cxm, LOCAL_OPS3.shift_xm(rec.systems[n_fwd][0].cxp)),
+          "gradients3: the recorded adjoint system is not the transposed T system")
+    tol = default_krylov_tol(rhs.dtype)
+    budget = rec.inner.iters
+    err, _ = compare_solve(st_t, rhs, jacobi(st_t, mask), mask, tol=tol, iters=budget,
+                             xtol=1e-12, label="65^3 adjoint (transposed volumes), last step T")
+    row = solve_row(st_t, rhs, mask, tol=tol, iters=budget,
+                    label="f64 65^3 adjoint (transposed volumes)")
+    row["max_abs_err"] = err
+    t0 = time.perf_counter()
+    v2, _ = grad3_run(device, Kd, amp, True)
+    torch.autograd.grad(v2, (Kd, amp))
+    torch.cuda.synchronize()
+    steady = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grad3_run(device, 1e-2, 1.0, False)[0].item()
+    forward = time.perf_counter() - t0
+    log(f"[gradients3] steady: value-and-grad {steady:.6f} s, forward {forward:.6f} s")
+    launches = {k: launches_fwd_d[k] + launches_bwd[k] for k in launches_bwd}
+    return dict(launches=launches, grads=got, steady=steady, forward=forward, row=row,
+                iters=(fwd_iters, adj_iters))
+
+
+def phase_batched_mixed(device, f64_2d=None, f64_3d=None):
+    """Both batched ladders with precision="mixed": float32 batched K1/K5 under
+    per-level float64 refinement (three passes a solve: 369 float32 K1 for
+    the pol ladder, 576 float32 K5 for the 3-D one); each level ≤1e-8 to
+    CPU-x64 and ≤1e-12 to the float64 batched ladder; the first pass's
+    float32 stacks against the plain versions; steady wall-clock in turns
+    with the float64 ladders; the float32 timing rows.  ``f64_2d`` /
+    ``f64_3d``: the float64 batched ladders' errors (run here when not
+    given)."""
+    import torch
+
+    from na_dd_tpu_torch.harness.batched_ladder import (
+        build_spatial_ladder_batched,
+        run_spatial_ladder_batched,
+    )
+    from na_dd_tpu_torch.integrators.pc_trapezoidal import MIXED_INNER_TOL
+    from na_dd_tpu_torch.models.coefficients import Model02
+    from na_dd_tpu_torch.models.consts import default_model_consts
+    from na_dd_tpu_torch.ops.shifts import BATCHED_OPS
+    from na_dd_tpu_torch.three_d.batched_ladder import (
+        build_spatial_ladder3_batched,
+        run_spatial_ladder3_batched,
+    )
+    from na_dd_tpu_torch.three_d.mms import MMSCaseExpSin3
+    from na_dd_tpu_torch.three_d.shifts import BATCHED_OPS3
+
+    f32 = torch.float32
+    out = {}
+    model = Model02(default_model_consts._replace(**THREE_D_CONSTS))
+    kw3 = dict(model=model, levels=BATCH_LEVELS3, base_N=4, dt0=1e-2, Tf=TF3)
+    for tag, build, run, ops, refs, f64_errs, per_step in (
+        ("2d", lambda **k: build_spatial_ladder_batched("pol", levels=BATCH_LEVELS, **k),
+         lambda **k: run_spatial_ladder_batched("pol", levels=BATCH_LEVELS, verbose=False, **k),
+         BATCHED_OPS, POL_SPATIAL_CPU_X64, f64_2d, 3),
+        ("3d", lambda **k: build_spatial_ladder3_batched(MMSCaseExpSin3, **kw3, **k),
+         lambda **k: run_spatial_ladder3_batched(MMSCaseExpSin3, verbose=False, **kw3, **k),
+         BATCHED_OPS3, THREE_D_CPU_X64, f64_3d, 6),
+    ):
+        name, apply = (("bicgstab_solve", "stencil5_apply") if tag == "2d"
+                       else ("bicgstab_solve3", "stencil7_apply"))
+        ladder = build(precision="mixed", device=device)
+        systems, iters = batched_step1(ladder, ops)
+        st, b, mask = systems[0]
+        st32 = type(st)(*(c.to(f32) for c in st))
+        inv32 = jacobi(st, mask).to(f32)
+        err32, _ = compare_batched_solve(st32, b.to(f32), inv32, mask.to(f32), tol=MIXED_INNER_TOL,
+                                         iters=iters, xtol=1e-4,
+                                         label=f"f32 {tag} mixed ladder step-1 T, first pass")
+        res, launches, launches32 = counted(lambda: run(precision="mixed", device=device))
+        nsteps = max(ladder["nsteps"])
+        solves = per_step * nsteps
+        log(f"[batched_mixed] {tag} ladder N={res['Ns'][0]}..{res['Ns'][-1]} mixed: {nsteps} steps, "
+            f"launches {launches}, of them float32 {launches32}")
+        # three float32 solves a Newton solve; the f64 residuals of passes 2
+        # and 3 and the final verdict, and each float32 solve's own residual
+        check(launches32[name] == 3 * solves, f"batched_mixed {tag}: {launches32[name]} float32 "
+              f"{name}, expected {3 * solves}")
+        check_counts(f"batched_mixed {tag}", launches, {name: 3 * solves, apply: 6 * solves})
+        check(launches32[apply] == 3 * solves, f"batched_mixed {tag}: float32 {apply}")
+        if f64_errs is None:
+            f64_errs = run(device=device)["errors"]
+        for N, err, e64 in zip(res["Ns"], res["errors"], f64_errs):
+            rel_x64, rel_64 = abs(err - refs[N]) / refs[N], abs(err - e64) / e64
+            log(f"[batched_mixed] {tag} N={N}: error {err!r}, vs CPU-x64 rel {rel_x64:.3e} (limit "
+                f"1e-8), vs the f64 batched ladder rel {rel_64:.3e} (limit 1e-12)")
+            check(math.isfinite(err) and rel_x64 <= 1e-8 and rel_64 <= 1e-12,
+                  f"batched_mixed {tag} N={N}: off")
+        ladder64 = build(device=device)
+        steady, _, _ = turns({"mixed": ladder["run"], "f64": ladder64["run"]})
+        log(f"[batched_mixed] {tag} steady wall-clock in turns: mixed {steady['mixed']:.6f} s, "
+            f"f64 {steady['f64']:.6f} s")
+        row = solve_row(st32, b.to(f32), mask.to(f32), tol=MIXED_INNER_TOL, iters=iters,
+                        label=f"f32 {tuple(b.shape)} mixed inner, step-1 T", inv=inv32)
+        row["max_abs_err"] = err32
+        out[tag] = dict(launches=launches, launches32=launches32, errors=res["errors"],
+                        steady=steady, row=row)
+    return out
+
+
 def ptxas_rows(text: str):
     """(kernel, registers, stack frame bytes, spill store bytes, spill load
     bytes) of each entry function in nvcc's ``-Xptxas -v`` report."""
@@ -3382,7 +3944,8 @@ PHASES = ("k2", "k1", "k3", "k4", "slice", "f32", "analytic", "scale", "timings"
           "k6", "k5", "3d", "3d128", "3d_f32", "timings3", "profile3", "expsin", "golden",
           "variants3", "production", "mixed3", "timings_mixed", "simulate", "adaptive",
           "checkpoint", "gradients", "direct", "fit", "batched", "eta_batched", "batched3",
-          "eta3")
+          "eta3", "probe", "while_form", "matrix_free", "probe3", "direct3", "heat3", "gradients3",
+          "batched_mixed")
 
 
 def main(argv=None) -> int:
@@ -3466,6 +4029,16 @@ def main(argv=None) -> int:
     phase("eta_batched", phase_eta_batched, device)
     phase("batched3", phase_batched3, device)
     phase("eta3", phase_eta3, device)
+    phase("probe", phase_probe, device)
+    phase("while_form", phase_while_form, device)
+    phase("matrix_free", phase_matrix_free, device)
+    phase("probe3", phase_probe3, device)
+    phase("direct3", phase_direct3, device)
+    phase("heat3", phase_heat3, device)
+    phase("gradients3", phase_gradients3, device)
+    phase("batched_mixed", phase_batched_mixed, device,
+          done["batched"]["errors"] if "batched" in done else None,
+          done["batched3"]["errors"] if "batched3" in done else None)
     if set(only) != set(PHASES):
         log(f"[done] phases {only}; total {time.perf_counter() - t_all:.1f} s (no result line)")
         return 0
@@ -3485,6 +4058,8 @@ def main(argv=None) -> int:
     launches_grad, launches_grad32, grad_times, fwd_time, adjoint_rows = done["gradients"]
     _, steady_direct, steady_krylov, err_direct = done["direct"]
     bl, be, bl3, be3 = done["batched"], done["eta_batched"], done["batched3"], done["eta3"]
+    pr, wf, mf, p3 = done["probe"], done["while_form"], done["matrix_free"], done["probe3"]
+    d3, h3, g3, bm = done["direct3"], done["heat3"], done["gradients3"], done["batched_mixed"]
     pk = "na_dd_tpu/ops/pallas_kernels.py"
     entries = []
     # (wrapper, source, TPU kernel, shape, error against the plain version,
@@ -3527,6 +4102,23 @@ def main(argv=None) -> int:
          bl3["err_solve"], bl3["launches"], bl3["rows"]["bicgstab_solve3"]),
         ("stencil7_apply", "stencil7", f"{pk}:615", "5x65x65x65 (batched 3-D ladder)",
          bl3["err_apply"], bl3["launches"], bl3["rows"]["stencil7_apply"]),
+        ("bicgstab_solve", "bicgstab", f"{pk}:342", "7x33x33 (batched eta sweep)",
+         be["row"]["max_abs_err"], be["launches"], be["row"]),
+        # the solver options
+        ("bicgstab_solve", "bicgstab", f"{pk}:342", "257x257 budget 300 (while form)",
+         wf["row"]["max_abs_err"], wf["launches"], wf["row"]),
+        ("bicgstab_solve3", "bicgstab3", f"{pk}:702", "65x65x65 adjoint (transposed volumes)",
+         g3["row"]["max_abs_err"], g3["launches"], g3["row"]),
+        ("bicgstab_solve3", "bicgstab3", f"{pk}:702", "129x129x129 (CN heat)",
+         h3["rows"]["bicgstab_solve3"]["max_abs_err"], h3["launches"], h3["rows"]["bicgstab_solve3"]),
+        ("stencil7_apply", "stencil7", f"{pk}:834", "129x129x129 (CN heat rhs)",
+         h3["rows"]["stencil7_apply"]["max_abs_err"], h3["launches"], h3["rows"]["stencil7_apply"]),
+        ("stencil7_apply", "stencil7", f"{pk}:615", "33x33x33 (3-D direct verdict)",
+         d3["row"]["max_abs_err"], d3["launches"], d3["row"]),
+        ("bicgstab_solve", "bicgstab", f"{pk}:342", "8x257x257 f32 (batched mixed ladder)",
+         bm["2d"]["row"]["max_abs_err"], bm["2d"]["launches32"], bm["2d"]["row"]),
+        ("bicgstab_solve3", "bicgstab3", f"{pk}:702", "5x65x65x65 f32 (batched mixed ladder)",
+         bm["3d"]["row"]["max_abs_err"], bm["3d"]["launches32"], bm["3d"]["row"]),
     ):
         entries.append({
             "name": name, "route": "cuda", "source": f"na_dd_tpu_torch/csrc/{src}.cu",
@@ -3551,7 +4143,13 @@ def main(argv=None) -> int:
         f"{be['steady']['batched']:.6f} s against serial {be['steady']['serial']:.6f} s; "
         f"batched 3-D ladder {bl3['steady']['batched']:.6f} s against serial "
         f"{bl3['steady']['serial']:.6f} s ({bl3['per_step']:.0f} launches a step, idle "
-        f"{bl3['idle']:.2f} %); 3-D eta sweep {be3['wall']:.6f} s; "
+        f"{bl3['idle']:.2f} %); 3-D eta sweep {be3['wall']:.6f} s; probed planes "
+        f"{pr['steady']['probe']:.6f} s against analytic {pr['steady']['analytic']:.6f} s; while "
+        f"form {wf['steady']['while']:.6f} s; matrix-free N=64 {mf['steady']['matrix_free']:.6f} "
+        f"s; 3-D probe {p3['steady']['probe']:.6f} s; 3-D direct N=32 {d3['steady']['direct']:.6f} "
+        f"s against Krylov {d3['steady']['krylov']:.6f} s; heat N=128 {h3['steady']:.6f} s; 3-D "
+        f"value-and-grad {g3['steady']:.6f} s against a forward {g3['forward']:.6f} s; batched "
+        f"mixed {bm['2d']['steady']['mixed']:.6f} s / {bm['3d']['steady']['mixed']:.6f} s; "
         f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(nvidia_smi_line())

@@ -44,7 +44,7 @@ from na_dd_tpu_torch.harness.trial import (
     _unpack,
 )
 from na_dd_tpu_torch.mms.engine import state_from_mms_when
-from na_dd_tpu_torch.ops.grid import Grid, make_uniform_grid
+from na_dd_tpu_torch.ops.grid import Grid, colourings, make_uniform_grid
 from na_dd_tpu_torch.ops.shifts import BATCHED_OPS
 
 
@@ -71,15 +71,18 @@ def pad_grid(g: Grid, N_max: int, M_max: int) -> Grid:
       at a dead node sees the x=0 / y=0 boundary: finite, and multiplied by
       zero weights and masks wherever it could matter.
 
-    The JAX grid's ``red_mask``/``color5`` (the probing path) are not
-    carried by the port's grid, so nothing is recomputed.
+    ``red_mask``/``color5`` are made anew from the padded (i, j), as the
+    JAX package's ``pad_grid`` makes them.
     """
     shape = (N_max + 1, M_max + 1)
     changes = {
         f.name: _pad(getattr(g, f.name), shape)
         for f in dataclasses.fields(g)
-        if isinstance(getattr(g, f.name), torch.Tensor)
+        if isinstance(getattr(g, f.name), torch.Tensor) and f.name not in ("red_mask", "color5")
     }
+    red_mask, color5 = colourings(N_max, M_max)
+    changes["red_mask"] = torch.as_tensor(red_mask, dtype=g.dtype, device=g.device)
+    changes["color5"] = torch.as_tensor(color5, device=g.device)
     return dataclasses.replace(g, N=N_max, M=M_max, **changes)
 
 
@@ -110,6 +113,7 @@ def build_spatial_ladder_batched(
     levels: int = 8,
     base_N: int = 2,
     eta: float = 50.0,
+    precision: str | None = None,
     dtype=None,
     device=None,
 ) -> dict:
@@ -153,7 +157,8 @@ def build_spatial_ladder_batched(
         grid=grid_max, model=model, forcing=forcing, regularization_factor=eta
     )
     integ = PCTrapezoidalRegHCsTriple(
-        field, regularization_factor=eta, track_residuals=False, krylov_unroll=budget
+        field, regularization_factor=eta, track_residuals=False, krylov_unroll=budget,
+        precision=precision or "full",
     )
 
     padded_grids, padded_states = [], []
@@ -185,6 +190,7 @@ def run_spatial_ladder_batched(
     levels: int = 8,
     base_N: int = 2,
     eta: float = 50.0,
+    precision: str | None = None,
     verbose: bool = True,
     measure_steady: bool = False,
     dtype=None,
@@ -197,10 +203,14 @@ def run_spatial_ladder_batched(
     and the same error functional per level; returns the JAX package's
     result dict (``compile_plus_run_s`` is the first run's wall-clock, the
     kernels' build included where it happens).  Runs on the card unless
-    ``device="cpu"``.
+    ``device="cpu"``.  ``precision="mixed"`` runs every solve as float32
+    batched kernel launches under per-level float64 refinement; None or
+    "full" solves in the grid's dtype.  The JAX function reads this from
+    ``NA_DD_TPU_PRECISION``; the port reads no environment.
     """
     ladder = build_spatial_ladder_batched(
-        study, levels=levels, base_N=base_N, eta=eta, dtype=dtype, device=device
+        study, levels=levels, base_N=base_N, eta=eta, precision=precision, dtype=dtype,
+        device=device,
     )
     Ns, dts, nsteps = ladder["Ns"], ladder["dts"], ladder["nsteps"]
 

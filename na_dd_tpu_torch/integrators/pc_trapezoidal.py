@@ -16,15 +16,23 @@ Per step:
    (:class:`PCTrapezoidalHCsTriple`) or by a pointwise regularized-Heaviside
    Newton iteration (:class:`PCTrapezoidalRegHCsTriple`).
 
-The linear solves go through one solver-backend object:
-:class:`KrylovBackend` (``precision="full"``) runs the hand-written BiCGStab
-kernel of the stencil's dimension in the working dtype on CUDA tensors, its
-plain twin on CPU tensors; :class:`MixedBackend` (``precision="mixed"``)
-runs the same kernels on float32 copies of the planes under float64
-iterative refinement; :class:`DirectBackend` (``linear_solver="direct"``)
-solves exactly by block cyclic reduction (2-D), and with
-``precision="mixed"`` :class:`DirectMixedBackend` makes the float32 BCR the
-refinement's inner solve.
+The Newton planes are closed-form (``stencil_source="analytic"``, the
+default) or probed from the linearized field graph by 5 (2-D) or 7 (3-D)
+colour probes (``stencil_source="probe"``); with ``assemble_stencil=False``
+no planes are made and the solve is matrix-free (the plain BiCGStab on the
+linearized graph, its Jacobi diagonal from two probes), which has no kernel
+in either package.  The assembled solves go through one solver-backend
+object: :class:`KrylovBackend` (``precision="full"``) runs the hand-written
+BiCGStab kernel of the stencil's dimension in the working dtype on CUDA
+tensors, its plain twin on CPU tensors; :class:`MixedBackend`
+(``precision="mixed"``) runs the same kernels on float32 copies of the
+planes under float64 iterative refinement; :class:`DirectBackend`
+(``linear_solver="direct"``) solves exactly by block cyclic reduction (2-D
+row blocks, 3-D x-plane blocks), and with ``precision="mixed"``
+:class:`DirectMixedBackend` makes the float32 BCR the refinement's inner
+solve.  ``krylov_unroll`` is the kernels' iteration budget; ``None`` is the
+JAX package's while form, whose update is the same: the kernels run with a
+budget of ``krylov_maxiter`` and break when done.
 
 ``differentiable=True`` makes the step reverse-mode differentiable: every
 Newton solve goes through :func:`na_dd_tpu_torch.ops.adjoint.plane_solve`,
@@ -35,7 +43,10 @@ gradients (model constants that are tensors, the regularization factor, the
 initial state) flow through the plane assembly, the ``torch.func.jvp``
 couplings and the correctors by autograd.  The fused triple solve has no
 adjoint, as in the JAX package, so under ``differentiable=True`` analytic
-couplings take the per-solve route.  2-D only: the 3-D integrators raise.
+couplings take the per-solve route.  In 3-D the Krylov adjoints run on
+``Stencil7.transpose`` volumes (K5); the 3-D integrators refuse
+``differentiable=True`` with mixed or direct solves, which the JAX package
+cannot run in 3-D.
 
 With analytic couplings the whole sweep is stencil algebra, so in 2-D
 ``fused_triple=True`` (the default) hands the three solves and the coupling
@@ -78,6 +89,7 @@ from na_dd_tpu_torch.core.state import State, heaviside_regularized
 from na_dd_tpu_torch.ops import adjoint, direct_solve, kernels, linsolve
 from na_dd_tpu_torch.ops.grid import Grid
 from na_dd_tpu_torch.ops.shifts import LOCAL_OPS, Ops
+from na_dd_tpu_torch.three_d import direct_solve as direct_solve3
 from na_dd_tpu_torch.three_d.diffusion import Stencil7
 
 
@@ -115,8 +127,8 @@ MIXED_INNER_TOL = 1e-6
 
 class KrylovBackend:
     """Jacobi-BiCGStab on assembled Newton planes, ``iters`` masked
-    early-exit iterations from x0 = 0, to the dtype's
-    :func:`default_krylov_tol`.
+    early-exit iterations from x0 = 0, to ``tol`` (None: the dtype's
+    :func:`default_krylov_tol`).
 
     The solve is picked by the stencil's type: :func:`kernels.bicgstab_solve`
     for a :class:`~na_dd_tpu_torch.ops.linsolve.Stencil5`,
@@ -127,16 +139,17 @@ class KrylovBackend:
     preconditioner is ``1/c0`` on the interior and 0 elsewhere.
     """
 
-    def __init__(self, *, iters: int):
+    def __init__(self, *, iters: int, tol: float | None = None):
         self.iters = int(iters)
+        self.tol = tol
+
+    def tol_of(self, dtype) -> float:
+        """The solves' relative tolerance in ``dtype``."""
+        return default_krylov_tol(dtype) if self.tol is None else self.tol
 
     @staticmethod
     def _inv_diag(st, mask):
-        return torch.where(
-            mask > 0,
-            1.0 / torch.where(st.c0 == 0, torch.ones_like(st.c0), st.c0),
-            torch.zeros_like(st.c0),
-        )
+        return linsolve.jacobi_from_diag(st.c0, mask)
 
     @staticmethod
     def _kernels(st):
@@ -153,7 +166,7 @@ class KrylovBackend:
         st, rhs, mask = _one_shape(st, rhs, mask)
         x, info = bicgstab(
             st, rhs * mask, self._inv_diag(st, mask), mask,
-            tol=default_krylov_tol(rhs.dtype), iters=self.iters,
+            tol=self.tol_of(rhs.dtype), iters=self.iters,
         )
         return x * mask, info
 
@@ -170,7 +183,7 @@ class KrylovBackend:
         dT, dcl, dcd, info3 = kernels.triple_solve(
             J_T, J_cl, J_cd, C_clT, C_cdT, d_cdcl, rhs_T, base_cl, base_cd,
             self._inv_diag(J_T, mask), self._inv_diag(J_cl, mask), self._inv_diag(J_cd, mask),
-            mask, dt, tol=default_krylov_tol(rhs_T.dtype), iters=self.iters,
+            mask, dt, tol=self.tol_of(rhs_T.dtype), iters=self.iters,
         )
         infos = tuple(
             {key: info3[key][k] for key in ("iters", "resnorm_sq", "converged")}
@@ -199,34 +212,50 @@ def _one_shape(st, rhs, mask):
     return type(st)(*(full(p) for p in st)), full(rhs), full(mask)
 
 
-def _true_verdict(r, b, iters, noise_sq, nd=2):
+def _true_verdict(r, b, iters, noise_sq, nd=2, tol=None):
     """The verdict of a solve judged by its true residual ``r = (b − A·x)·m``
     (``nd`` spatial dimensions; per system of a batch):
-    ``resnorm_sq ≤ max(tol²·‖b‖², noise_sq)`` with tol the dtype's
-    :func:`default_krylov_tol` and ``noise_sq`` the rhs's squared rounding
+    ``resnorm_sq ≤ max(tol²·‖b‖², noise_sq)`` with tol (None: the dtype's
+    :func:`default_krylov_tol`) and ``noise_sq`` the rhs's squared rounding
     floor."""
     rsq = kernels.system_sum(r * r, nd)
-    tol = default_krylov_tol(b.dtype)
+    tol = default_krylov_tol(b.dtype) if tol is None else tol
     floor = torch.clamp_min(tol * tol * kernels.system_sum(b * b, nd), noise_sq)
     return {"iters": iters, "resnorm_sq": rsq, "converged": rsq <= floor}
 
 
+def _direct(st):
+    """(exact solve, apply) of the stencil's dimension: block cyclic
+    reduction over row blocks and K2 (2-D), over x-plane blocks and K6
+    (3-D)."""
+    if isinstance(st, Stencil7):
+        return direct_solve3.stencil7_solve_direct, kernels.stencil7_apply
+    return direct_solve.stencil5_solve_direct, kernels.stencil5_apply
+
+
 class DirectBackend:
     """``linear_solver="direct"``: the exact block-cyclic-reduction solve of
-    :func:`na_dd_tpu_torch.ops.direct_solve.stencil5_solve_direct` (batched
-    ``torch.linalg`` inverses and products; cuSOLVER on a card), with the
-    verdict of its true residual through :func:`kernels.stencil5_apply` (K2
-    on CUDA tensors), as the JAX package's ``solve_direct`` gives it.
-    ``info["iters"]`` is 1.  Planes only: the 3-D direct solve is not
-    ported (ROADMAP Queue 1 item 9)."""
+    :func:`na_dd_tpu_torch.ops.direct_solve.stencil5_solve_direct` (2-D) or
+    :func:`na_dd_tpu_torch.three_d.direct_solve.stencil7_solve_direct`
+    (3-D) (batched ``torch.linalg`` inverses and products; cuSOLVER on a
+    card), with the verdict of its true residual through
+    :func:`kernels.stencil5_apply` / :func:`kernels.stencil7_apply` (K2/K6 on
+    CUDA tensors), as the JAX package's ``solve_direct`` gives it, to ``tol``
+    (None: the dtype's default).  ``info["iters"]`` is 1.  One system: a
+    batch takes the Krylov solver."""
+
+    def __init__(self, *, tol: float | None = None):
+        self.tol = tol
 
     def solve(self, st, rhs, mask, noise_sq=0.0):
         b = rhs * mask
-        if b.dim() != 2:
-            raise ValueError("DirectBackend: one system of planes; a batch takes the Krylov solver")
-        x = direct_solve.stencil5_solve_direct(st, b, mask)
+        nd = _ndim(st)
+        if b.dim() != nd:
+            raise ValueError("DirectBackend: one system; a batch takes the Krylov solver")
+        solve, apply = _direct(st)
+        x = solve(st, b, mask)
         one = torch.ones((), dtype=torch.int32, device=b.device)
-        return x, _true_verdict((b - kernels.stencil5_apply(st, x)) * mask, b, one, noise_sq)
+        return x, _true_verdict((b - apply(st, x)) * mask, b, one, noise_sq, nd, self.tol)
 
 
 class MixedBackend(KrylovBackend):
@@ -246,8 +275,9 @@ class MixedBackend(KrylovBackend):
     last pass's rhs).  ``info["iters"]`` sums every pass.
     """
 
-    def __init__(self, *, iters: int, refine: int = 2, final_check: bool = True):
-        super().__init__(iters=iters)
+    def __init__(self, *, iters: int, refine: int = 2, final_check: bool = True,
+                 tol: float | None = None):
+        super().__init__(iters=iters, tol=tol)
         self.refine = int(refine)
         self.final_check = bool(final_check)
 
@@ -279,7 +309,7 @@ class MixedBackend(KrylovBackend):
                 "resnorm_sq": info["resnorm_sq"].to(b.dtype),
                 "converged": info["converged"],
             }
-        return x, _true_verdict((b - apply(st, x)) * mask, b, iters, noise_sq, _ndim(st))
+        return x, _true_verdict((b - apply(st, x)) * mask, b, iters, noise_sq, _ndim(st), self.tol)
 
     def solve_triple(
         self, J_T, J_cl, J_cd, C_clT, C_cdT, d_cdcl, rhs_T, base_cl, base_cd, mask, dt,
@@ -327,9 +357,11 @@ class MixedBackend(KrylovBackend):
             bcl = wcl + dt * apply(C_clT, zT)
             bcd = wcd + dt * (apply(C_cdT, zT) + d_cdcl * zcl)
             infos = (
-                _true_verdict((wT - apply(J_T, zT)) * mask, wT, iters3[0], noise_sq[0]),
-                _true_verdict((bcl - apply(J_cl, zcl)) * mask, bcl, iters3[1], noise_sq[1]),
-                _true_verdict((bcd - apply(J_cd, zcd)) * mask, bcd, iters3[2], noise_sq[2]),
+                _true_verdict((wT - apply(J_T, zT)) * mask, wT, iters3[0], noise_sq[0], tol=self.tol),
+                _true_verdict((bcl - apply(J_cl, zcl)) * mask, bcl, iters3[1], noise_sq[1],
+                              tol=self.tol),
+                _true_verdict((bcd - apply(J_cd, zcd)) * mask, bcd, iters3[2], noise_sq[2],
+                              tol=self.tol),
             )
         else:
             infos = tuple(
@@ -343,13 +375,13 @@ class MixedBackend(KrylovBackend):
 
 class DirectMixedBackend(MixedBackend):
     """``precision="mixed"`` with ``linear_solver="direct"``: the refinement
-    of :class:`MixedBackend` around the float32 block cyclic reduction
-    (planes only), which contracts the residual by about float32's epsilon a
-    pass with no iteration budget; its own verdict is "converged" with 1
-    iteration, as in the JAX package."""
+    of :class:`MixedBackend` around the float32 block cyclic reduction of
+    the stencil's dimension, which contracts the residual by about float32's
+    epsilon a pass with no iteration budget; its own verdict is "converged"
+    with 1 iteration, as in the JAX package."""
 
     def _inner(self, bicgstab, st32, r32, inv32, mask32):
-        x32 = direct_solve.stencil5_solve_direct(st32, r32, mask32)
+        x32 = _direct(st32)[0](st32, r32, mask32)
         return x32, {
             "iters": torch.ones((), dtype=torch.int32, device=r32.device),
             "resnorm_sq": torch.zeros((), dtype=r32.dtype, device=r32.device),
@@ -368,7 +400,11 @@ class PCTrapezoidalBase:
         *,
         num_pc_steps: int = 1,
         num_newton_steps: int = 1,
-        krylov_unroll: int = 16,
+        krylov_tol: float | None = None,
+        krylov_maxiter: int = 300,
+        krylov_unroll: int | None = 16,
+        assemble_stencil: bool = True,
+        stencil_source: str = "analytic",
         track_residuals: bool = True,
         coupling_source: str = "jvp",
         fused_triple: bool = True,
@@ -379,11 +415,26 @@ class PCTrapezoidalBase:
         differentiable: bool = False,
     ):
         """krylov_unroll: BiCGStab iteration budget per solve (masked early
-        exit, so any sufficient budget gives the same answer).  The solves go
-        through ``self.solver``, an object with ``solve(stencil, rhs, mask,
-        noise_sq) -> (x, info)`` and ``solve_triple(...)``: the
+        exit, so any sufficient budget gives the same answer).  None is the
+        JAX package's while form: up to ``krylov_maxiter`` iterations with a
+        true early exit; the kernels make the unrolled form's update, so on
+        assembled planes they run with that budget and break when done.
+        krylov_tol: the solves' relative tolerance (None: 1e-13 in float64,
+        1e-5 in float32, :func:`default_krylov_tol`).  The assembled solves
+        go through ``self.solver``, an object with ``solve(stencil, rhs,
+        mask, noise_sq) -> (x, info)`` and ``solve_triple(...)``: the
         :class:`KrylovBackend` or, with ``precision="mixed"``, the
         :class:`MixedBackend`.
+
+        assemble_stencil / stencil_source: with ``assemble_stencil`` the
+        Newton operator's planes are made once a solve, in closed form
+        (``stencil_source="analytic"``) or by colour probes of the
+        linearized field graph (``"probe"``, which also takes the cross
+        couplings from that graph, never the fused sweep); without it the
+        solve is matrix-free: BiCGStab on the linearized graph, whose
+        Jacobi diagonal comes from two probes, in plain PyTorch (no kernel
+        solves a graph).  Mixed precision and the direct solver need
+        assembled planes.
 
         coupling_source: "jvp" — the cross couplings as ``torch.func.jvp``
         tangents; "analytic" — as closed-form coupling planes
@@ -411,6 +462,16 @@ class PCTrapezoidalBase:
         the JAX package the transposed solves' diagnostics are discarded: a
         budget that converges the forward solves (``krylov_converged``) is
         the guard."""
+        if isinstance(krylov_unroll, str):
+            raise ValueError(f"krylov_unroll must be an int or None; got {krylov_unroll!r}")
+        if stencil_source not in ("analytic", "probe"):
+            raise ValueError(
+                f"stencil_source must be 'analytic' or 'probe'; got {stencil_source!r}"
+            )
+        if precision == "mixed" and not assemble_stencil:
+            raise ValueError("precision='mixed' requires assemble_stencil=True")
+        if linear_solver == "direct" and not assemble_stencil:
+            raise ValueError("linear_solver='direct' requires assemble_stencil=True")
         if coupling_source not in ("jvp", "analytic"):
             raise ValueError(
                 f"coupling_source must be 'jvp' or 'analytic', got {coupling_source!r}"
@@ -429,6 +490,11 @@ class PCTrapezoidalBase:
             )
         self.linear_solver = linear_solver
         self.differentiable = bool(differentiable)
+        self.krylov_tol = None if krylov_tol is None else float(krylov_tol)
+        self.krylov_maxiter = int(krylov_maxiter)
+        self.krylov_unroll = None if krylov_unroll is None else int(krylov_unroll)
+        self.assemble_stencil = bool(assemble_stencil)
+        self.stencil_source = stencil_source
         self.precision = precision
         self.mixed_refine = int(mixed_refine)
         self.mixed_final_check = bool(mixed_final_check)
@@ -439,15 +505,18 @@ class PCTrapezoidalBase:
         self.num_pc_steps = int(num_pc_steps)
         self.num_newton_steps = int(num_newton_steps)
         self.track_residuals = bool(track_residuals)
+        # the kernels' budget: the unrolled count, or the while form's cap
+        budget = self.krylov_maxiter if self.krylov_unroll is None else self.krylov_unroll
         if precision == "mixed":
             backend = DirectMixedBackend if linear_solver == "direct" else MixedBackend
             self.solver = backend(
-                iters=krylov_unroll, refine=mixed_refine, final_check=mixed_final_check
+                iters=budget, refine=mixed_refine, final_check=mixed_final_check,
+                tol=self.krylov_tol,
             )
         elif linear_solver == "direct":
-            self.solver = DirectBackend()
+            self.solver = DirectBackend(tol=self.krylov_tol)
         else:
-            self.solver = KrylovBackend(iters=krylov_unroll)
+            self.solver = KrylovBackend(iters=budget, tol=self.krylov_tol)
         # filled by the eager step()
         self.last_residual = {}
 
@@ -486,9 +555,49 @@ class PCTrapezoidalBase:
 
     def _newton_planes(self, g, ops, L, dt):
         """Planes of the interior Newton operator 2·I − dt·L for a
-        self-Jacobian stencil ``L``: the one dimension-specific hook of the
-        step (the 3-D integrators build Stencil7 planes)."""
+        self-Jacobian stencil ``L``: a dimension-specific hook of the step
+        (the 3-D integrators build Stencil7 planes)."""
         return linsolve.newton_planes(g, ops, L, dt)
+
+    def _probe_stencil(self, matvec, g):
+        """Planes of a linear map by colour probing: the other
+        dimension-specific hook (5 colours in 2-D, 7 in 3-D)."""
+        return linsolve.probe_stencil(matvec, g)
+
+    def _solve_graph(self, g, ops, matvec, rhs, noise_sq):
+        """One Newton solve of the masked operator ``matvec`` (the
+        linearized field graph): on probed planes through the backend, or
+        matrix-free (``assemble_stencil=False``): Jacobi-BiCGStab on the
+        graph, unrolled or, with ``krylov_unroll=None``, the while form.
+        Under ``differentiable`` the matrix-free forward is wrapped by the
+        plane adjoint, whose transposed solve runs on the probed planes."""
+        mask = g.interior_mask
+        if self.assemble_stencil:
+            return self._solve(self._probe_stencil(matvec, g), rhs, mask, noise_sq)
+        red, black = linsolve.checkerboard_masks(g)
+        inv_diag = linsolve.jacobi_from_diag(
+            linsolve.probe_diag(matvec, red * mask, black * mask), mask
+        )
+        kwargs = dict(
+            dot=lambda u, v: ops.asum(u * v), minv=lambda r: r * inv_diag,
+            tol=self.solver.tol_of(rhs.dtype),
+        )
+
+        def run(b):
+            zero = torch.zeros_like(b)
+            if self.krylov_unroll is None:
+                return linsolve.bicgstab(matvec, b, zero, maxiter=self.krylov_maxiter, **kwargs)
+            return linsolve.bicgstab_unrolled(matvec, b, zero, iters=self.krylov_unroll, **kwargs)
+
+        b = rhs * mask
+        if not self.differentiable:
+            x, info = run(b)
+            return x * mask, info
+        x, info = adjoint.plane_solve(
+            lambda _st, bb: run(bb), self._probe_stencil(matvec, g), b, mask,
+            transpose_solver=lambda st_T, bb: self.solver.solve(st_T, bb, mask, noise_sq),
+        )
+        return x * mask, info
 
     def _solve(self, st, rhs, mask, noise_sq):
         """One Newton solve through the backend; with ``differentiable`` its
@@ -501,6 +610,16 @@ class PCTrapezoidalBase:
         )
         return x * mask, info
 
+    def _noise_floors(self, ops, s, Y):
+        """The squared rounding floors of the three Newton rhs (each a
+        cancellation of O(‖Y‖) values), which a true-residual verdict
+        (mixed refinement, direct) cannot beat; 0 for the Krylov kernels,
+        whose verdict is their own."""
+        if self.precision == "mixed" or self.linear_solver == "direct":
+            eps_b = 10.0 * float(torch.finfo(s.T.dtype).eps)
+            return tuple(eps_b * eps_b * ops.asum(Yv * Yv) for Yv in Y)
+        return (0.0, 0.0, 0.0)
+
     # Newton sweep over the triangular (T, cl, cd) block
     def _newton_sweep(self, g, ops, s: State, t1, dt, Y):
         """One Gauss–Seidel Newton sweep linearized at ``s``."""
@@ -508,14 +627,10 @@ class PCTrapezoidalBase:
         YT0, Ycl0, Ycd0 = Y
         mask = g.interior_mask
         solve = self._solve
+        if not (self.assemble_stencil and self.stencil_source == "analytic"):
+            return self._newton_sweep_graph(g, ops, s, t1, dt, Y)
         analytic = self.coupling_source == "analytic"
-        # the squared rounding floors of the three rhs (each a cancellation
-        # of O(‖Y‖) values), which a true-residual verdict cannot beat
-        if self.precision == "mixed" or self.linear_solver == "direct":
-            eps_b = 10.0 * float(torch.finfo(s.T.dtype).eps)
-            noise = tuple(eps_b * eps_b * ops.asum(Yv * Yv) for Yv in Y)
-        else:
-            noise = (0.0, 0.0, 0.0)
+        noise = self._noise_floors(ops, s, Y)
 
         # T: FT is linear in T — closed-form planes and a direct primal
         fT0 = field.FT(g, ops, s, t1)
@@ -587,6 +702,46 @@ class PCTrapezoidalBase:
         dcd, info_cd = solve(J_cd, rhs_cd, mask, noise[2])
         cd1 = s.cd + dcd
 
+        return self._sweep_tail(
+            g, ops, s, t1, dt, Y, T1, cl1, cd1, info_T, info_cl, info_cd
+        )
+
+    def _newton_sweep_graph(self, g, ops, s: State, t1, dt, Y):
+        """The sweep of ``stencil_source="probe"`` and of the matrix-free
+        route: each Newton operator is the linearized field graph
+        ``w ↦ m·(2 w·m − dt·J (w·m))``, the couplings its tangents."""
+        field = self.semi_discrete_field
+        YT0, Ycl0, Ycd0 = Y
+        mask = g.interior_mask
+        noise = self._noise_floors(ops, s, Y)
+
+        def newton_matvec(lin, zeros):
+            return lambda w: (2.0 * (w * mask) - dt * lin(*zeros, w * mask)) * mask
+
+        fT0, linT = linsolve.linearized(lambda T: field.FT(g, ops, s._replace(T=T), t1), s.T)
+        rhs_T = YT0 - (2.0 * s.T - dt * fT0)
+        dT, info_T = self._solve_graph(g, ops, newton_matvec(linT, ()), rhs_T, noise[0])
+        T1 = s.T * mask + dT  # boundary re-zeroed, as in the reference
+
+        wT = (T1 - s.T) * mask
+        zero = torch.zeros_like(s.T)
+        fcl0, lincl = linsolve.linearized(
+            lambda T, cl: field.Fcl(g, ops, s._replace(T=T, cl=cl), t1), s.T, s.cl
+        )
+        rhs_cl = Ycl0 - 2.0 * s.cl + dt * fcl0 + dt * lincl(wT, zero)
+        dcl, info_cl = self._solve_graph(g, ops, newton_matvec(lincl, (zero,)), rhs_cl, noise[1])
+        cl1 = s.cl + dcl  # boundary kept, as in the reference
+
+        wcl = (cl1 - s.cl) * mask
+        fcd0, lincd = linsolve.linearized(
+            lambda T, cl, cd: field.Fcd(g, ops, s._replace(T=T, cl=cl, cd=cd), t1),
+            s.T, s.cl, s.cd,
+        )
+        rhs_cd = Ycd0 - 2.0 * s.cd + dt * fcd0 + dt * lincd(wT, wcl, zero)
+        dcd, info_cd = self._solve_graph(
+            g, ops, newton_matvec(lincd, (zero, zero)), rhs_cd, noise[2]
+        )
+        cd1 = s.cd + dcd
         return self._sweep_tail(
             g, ops, s, t1, dt, Y, T1, cl1, cd1, info_T, info_cl, info_cd
         )

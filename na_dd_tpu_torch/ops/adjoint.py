@@ -3,7 +3,8 @@ counterpart of ``jax.lax.custom_linear_solve`` as
 :mod:`na_dd_tpu.integrators.pc_trapezoidal` uses it with
 ``differentiable=True``).
 
-For ``x = A⁻¹ b`` with ``A`` held as :class:`Stencil5` planes, reverse mode
+For ``x = A⁻¹ b`` with ``A`` held as :class:`Stencil5` planes (or, in 3-D,
+:class:`~na_dd_tpu_torch.three_d.diffusion.Stencil7` volumes), reverse mode
 needs no pass through the solver's iterations:
 
     y = A⁻ᵀ ḡ,     b̄ = y,     c̄_k = −y ⊙ shift_k(x)
@@ -31,18 +32,34 @@ from torch.autograd.function import once_differentiable
 
 from na_dd_tpu_torch.ops.linsolve import Stencil5
 from na_dd_tpu_torch.ops.shifts import LOCAL_OPS
+from na_dd_tpu_torch.three_d.diffusion import Stencil7
+from na_dd_tpu_torch.three_d.shifts import LOCAL_OPS3
+
+
+def _kind(planes):
+    """(stencil type, ops provider) of a tuple of 5 or 7 planes."""
+    return (Stencil5, LOCAL_OPS) if len(planes) == 5 else (Stencil7, LOCAL_OPS3)
+
+
+def _neighbours(ops, x, nplanes):
+    """``x`` shifted as each plane of the stencil multiplies it."""
+    shifts = (ops.shift_xm, ops.shift_xp, ops.shift_ym, ops.shift_yp)
+    if nplanes == 7:
+        shifts += (ops.shift_zm, ops.shift_zp)
+    return (x, *(shift(x) for shift in shifts))
 
 
 class _PlaneSolve(torch.autograd.Function):
-    """``(solver, mask, b, *planes) -> (x, iters, resnorm_sq, converged)``
-    with ``solver(stencil, b) -> (x, info)``; the three diagnostics are
-    non-differentiable outputs."""
+    """``(solver, transpose_solver, mask, b, *planes) -> (x, iters,
+    resnorm_sq, converged)`` with ``solver(stencil, b) -> (x, info)``; the
+    three diagnostics are non-differentiable outputs."""
 
     @staticmethod
-    def forward(ctx, solver, mask, b, *planes):
+    def forward(ctx, solver, transpose_solver, mask, b, *planes):
         planes = tuple(p.detach() for p in planes)
-        x, info = solver(Stencil5(*planes), b.detach())
-        ctx.solver = solver
+        stencil, _ops = _kind(planes)
+        x, info = solver(stencil(*planes), b.detach())
+        ctx.solver = transpose_solver or solver
         ctx.save_for_backward(mask, x, *planes)
         diags = (info["iters"], info["resnorm_sq"], info["converged"])
         ctx.mark_non_differentiable(*diags)
@@ -52,27 +69,23 @@ class _PlaneSolve(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, gx, *_diag_grads):
         mask, x, *planes = ctx.saved_tensors
-        st = Stencil5(*planes)
-        y, _info = ctx.solver(st.transpose(LOCAL_OPS), (gx * mask).contiguous())
+        stencil, ops = _kind(planes)
+        y, _info = ctx.solver(stencil(*planes).transpose(ops), (gx * mask).contiguous())
         y = y * mask
         need = ctx.needs_input_grad
-        grad_b = y if need[2] else None
-        neighbours = (
-            x,
-            LOCAL_OPS.shift_xm(x),
-            LOCAL_OPS.shift_xp(x),
-            LOCAL_OPS.shift_ym(x),
-            LOCAL_OPS.shift_yp(x),
-        )
+        grad_b = y if need[3] else None
         grad_planes = tuple(
-            -y * xk if need[3 + k] else None for k, xk in enumerate(neighbours)
+            -y * xk if need[4 + k] else None
+            for k, xk in enumerate(_neighbours(ops, x, len(planes)))
         )
-        return (None, None, grad_b, *grad_planes)
+        return (None, None, None, grad_b, *grad_planes)
 
 
-def plane_solve(solver, st: Stencil5, b, mask):
+def plane_solve(solver, st, b, mask, transpose_solver=None):
     """``x = solver(st, b)[0]`` with the IFT adjoint as its gradient in
-    ``b`` and in every plane of ``st``.  Returns ``(x, info)`` as the solver
-    does; ``info``'s tensors carry no gradient."""
-    x, iters, resnorm_sq, converged = _PlaneSolve.apply(solver, mask, b, *st)
+    ``b`` and in every plane of ``st`` (a Stencil5 or a Stencil7); the
+    transposed system goes to ``transpose_solver`` (``solver`` by default).
+    Returns ``(x, info)`` as the solver does; ``info``'s tensors carry no
+    gradient."""
+    x, iters, resnorm_sq, converged = _PlaneSolve.apply(solver, transpose_solver, mask, b, *st)
     return x, {"iters": iters, "resnorm_sq": resnorm_sq, "converged": converged}

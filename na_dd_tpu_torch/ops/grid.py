@@ -5,6 +5,8 @@ JAX package does, and shipped once to the device in the working dtype.  Where
 the reference stored ``inf`` (h[0], k[0], the half-steps at the ends) the
 reciprocal metrics hold 0, so every consumer multiplies and boundary rows and
 columns vanish without ``inf * 0``.  Every array is a full (N+1, M+1) plane.
+The probing path's colourings (``red_mask``, ``color5``) are made once with
+the grid.
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ class Grid:
     w_H: torch.Tensor  # h_{i+1/2} k_{j+1/2} on the interior
     w_pk: torch.Tensor  # h_i k_{j+1/2} on rows 1..N × cols 1..M-1
     w_hp: torch.Tensor  # h_{i+1/2} k_j on rows 1..N-1 × cols 1..M
+    red_mask: torch.Tensor  # 1 where (i+j) is even (two-colour diagonal probing)
+    color5: torch.Tensor  # (i + 2j) mod 5, int32: a node and its 4 neighbours differ
     N: int
     M: int
 
@@ -50,6 +54,15 @@ class Grid:
     @property
     def device(self) -> torch.device:
         return self.xx.device
+
+
+def colourings(N: int, M: int):
+    """``(red_mask, color5)`` of an (N+1, M+1) plane as numpy arrays: the
+    (i+j) parity (float64) and the (i + 2j) mod 5 colouring (int32), under
+    which the neighbour at offset (a, b) has colour (c + a + 2b) mod 5."""
+    ii, jj = np.meshgrid(np.arange(N + 1), np.arange(M + 1), indexing="ij")
+    red_mask = ((ii + jj) % 2 == 0).astype(np.float64)
+    return red_mask, ((ii + 2 * jj) % 5).astype(np.int32)
 
 
 def make_grid(x, y, dtype=None, device=None) -> Grid:
@@ -104,6 +117,8 @@ def make_grid(x, y, dtype=None, device=None) -> Grid:
     w_hp = np.zeros((N + 1, M + 1))
     w_hp[1:-1, 1:] = hh_phalf[1:-1, 1:] * kk[1:-1, 1:]
 
+    red_mask, color5 = colourings(N, M)
+
     def dev(a):
         return torch.as_tensor(a, dtype=dtype, device=device).contiguous()
 
@@ -126,6 +141,8 @@ def make_grid(x, y, dtype=None, device=None) -> Grid:
         w_H=dev(w_H),
         w_pk=dev(w_pk),
         w_hp=dev(w_hp),
+        red_mask=dev(red_mask),
+        color5=torch.as_tensor(color5, device=device).contiguous(),
         N=N,
         M=M,
     )

@@ -1,10 +1,17 @@
-"""Assembled 5-point stencils and the masked-early-exit BiCGStab
-(counterpart of :mod:`na_dd_tpu.ops.linsolve`, the parts on the main path).
+"""Assembled 5-point stencils, colour probing and BiCGStab (counterpart of
+:mod:`na_dd_tpu.ops.linsolve`).
 
 A Newton operator is held as five dense coefficient planes
-(:class:`Stencil5`).  :func:`bicgstab_unrolled` is the algebraic reference
+(:class:`Stencil5`), built in closed form or extracted from any distance-1
+linear map by colour probing (:func:`probe_stencil`; its diagonal alone by
+:func:`probe_diag`).  :func:`bicgstab_unrolled` is the algebraic reference
 that the hand-written solve kernel (:mod:`na_dd_tpu_torch.ops.kernels`) and
-its plain twin reproduce.
+its plain twin reproduce; :func:`bicgstab` is the while form, whose early
+exit is a true one (one host read an iteration), and the solve of the
+matrix-free Newton route (:func:`newton_inner_solve`), which has no kernel.
+
+Not ported: ``probe_stencil_vmapped`` and ``bicgstab_scanned``, which exist
+for the size and compile time of XLA programs.
 """
 
 from __future__ import annotations
@@ -105,36 +112,54 @@ def stencil_add_diag(st: Stencil5, d) -> Stencil5:
     return st._replace(c0=st.c0 + d)
 
 
+def checkerboard_masks(g: Grid):
+    """The red/black parity masks of diagonal probing."""
+    return g.red_mask, 1.0 - g.red_mask
+
+
+def probe_diag(matvec, red, black):
+    """Diagonal of a distance-1 operator from two probes: nodes of equal
+    (i+j) parity never couple, so ``diag = Σ_c (A 1_c) ⊙ 1_c``."""
+    return matvec(red) * red + matvec(black) * black
+
+
+def probe_planes(matvec, colour, deltas, ncolours: int, dtype):
+    """The planes of a distance-1 operator from ``ncolours`` probes
+    ``A 1_c``: the coefficient at offset delta of node p is entry p of the
+    probe of colour ``(colour[p] + delta) mod ncolours``.  Each pick selects
+    one value, so the gather is exact."""
+    probes = torch.stack([matvec((colour == k).to(dtype)) for k in range(ncolours)])
+    planes = []
+    for delta in deltas:
+        idx = torch.remainder(colour + delta, ncolours).to(torch.int64)
+        idx = idx.expand(probes.shape[1:]).unsqueeze(0)
+        planes.append(torch.gather(probes, 0, idx).squeeze(0))
+    return planes
+
+
+# neighbour colour offsets under the (i + 2j) mod 5 colouring
+_OFFSET_DELTA = {"c0": 0, "cxm": -1, "cxp": 1, "cym": -2, "cyp": 2}
+
+
+def probe_stencil(matvec, g: Grid) -> Stencil5:
+    """All five planes of a distance-1 operator from 5 probes on the
+    (i + 2j) mod 5 colouring, under which a node and its four axis
+    neighbours carry distinct colours (the neighbour at offset (a, b) has
+    colour (c + a + 2b) mod 5)."""
+    return Stencil5(*probe_planes(matvec, g.color5, _OFFSET_DELTA.values(), 5, g.xx.dtype))
+
+
 def _safe_div(num, den, eps_div):
     den_ok = torch.abs(den) > eps_div
     quotient = num / torch.where(den_ok, den, torch.ones_like(den))
     return torch.where(den_ok, quotient, torch.zeros_like(num)), den_ok
 
 
-def bicgstab_unrolled(
-    matvec,
-    b,
-    x0,
-    *,
-    dot,
-    minv=None,
-    tol: float = 1e-13,
-    iters: int = 16,
-):
-    """Preconditioned BiCGStab, ``iters`` masked-early-exit iterations.
-
-    Once ``done`` trips the remaining iterations keep every carried value, so
-    the result equals a loop that stops there; ``iters_used`` counts only the
-    iterations taken while not done.  Everything stays in tensors: no host
-    synchronisation inside the solve.
-
-    ``dot`` sets the systems: a whole-array sum solves one, a sum per entry of
-    a leading batch dimension (kept as (B, 1, ...)) solves each entry alone
-    under ``jax.vmap``'s semantics: every system carries its own scalars,
-    ``done`` and ``iters_used`` (shaped as ``dot``'s result), and a system
-    that is done keeps its ``x`` while the others iterate.  ``safe_div``'s guard is
-    ``|den| > 1e-300`` cast to the dtype, which is ``|den| > 0`` in float32.
-    """
+def _bicgstab(matvec, b, x0, *, dot, minv, tol, atol, iters, host_exit):
+    """The preconditioned BiCGStab iteration both forms share: ``iters``
+    masked-early-exit iterations; with ``host_exit`` the loop also stops
+    (one host read an iteration) once every system is done, which changes
+    no value: a done system keeps everything it carries."""
     if minv is None:
         minv = lambda r: r  # noqa: E731
     eps_div = torch.tensor(1e-300, dtype=b.dtype, device=b.device)
@@ -142,6 +167,8 @@ def bicgstab_unrolled(
     r = b - matvec(x0)
     rhat = r
     tol_sq = tol * tol * dot(b, b)
+    if atol:
+        tol_sq = torch.clamp_min(tol_sq, atol * atol)
     x = x0
     z = torch.zeros_like(b)
     one = torch.ones((), dtype=b.dtype, device=b.device)
@@ -153,7 +180,9 @@ def bicgstab_unrolled(
     def keep(old, new):
         return torch.where(done, old, new)
 
-    for _ in range(iters):
+    for _ in range(int(iters)):
+        if host_exit and bool(done.all()):
+            break
         rho1 = dot(rhat, r)
         ratio, ok1 = _safe_div(rho1, rho, eps_div)
         aw, ok2 = _safe_div(alpha, omega, eps_div)
@@ -186,3 +215,107 @@ def bicgstab_unrolled(
 
     rsq = dot(r, r)
     return x, {"iters": iters_used, "resnorm_sq": rsq, "converged": rsq <= tol_sq}
+
+
+def bicgstab_unrolled(
+    matvec,
+    b,
+    x0,
+    *,
+    dot,
+    minv=None,
+    tol: float = 1e-13,
+    iters: int = 16,
+):
+    """Preconditioned BiCGStab, ``iters`` masked-early-exit iterations.
+
+    Once ``done`` trips the remaining iterations keep every carried value, so
+    the result equals a loop that stops there; ``iters_used`` counts only the
+    iterations taken while not done.  Everything stays in tensors: no host
+    synchronisation inside the solve.
+
+    ``dot`` sets the systems: a whole-array sum solves one, a sum per entry of
+    a leading batch dimension (kept as (B, 1, ...)) solves each entry alone
+    under ``jax.vmap``'s semantics: every system carries its own scalars,
+    ``done`` and ``iters_used`` (shaped as ``dot``'s result), and a system
+    that is done keeps its ``x`` while the others iterate.  ``safe_div``'s guard is
+    ``|den| > 1e-300`` cast to the dtype, which is ``|den| > 0`` in float32.
+    """
+    return _bicgstab(matvec, b, x0, dot=dot, minv=minv, tol=tol, atol=0.0, iters=iters,
+                     host_exit=False)
+
+
+
+def bicgstab(
+    matvec,
+    b,
+    x0,
+    *,
+    dot,
+    minv=None,
+    tol: float = 1e-13,
+    atol: float = 0.0,
+    maxiter: int = 200,
+):
+    """Preconditioned BiCGStab, the while form: iterate until every system
+    is done (``‖r‖² ≤ max(tol²·‖b‖², atol²)``, or the half step converged,
+    or a breakdown) or ``maxiter`` iterations, reading ``done`` on the host
+    once an iteration.  The update is :func:`bicgstab_unrolled`'s, so the
+    result equals an unrolled solve with any budget the exit falls inside;
+    for one system ``iters`` is the while loop's trip count.  A batch
+    (``dot`` per system) iterates until its last system is done, the done
+    ones kept as they are."""
+    return _bicgstab(matvec, b, x0, dot=dot, minv=minv, tol=tol, atol=atol, iters=maxiter,
+                     host_exit=True)
+
+
+def linearized(fn, *primals):
+    """``(fn(*primals), lin)`` with ``lin(*tangents)`` the Jacobian of ``fn``
+    at ``primals`` applied to ``tangents``: the role of ``jax.linearize``.
+    Each application is a ``torch.func.jvp`` at the fixed point, which
+    evaluates the primal again; ``torch.func.linearize`` would trace the
+    graph anew at every Newton solve, which costs more than the applies a
+    solve makes."""
+
+    def lin(*tangents):
+        return torch.func.jvp(fn, primals, tangents)[1]
+
+    return fn(*primals), lin
+
+
+def interior_linearized_matvec(residual_fn, u0, g: Grid, dt):
+    """``(F(u0), matvec)`` with ``matvec(w) = m·(2 w·m − dt·J_F[u0] (w·m))``,
+    m = interior_mask: the interior Newton operator, matrix-free."""
+    f0, f_lin = linearized(residual_fn, u0)
+    m = g.interior_mask
+
+    def matvec(w):
+        wm = w * m
+        return (2.0 * wm - dt * f_lin(wm)) * m
+
+    return f0, matvec
+
+
+def jacobi_from_diag(diag, mask):
+    """``1/diag`` on the interior, 0 elsewhere (and where the diagonal is 0)."""
+    safe = torch.where(diag == 0, torch.ones_like(diag), diag)
+    return torch.where(mask > 0, 1.0 / safe, torch.zeros_like(diag))
+
+
+def newton_inner_solve(
+    residual_fn, u0, rhs, g: Grid, ops: Ops, dt, *, red, black, tol: float = 1e-13,
+    maxiter: int = 200,
+):
+    """Solve ``m·(2I − dt·J_F[u0]) Δ = rhs·m`` for the Newton update by the
+    while-form Jacobi-BiCGStab on the matrix-free operator, its diagonal
+    from two probes.  Returns ``(F(u0), Δ, info)``, Δ zero on the
+    boundary."""
+    f0, matvec = interior_linearized_matvec(residual_fn, u0, g, dt)
+    m = g.interior_mask
+    inv_diag = jacobi_from_diag(probe_diag(matvec, red * m, black * m), m)
+    b = rhs * m
+    delta, info = bicgstab(
+        matvec, b, torch.zeros_like(b), dot=lambda u, v: ops.asum(u * v),
+        minv=lambda r: r * inv_diag, tol=tol, maxiter=maxiter,
+    )
+    return f0, delta * m, info

@@ -32,7 +32,7 @@ from na_dd_tpu_torch.harness.rates import calculate_observed_rates
 from na_dd_tpu_torch.integrators.pc_trapezoidal import HCsCorrectorPositivityError
 from na_dd_tpu_torch.three_d.fields import FieldRegHCsTriple3
 from na_dd_tpu_torch.three_d.forcing import MMSForcingRegHCsTriple3
-from na_dd_tpu_torch.three_d.grid import Grid3, make_uniform_grid3
+from na_dd_tpu_torch.three_d.grid import Grid3, colourings3, make_uniform_grid3
 from na_dd_tpu_torch.three_d.harness import err_sq3
 from na_dd_tpu_torch.three_d.integrator import PCTrapezoidalRegHCsTriple3
 from na_dd_tpu_torch.three_d.mms import state_from_mms_when3
@@ -41,15 +41,17 @@ from na_dd_tpu_torch.three_d.shifts import BATCHED_OPS3
 
 def pad_grid3(g: Grid3, N_max: int, M_max: int, P_max: int) -> Grid3:
     """Zero-pad every grid volume to (N_max+1, M_max+1, P_max+1), with the
-    dead-node invariants of the 2-D ``pad_grid``.  The JAX grid's
-    ``red_mask``/``color7`` (the probing path) are not carried by the port's
-    grid, so nothing is recomputed."""
+    dead-node invariants of the 2-D ``pad_grid``; ``red_mask``/``color7``
+    are made anew from the padded (i, j, k), as the JAX package makes them."""
     shape = (N_max + 1, M_max + 1, P_max + 1)
     changes = {
         f.name: _pad(getattr(g, f.name), shape)
         for f in dataclasses.fields(g)
-        if isinstance(getattr(g, f.name), torch.Tensor)
+        if isinstance(getattr(g, f.name), torch.Tensor) and f.name not in ("red_mask", "color7")
     }
+    red_mask, color7 = colourings3(N_max, M_max, P_max)
+    changes["red_mask"] = torch.as_tensor(red_mask, dtype=g.dtype, device=g.device)
+    changes["color7"] = torch.as_tensor(color7, device=g.device)
     return dataclasses.replace(g, N=N_max, M=M_max, P=P_max, **changes)
 
 
@@ -69,6 +71,7 @@ def build_spatial_ladder3_batched(
     eta: float = 50.0,
     krylov_unroll: int = 24,
     num_newton_steps: int = 2,
+    precision: str | None = None,
     integral_vars=("T", "cl", "cd"),
     dtype=None,
     device=None,
@@ -104,6 +107,7 @@ def build_spatial_ladder3_batched(
         track_residuals=False,
         krylov_unroll=krylov_unroll,
         num_newton_steps=num_newton_steps,
+        precision=precision or "full",
     )
 
     padded_grids, padded_states = [], []
@@ -169,18 +173,14 @@ def run_spatial_ladder3_batched(
     package's result dict (``compile_plus_run_s`` the first run's
     wall-clock).  On the card unless ``device="cpu"``.
 
-    ``precision="mixed"`` (float32 solves under float64 refinement, batched)
-    is not ported and raises; ``None`` and ``"full"`` run in the grid's
-    dtype.  The JAX function's ``krylov_scanned`` (an XLA compile-time
-    option) has no counterpart here.
+    ``precision="mixed"`` runs every solve as float32 batched K5 launches
+    under per-level float64 refinement (residuals by the batched K6); None
+    and ``"full"`` solve in the grid's dtype.  The JAX function's
+    ``krylov_scanned`` (an XLA compile-time option) has no counterpart here.
     """
-    if precision not in (None, "full"):
-        raise NotImplementedError(
-            f"precision={precision!r} is not ported to the batched 3-D ladder (ROADMAP)"
-        )
     ladder = build_spatial_ladder3_batched(
         case_cls, model=model, levels=levels, base_N=base_N, dt0=dt0, Tf=Tf, eta=eta,
-        krylov_unroll=krylov_unroll, num_newton_steps=num_newton_steps,
+        krylov_unroll=krylov_unroll, num_newton_steps=num_newton_steps, precision=precision,
         integral_vars=integral_vars, dtype=dtype, device=device,
     )
     Ns, dts, nsteps, run = ladder["Ns"], ladder["dts"], ladder["nsteps"], ladder["run"]

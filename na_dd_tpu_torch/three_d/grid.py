@@ -6,9 +6,8 @@ consumer multiplies; and every array is a full (N+1, M+1, P+1) volume, so
 quadrature and inner products are whole-array sums with masked weights.  The
 metrics are computed on the host in float64 with numpy, exactly as the JAX
 package does, and shipped once to the device in the working dtype.
-
-``red_mask`` and ``color7`` of the JAX grid serve only the probing path and
-are not carried.
+The probing path's colourings (``red_mask``, ``color7``) are made once with
+the grid.
 """
 
 from __future__ import annotations
@@ -51,6 +50,8 @@ class Grid3:
     w_gx: torch.Tensor  # h_i k_{j+1/2} l_{k+1/2}
     w_gy: torch.Tensor  # h_{i+1/2} k_j l_{k+1/2}
     w_gz: torch.Tensor  # h_{i+1/2} k_{j+1/2} l_k
+    red_mask: torch.Tensor  # 1 where (i+j+k) is even (two-colour diagonal probing)
+    color7: torch.Tensor  # (i + 2j + 3k) mod 7, int32: a node and its 6 neighbours differ
     N: int
     M: int
     P: int
@@ -66,6 +67,16 @@ class Grid3:
     @property
     def device(self) -> torch.device:
         return self.xx.device
+
+
+def colourings3(N: int, M: int, P: int):
+    """``(red_mask, color7)`` of an (N+1, M+1, P+1) volume as numpy arrays:
+    the (i+j+k) parity (float64) and the (i + 2j + 3k) mod 7 colouring
+    (int32), under which the neighbour at offset (a, b, c) has colour
+    (q + a + 2b + 3c) mod 7 (the offsets 0, ±1, ±2, ±3 differ mod 7)."""
+    ii, jj, kk = np.meshgrid(np.arange(N + 1), np.arange(M + 1), np.arange(P + 1), indexing="ij")
+    red_mask = ((ii + jj + kk) % 2 == 0).astype(np.float64)
+    return red_mask, ((ii + 2 * jj + 3 * kk) % 7).astype(np.int32)
 
 
 def make_grid3(x, y, z, dtype=None, device=None) -> Grid3:
@@ -133,6 +144,8 @@ def make_grid3(x, y, z, dtype=None, device=None) -> Grid3:
     w_gy = bx(h_phalf) * by(k) * bz(l_phalf)
     w_gz = bx(h_phalf) * by(k_phalf) * bz(l)
 
+    red_mask, color7 = colourings3(N, M, P)
+
     def dev(a):
         return torch.as_tensor(a, dtype=dtype, device=device).contiguous()
 
@@ -160,6 +173,8 @@ def make_grid3(x, y, z, dtype=None, device=None) -> Grid3:
         w_gx=dev(w_gx),
         w_gy=dev(w_gy),
         w_gz=dev(w_gz),
+        red_mask=dev(red_mask),
+        color7=torch.as_tensor(color7, device=device).contiguous(),
         N=N,
         M=M,
         P=P,

@@ -15,7 +15,11 @@ package on CPU float64, fed the same numpy inputs:
   N=6 with two η against the JAX package's (1e-10) and the port's serial
   sweep (1e-12); ``run_spatial_ladder3_batched(levels=2)`` and
   ``run_eta_sweep3`` at N=4 with two η against the JAX package's (1e-10)
-  and the port's serial ``mms_error3`` (1e-12).
+  and the port's serial ``mms_error3`` (1e-12);
+* both ladders with ``precision="mixed"`` (float32 solves under per-level
+  float64 refinement, per-level verdicts) against the JAX package's mixed
+  ladders (1e-10) and the float64 levels (the port's batched ladder in 2-D,
+  CPU-x64 in 3-D; 1e-12).
 
 Each JAX run is made once, in a module-scoped fixture."""
 
@@ -62,6 +66,8 @@ from na_dd_tpu_torch.three_d.shifts import BATCHED_OPS3, LOCAL_OPS3
 THREE_D_CONSTS = dict(K1=1e-3, K2=1e-3, K3=1e-3, K4=1e-3, Dl_max=1e-5, Kd=1e-2, Sd=1.0, Dd_max=1e-6)
 ETA_KW = dict(N=6, dt=2.5e-3, Tf=0.005, etas=[10.0, 100.0])
 SWEEP3_KW = dict(N=4, Tf=0.02, dt=1e-2, etas=[10.0, 100.0])
+# CPU-x64 errors of the JAX package's 3-D study levels (chip_smoke.py)
+THREE_D_CPU_X64 = {4: 0.0005209171734887429, 8: 0.000133542682516219}
 
 
 def _rel(a, b):
@@ -287,9 +293,6 @@ def test_spatial_ladder3_batched_matches_jax_and_serial(model3):
         e_s = mms_error3(MMSCaseExpSin3, N=N, model=t_model, Tf=0.02, dt=1e-2 / 2**k,
                          integrator_params=dict(num_newton_steps=2), device="cpu")
         assert _rel(e_p, e_s) <= 1e-12
-    with pytest.raises(NotImplementedError, match="mixed"):
-        run_spatial_ladder3_batched(MMSCaseExpSin3, model=t_model, levels=2, precision="mixed",
-                                    verbose=False, device="cpu")
 
 
 def test_eta_sweep3_matches_jax_and_serial(model3):
@@ -302,3 +305,60 @@ def test_eta_sweep3_matches_jax_and_serial(model3):
         e_s = mms_error3(MMSCaseExpSin3, N=SWEEP3_KW["N"], model=t_model, Tf=SWEEP3_KW["Tf"],
                          dt=SWEEP3_KW["dt"], eta=eta, device="cpu")
         assert _rel(e_p, e_s) <= 1e-12
+
+
+def test_spatial_ladder_batched_mixed_matches_jax_and_f64(ladder, monkeypatch):
+    """The 2-D ladder with ``precision="mixed"`` (a keyword here; the JAX
+    function reads NA_DD_TPU_PRECISION) against the JAX mixed ladder and the
+    port's float64 batched ladder."""
+    monkeypatch.setenv("NA_DD_TPU_PRECISION", "mixed")
+    jax_res = j_bl.run_spatial_ladder_batched("pol", levels=3, verbose=False)
+    port = run_spatial_ladder_batched("pol", levels=3, verbose=False, device="cpu",
+                                      precision="mixed")
+    f64 = ladder[1]
+    assert port["Ns"] == jax_res["Ns"] == [2, 4, 8]
+    for e_p, e_j, e_f in zip(port["errors"], jax_res["errors"], f64["errors"]):
+        assert _rel(e_p, e_j) <= 1e-10
+        assert _rel(e_p, e_f) <= 1e-12
+
+
+def test_spatial_ladder3_batched_mixed_matches_jax_and_f64(model3):
+    """The 3-D ladder with ``precision="mixed"`` against the JAX mixed ladder
+    (1e-10) and the JAX package's CPU-x64 float64 levels (1e-12)."""
+    j_model, t_model = model3
+    jax_res = j_bl3.run_spatial_ladder3_batched(JCase3, model=j_model, levels=2, base_N=4,
+                                                verbose=False, precision="mixed")
+    port = run_spatial_ladder3_batched(MMSCaseExpSin3, model=t_model, levels=2, base_N=4,
+                                       verbose=False, precision="mixed", device="cpu")
+    assert port["Ns"] == jax_res["Ns"] == [4, 8] and all(port["converged"])
+    for N, e_p, e_j in zip(port["Ns"], port["errors"], jax_res["errors"]):
+        assert _rel(e_p, e_j) <= 1e-10
+        assert _rel(e_p, THREE_D_CPU_X64[N]) <= 1e-12
+
+
+def test_mixed_backend_verdicts_are_per_system():
+    """A batched mixed solve reports one verdict and one iteration count a
+    system, (B, 1, 1) and (B,), each the unbatched solve's."""
+    from na_dd_tpu_torch.integrators.pc_trapezoidal import MixedBackend
+
+    rng = np.random.default_rng(92)
+    shape = (9, 8)
+    mask = np.zeros(shape)
+    mask[1:-1, 1:-1] = 1.0
+    m = torch.as_tensor(mask)
+    sh = (LOCAL_OPS.shift_xm, LOCAL_OPS.shift_xp, LOCAL_OPS.shift_ym, LOCAL_OPS.shift_yp)
+    systems = []
+    for _ in range(3):
+        c0 = (rng.random(shape) + 4.0) * mask
+        offs = [0.5 * rng.random(shape) * mask * f(m).numpy() for f in sh]
+        systems.append(([c0, *offs], rng.random(shape) * mask))
+    backend = MixedBackend(iters=16)
+    st = stencil5_from_numpy([np.stack([p[k] for p, _ in systems]) for k in range(5)], device="cpu")
+    b = tensor_from_numpy(np.stack([r for _, r in systems]), device="cpu")
+    x, info = backend.solve(st, b, m)
+    assert info["converged"].shape == (3, 1, 1) and info["iters"].shape == (3,)
+    for k, (planes, rhs) in enumerate(systems):
+        xk, info_k = backend.solve(stencil5_from_numpy(planes, device="cpu"),
+                                   tensor_from_numpy(rhs, device="cpu"), m)
+        assert torch.allclose(x[k], xk, rtol=1e-13, atol=0.0)
+        assert int(info["iters"][k]) == int(info_k["iters"]) and bool(info["converged"][k])

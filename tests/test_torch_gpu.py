@@ -654,3 +654,112 @@ def test_batched_ladder_on_the_card_matches_the_cpu(card):
     assert kernels.LAUNCHES["bicgstab_solve"] == 3 * 6  # N=64: 6 steps
     for a, b in zip(gpu["errors"], cpu["errors"]):
         assert abs(a - b) <= 1e-10 * b
+
+
+# ---------------------------------------------------------------------------
+# the solver options on the card against the CPU plain run
+# ---------------------------------------------------------------------------
+def _release_step(device, **kw):
+    """One step of the release blob (Kd = 1e-2) at N=16 with the options."""
+    from na_dd_tpu_torch.core.state import State
+    from na_dd_tpu_torch.harness.simulate import make_integrator
+    from na_dd_tpu_torch.models.coefficients import Model02
+    from na_dd_tpu_torch.models.consts import default_model_consts
+    from na_dd_tpu_torch.ops.grid import make_uniform_grid
+    from na_dd_tpu_torch.ops.shifts import LOCAL_OPS
+
+    g = make_uniform_grid(16, 16, device=device)
+    b = torch.exp(-60.0 * ((g.xx - 0.5) ** 2 + (g.yy - 0.5) ** 2)) * g.interior_mask
+    s0 = State(0.5 * b, 0.1 * b, 0.2 * b, 0.05 * b, b)
+    integ = make_integrator(g, Model02(default_model_consts._replace(Kd=1e-2)), **kw)
+    return integ.step_fn(g, LOCAL_OPS, s0, 0.0, 2e-3)
+
+
+@pytest.mark.parametrize("kw", [dict(stencil_source="probe"), dict(krylov_unroll=None),
+                                dict(assemble_stencil=False, krylov_unroll=None)],
+                         ids=["probe", "while_form", "matrix_free"])
+def test_solver_option_step_on_the_card_matches_the_cpu(card, kw):
+    """The probed planes (K1), the while form (K1 at budget 300) and the
+    matrix-free route (no kernel) on the card against the CPU: 1e-12."""
+    s_card, d_card = _release_step(card, **kw)
+    s_cpu, d_cpu = _release_step("cpu", **kw)
+    for a, b in zip(s_card, s_cpu):
+        assert_close(a, b, 1e-12)
+    assert bool(d_card.krylov_converged) and int(d_card.krylov_iters) == int(d_cpu.krylov_iters)
+
+
+def test_heat_mms_error_on_the_card_matches_the_cpu(card):
+    """The Crank-Nicolson heat solve through K5/K6 against the plain run:
+    1e-10, as chip_smoke.py holds it (the error is a difference of O(1)
+    fields, 1.08e-12 apart at N=16 on the H100); one K5 launch a step."""
+    from na_dd_tpu_torch.three_d.diffusion import heat_mms_error
+
+    kernels.reset_launch_counts()
+    e_card = heat_mms_error(16, device=card)
+    assert kernels.LAUNCHES["bicgstab_solve3"] == 20
+    e_cpu = heat_mms_error(16, device="cpu")
+    assert abs(e_card - e_cpu) <= 1e-10 * e_cpu
+
+
+@pytest.mark.parametrize("kw", [dict(linear_solver="direct"), dict(stencil_source="probe")],
+                         ids=["direct", "probe"])
+def test_3d_option_step_on_the_card_matches_the_cpu(card, kw):
+    from na_dd_tpu_torch.core.state import State
+    from na_dd_tpu_torch.models.coefficients import Model02
+    from na_dd_tpu_torch.models.consts import default_model_consts
+    from na_dd_tpu_torch.three_d.grid import make_uniform_grid3
+    from na_dd_tpu_torch.three_d.harness import make_integrator3
+    from na_dd_tpu_torch.three_d.shifts import LOCAL_OPS3
+
+    def step(device):
+        g = make_uniform_grid3(12, 12, 12, device=device)
+        b = (torch.sin(np.pi * g.xx) * torch.sin(np.pi * g.yy) * torch.sin(np.pi * g.zz)
+             * g.interior_mask)
+        integ = make_integrator3(g, Model02(default_model_consts._replace(Kd=1e-2)), **kw)
+        return integ.step_fn(g, LOCAL_OPS3, State(0.2 * b, 0.1 * b, 0 * b, 0.05 * b, b), 0.0, 1e-3)
+
+    (s_card, d_card), (s_cpu, _) = step(card), step("cpu")
+    for a, b in zip(s_card, s_cpu):
+        assert_close(a, b, 1e-12)
+    assert bool(d_card.krylov_converged)
+
+
+def test_3d_gradient_on_the_card_matches_the_cpu(card):
+    """differentiable=True in 3-D: K5 on Stencil7.transpose volumes in the
+    adjoint; value and gradient against the CPU plain run, 1e-10."""
+    from na_dd_tpu_torch.core.state import State
+    from na_dd_tpu_torch.models.coefficients import Model02
+    from na_dd_tpu_torch.models.consts import default_model_consts
+    from na_dd_tpu_torch.three_d.grid import make_uniform_grid3
+    from na_dd_tpu_torch.three_d.harness import make_integrator3
+    from na_dd_tpu_torch.three_d.shifts import LOCAL_OPS3
+
+    def value_and_grad(device):
+        g = make_uniform_grid3(10, 10, 10, device=device)
+        b = (torch.sin(np.pi * g.xx) * torch.sin(np.pi * g.yy) * torch.sin(np.pi * g.zz)
+             * g.interior_mask)
+        Kd = torch.tensor(1e-2, dtype=torch.float64, device=device, requires_grad=True)
+        integ = make_integrator3(g, Model02(default_model_consts._replace(Kd=Kd)),
+                                 differentiable=True)
+        s = State(0.2 * b, 0.1 * b, 0 * b, 0.05 * b, b)
+        for k in range(2):
+            s, _ = integ.step_fn(g, LOCAL_OPS3, s, k * 1e-3, 1e-3)
+        v = LOCAL_OPS3.asum(g.w_H * s.cd)
+        return v.item(), torch.autograd.grad(v, Kd)[0].item()
+
+    (v_card, g_card), (v_cpu, g_cpu) = value_and_grad(card), value_and_grad("cpu")
+    assert abs(v_card - v_cpu) <= 1e-12 * abs(v_cpu)
+    assert abs(g_card - g_cpu) <= 1e-10 * abs(g_cpu)
+
+
+def test_batched_mixed_ladder_on_the_card_matches_the_cpu(card):
+    from na_dd_tpu_torch.harness.batched_ladder import run_spatial_ladder_batched
+
+    kernels.reset_launch_counts()
+    e_card = run_spatial_ladder_batched("pol", levels=3, precision="mixed", verbose=False,
+                                        device=card)["errors"]
+    assert kernels.LAUNCHES_F32["bicgstab_solve"] == kernels.LAUNCHES["bicgstab_solve"] > 0
+    e_cpu = run_spatial_ladder_batched("pol", levels=3, precision="mixed", verbose=False,
+                                       device="cpu")["errors"]
+    for a, b in zip(e_card, e_cpu):
+        assert abs(a - b) <= 1e-10 * b

@@ -15,6 +15,7 @@ import torch
 from na_dd_tpu_torch import config
 from na_dd_tpu_torch.convert import grid3_from_nodes, grid_from_nodes, state_from_numpy, tensor_from_numpy
 from na_dd_tpu_torch.harness import studies
+from na_dd_tpu_torch.harness.batched_ladder import run_spatial_ladder_batched
 from na_dd_tpu_torch.harness.checkpoint import load_state
 from na_dd_tpu_torch.harness.legacy import run_convergence_studies
 from na_dd_tpu_torch.mms.cases import MMSCasePol
@@ -22,6 +23,8 @@ from na_dd_tpu_torch.models.coefficients import Model02
 from na_dd_tpu_torch.models.consts import STUDY_MODEL_CONSTS
 from na_dd_tpu_torch.ops import kernels
 from na_dd_tpu_torch.ops.grid import make_grid, make_uniform_grid
+from na_dd_tpu_torch.three_d.batched_ladder import run_spatial_ladder3_batched
+from na_dd_tpu_torch.three_d.diffusion import heat_mms_error
 from na_dd_tpu_torch.three_d.grid import make_grid3, make_uniform_grid3
 from na_dd_tpu_torch.three_d.harness import make_setup3, mms_error3
 from na_dd_tpu_torch.three_d.mms import MMSCaseCsZeroCrossing3, MMSCaseExpSin3, MMSCasePol3
@@ -52,6 +55,7 @@ def test_port_files_were_found():
     for module in ("simulate", "checkpoint", "gradients", "legacy"):
         assert f"na_dd_tpu_torch/harness/{module}.py" in names
     assert "na_dd_tpu_torch/ops/direct_solve.py" in names
+    assert "na_dd_tpu_torch/three_d/direct_solve.py" in names
     assert "na_dd_tpu_torch/ops/adjoint.py" in names
     for module in ("harness/batched_ladder", "three_d/batched_ladder"):
         assert f"na_dd_tpu_torch/{module}.py" in names
@@ -143,6 +147,10 @@ def no_card(monkeypatch):
             {"Tf": 0.01, "model": None, "N_base_spatial": 2, "num_spatial_refinements": 1,
              "dt_fixed_spatial": 0.01}),
         lambda: load_state("never-read"),
+        lambda: heat_mms_error(4),
+        lambda: run_spatial_ladder_batched("pol", levels=1, precision="mixed", verbose=False),
+        lambda: run_spatial_ladder3_batched(MMSCaseExpSin3, model=Model02(STUDY_MODEL_CONSTS),
+                                            levels=1, precision="mixed", verbose=False),
     ],
 )
 def test_entry_points_without_a_card_raise(no_card, entry):

@@ -12,9 +12,10 @@ Tolerances, stated per comparison: states relative to the field's max-norm,
 accept/reject decisions, exactly); direct solves 1e-12 against dense ``torch.linalg.solve``;
 study errors 1e-10 relative to JAX's; every gradient 1e-9 relative to
 ``jax.grad`` (the two run the same arithmetic: measured agreement ~1e-15),
-and against central differences as the JAX tests have them.  The JAX
-package's ``test_grad_works_with_while_loop_solver`` has no twin: the port
-has no while-form BiCGStab (ROADMAP Queue 1 item 5)."""
+and against central differences as the JAX tests have them; the solver
+options (colour-probed planes, the matrix-free route, the while form) one
+step against the JAX package's at 1e-12, their constructor checks, and the
+while-form gradient (``krylov_unroll=None``) against ``jax.grad`` at 1e-8."""
 
 import jax
 import jax.numpy as jnp
@@ -289,9 +290,15 @@ def test_run_checkpointed_in_3d_equals_simulate_and_resumes(tmp_path):
 
 
 def test_3d_integrators_refuse_what_is_not_ported():
+    """The 3-D integrators take ``differentiable=True`` and
+    ``linear_solver="direct"``, and refuse them together (or the adjoint
+    with mixed solves), as the JAX 3-D integrators fail there."""
     g = make_uniform_grid3(4, 4, 4, device=CPU)
     for kw in (dict(differentiable=True), dict(linear_solver="direct")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_integrator3(g, Model02(default_model_consts), **kw)
+    for kw in (dict(differentiable=True, linear_solver="direct"),
+               dict(differentiable=True, precision="mixed")):
+        with pytest.raises(AttributeError, match="transpose"):
             make_integrator3(g, Model02(default_model_consts), **kw)
 
 
@@ -840,3 +847,65 @@ def test_fit_parameters_recovers_kd_as_jax_does(blob, grads_base):
         assert rel(a, b) <= 1e-6
     assert history[-1] < history[0] * 1e-2
     assert fitted["Kd"] == pytest.approx(1e-2, rel=0.05)
+
+
+# ---------------------------------------------------------------------------
+# the solver options: probed planes, matrix-free, the while form
+# ---------------------------------------------------------------------------
+OPTIONS = {
+    "probe": dict(stencil_source="probe"),
+    "matrix_free": dict(assemble_stencil=False),
+    "matrix_free_while": dict(assemble_stencil=False, krylov_unroll=None),
+    "while_form": dict(krylov_unroll=None, krylov_maxiter=60),
+}
+
+
+@pytest.mark.parametrize("option", sorted(OPTIONS))
+def test_solver_option_step_matches_jax(blob, option):
+    """One step of the release blob at N=12 with each option, against the
+    JAX package's step (1e-12); ``differentiable=True`` changes no forward
+    bit."""
+    jg, g, js0, s0, _dir = blob
+    kw = dict(OPTIONS[option])
+    kw.setdefault("krylov_unroll", 8)
+    j_state, j_diag = jax.jit(j_make_integrator(jg, JModel02(J_MC), **kw).step_fn,
+                              static_argnums=1)(jg, J_OPS, js0, 0.0, DT)
+    port = make_integrator(g, Model02(MC), **kw)
+    t_state, t_diag = port.step_fn(g, LOCAL_OPS, s0, 0.0, DT)
+    assert_states_close(t_state, j_state, 1e-12)
+    assert abs(int(t_diag.krylov_iters) - int(j_diag.krylov_iters)) <= 1
+    assert bool(t_diag.krylov_converged) and bool(j_diag.krylov_converged)
+    d_state, _ = make_integrator(g, Model02(MC), differentiable=True, **kw).step_fn(
+        g, LOCAL_OPS, s0, 0.0, DT)
+    for a, b in zip(d_state, t_state):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(stencil_source="nope"), "stencil_source"),
+    (dict(precision="mixed", assemble_stencil=False), "assemble_stencil"),
+    (dict(linear_solver="direct", assemble_stencil=False), "assemble_stencil"),
+    (dict(krylov_unroll="many"), "krylov_unroll"),
+])
+def test_solver_options_are_checked_as_jax_checks_them(kw, match):
+    jg = j_make_uniform_grid(4, 4)
+    with pytest.raises(ValueError, match=match):
+        j_make_integrator(jg, JModel02(J_MC), **kw)
+    g = make_uniform_grid(4, 4, device=CPU)
+    with pytest.raises(ValueError, match=match):
+        make_integrator(g, Model02(MC), **kw)
+
+
+def test_grad_works_with_while_loop_solver(blob):
+    """tests/test_gradients.py:152's twin: ``krylov_unroll=None`` (the
+    kernels' budget is ``krylov_maxiter``) is reverse-differentiable through
+    the IFT adjoint; its gradient is the JAX package's while-loop one."""
+    jg, g, js0, s0, _dir = blob
+    jsim = j_build_simulator(jg, dt=DT, num_steps=1, base_consts=J_MC, krylov_unroll=None)
+    ref = float(jax.grad(lambda p: j_energy(jg, jsim(p, js0)))(
+        {"Dl_max": jnp.asarray(8.01e-4)})["Dl_max"])
+    sim = build_simulator(g, dt=DT, num_steps=1, base_consts=MC, krylov_unroll=None)
+    params = _leaves({"Dl_max": 8.01e-4})
+    (got,) = torch.autograd.grad(energy(g, sim(params, s0)), [params["Dl_max"]])
+    assert np.isfinite(float(got)) and float(got) != 0.0
+    assert rel(got, ref) <= 1e-8

@@ -16,7 +16,15 @@ package (na_dd_tpu.three_d) on CPU float64, fed the same numpy inputs:
   fused kernel is 2-D only in both packages), the same tolerances;
 * ``run_trial3`` at N=4 and N=8 (the three_d_study protocol: Tf=0.02, two
   Newton sweeps, dt = 1e-2/2^k): ≤1e-10 relative to the JAX trial and to the
-  CPU-x64 values of the JAX package."""
+  CPU-x64 values of the JAX package;
+* the solver options: 7-colour probed planes against the JAX package's
+  probes and the closed-form planes (≤1e-12); ``Stencil7.transpose``
+  against ``jax.linear_transpose`` of ``Stencil7.apply`` (≤1e-14); the
+  x-plane BCR direct solve against the JAX one (≤1e-10); the Crank–Nicolson
+  heat step and ``heat_mms_error`` at N=4..8 (≤1e-12); the probed,
+  matrix-free and direct steps against the JAX steps (≤1e-12); value and
+  gradients of ``differentiable=True`` runs against ``jax.grad`` (≤1e-8);
+  and the modes the JAX 3-D integrators cannot run refused alike."""
 
 import dataclasses
 
@@ -108,7 +116,7 @@ GRID_FIELDS = [f.name for f in dataclasses.fields(t_grid.Grid3) if f.name not in
 def test_grid3_metric(grids, name):
     jg, tg = grids
     assert (tg.N, tg.M, tg.P) == (jg.N, jg.M, jg.P)
-    assert getattr(tg, name).dtype == torch.float64
+    assert getattr(tg, name).dtype == (torch.int32 if name == "color7" else torch.float64)
     assert_close(getattr(tg, name), getattr(jg, name), rtol=0.0)
 
 
@@ -401,3 +409,219 @@ def test_make_grid3_refuses_bad_nodes(nodes):
     x, y = nodes
     with pytest.raises(ValueError):
         t_grid.make_grid3(x, y, y, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the solver options: probing, transposed planes, direct, heat, gradients
+# ---------------------------------------------------------------------------
+RTOL_SOLVE = 1e-12
+SEED = 86420
+
+
+@pytest.mark.parametrize("fname,var,planes", [("FT", "T", "stencil_dFT_dT"),
+                                              ("Fcl", "cl", "stencil_dFcl_dcl"),
+                                              ("Fcd", "cd", "stencil_dFcd_dcd")])
+def test_probe_stencil3_matches_jax_and_analytic(physics, fname, var, planes):
+    ts, js = _states(physics)
+    jg, tg, dt = physics["jg"], physics["tg"], 1e-3
+    _f0, jlin = jax.linearize(
+        lambda w: getattr(physics["jfield"], fname)(jg, J_OPS, js._replace(**{var: w}), T_EVAL),
+        getattr(js, var))
+    jm = jg.interior_mask
+    j_probed = j_diff.probe_stencil3(lambda w: (2.0 * (w * jm) - dt * jlin(w * jm)) * jm, jg)
+    from na_dd_tpu_torch.ops.linsolve import linearized
+
+    _tf0, tlin = linearized(
+        lambda w: getattr(physics["tfield"], fname)(tg, T_OPS, ts._replace(**{var: w}), T_EVAL),
+        getattr(ts, var))
+    tm = tg.interior_mask
+    t_probed = t_diff.probe_stencil3(lambda w: (2.0 * (w * tm) - dt * tlin(w * tm)) * tm, tg)
+    analytic = t_diff.newton_planes3(tg, T_OPS, getattr(physics["tfield"], planes)(tg, T_OPS, ts), dt)
+    for p, jp, a in zip(t_probed, j_probed, analytic):
+        assert_close(p, jp, RTOL_SOLVE)
+        assert_close(p, a.numpy(), RTOL_SOLVE)
+
+
+def _newton_like_stencil7(shape, seed, dead=()):
+    """Random Stencil7 volumes with the Newton planes' structure: rows and
+    off-diagonals masked (``mask·shift(mask)``), diagonally dominant."""
+    rng = np.random.default_rng(seed)
+    mask = np.zeros(shape)
+    mask[1:-1, 1:-1, 1:-1] = 1.0
+    for node in dead:
+        mask[node] = 0.0
+    tmask = _t(mask)
+    shifts = (T_OPS.shift_xm, T_OPS.shift_xp, T_OPS.shift_ym, T_OPS.shift_yp, T_OPS.shift_zm,
+              T_OPS.shift_zp)
+    c0 = (rng.random(shape) * 0.5 + 6.0) * mask
+    offs = [rng.random(shape) * 0.5 * mask * sh(tmask).numpy() for sh in shifts]
+    return [c0, *offs], mask
+
+
+def test_stencil7_transpose_matches_jax_linear_transpose():
+    """Aᵀv by the transposed planes equals ``jax.linear_transpose`` of the
+    JAX package's ``Stencil7.apply`` (zero inflow at the faces included),
+    on a volume of every node, not only the interior."""
+    planes, _mask = _newton_like_stencil7(SHAPE, SEED)
+    planes = [p + 0.1 for p in planes]  # couplings into the frame too
+    v = np.random.default_rng(SEED + 1).standard_normal(SHAPE)
+    jst = j_diff.Stencil7(*(jnp.asarray(p) for p in planes))
+    (ref,) = jax.linear_transpose(lambda w: jst.apply(J_OPS, w), jnp.zeros(SHAPE))(jnp.asarray(v))
+    tst = stencil7_from_numpy(planes, device="cpu")
+    assert_close(tst.transpose(T_OPS).apply(T_OPS, _t(v)), ref, 1e-14)
+
+
+@pytest.mark.parametrize("dead", [(), ((2, 2, 2), (3, 1, 2))])
+def test_direct_solve3_matches_jax(dead):
+    """The x-plane BCR against the JAX package's (tests/test_three_d_direct_
+    solve.py:75,92): interior mask, and dead interior nodes."""
+    from na_dd_tpu.three_d.direct_solve import stencil7_solve_direct as j_direct3
+    from na_dd_tpu_torch.three_d.direct_solve import stencil7_solve_direct as t_direct3
+
+    shape = (6, 5, 7)
+    rng = np.random.default_rng(SEED + 2)
+    planes = [rng.random(shape) * 0.5 + (6.0 if k == 0 else 0.0) for k in range(7)]
+    mask = np.zeros(shape)
+    mask[1:-1, 1:-1, 1:-1] = 1.0
+    for node in dead:
+        mask[node] = 0.0
+    b = rng.random(shape) * mask
+    ref = j_direct3(j_diff.Stencil7(*(jnp.asarray(p) for p in planes)), jnp.asarray(b),
+                    jnp.asarray(mask))
+    port = t_direct3(stencil7_from_numpy(planes, device="cpu"), _t(b), _t(mask))
+    assert_close(port, ref, 1e-10)
+    assert float((port * (1 - _t(mask))).abs().max()) == 0.0
+
+
+def test_crank_nicolson_heat_step_matches_jax():
+    """tests/test_three_d.py:104 on both packages: one CN step at N=6."""
+    jg, tg = j_grid.make_uniform_grid3(6, 6, 6), t_grid.make_uniform_grid3(6, 6, 6, device="cpu")
+    rng = np.random.default_rng(3)
+    u = rng.random((7, 7, 7)) * np.asarray(jg.interior_mask)
+    f = rng.random((7, 7, 7)) * np.asarray(jg.interior_mask)
+    jst = j_diff.diffusion_planes3(jg, J_OPS, *(jnp.full((7, 7, 7), 0.2),) * 3)
+    tst = t_diff.diffusion_planes3(tg, T_OPS, *(torch.full((7, 7, 7), 0.2, dtype=torch.float64),) * 3)
+    ju, jinfo = j_diff.crank_nicolson_heat_step(jg, J_OPS, jst, jnp.asarray(u), jnp.asarray(f),
+                                                jnp.asarray(f), 1e-2)
+    tu, tinfo = t_diff.crank_nicolson_heat_step(tg, T_OPS, tst, _t(u), _t(f), _t(f), 1e-2)
+    assert bool(tinfo["converged"]) and int(tinfo["iters"]) == int(jinfo["iters"])
+    assert_close(tu, ju, RTOL_SOLVE)
+    mask, tu0 = tg.interior_mask, _t(u)
+    res = (mask * (tu - 0.5e-2 * tst.apply(T_OPS, tu))
+           - mask * (tu0 + 0.5e-2 * tst.apply(T_OPS, tu0) + 1e-2 * _t(f)))
+    assert float(res.abs().max()) < 1e-11
+
+
+@pytest.mark.parametrize("N", [4, 8])
+def test_heat_mms_error_matches_jax(N):
+    """≤1e-11: the port applies the CN operator as assembled planes (the K5
+    kernel's form), the JAX package as ``m·(w − dt/2·L w)``; the rounding of
+    the two forms differs by a few ulp an apply, 4.4e-12 of the error at
+    N=8 after 16 steps."""
+    port = t_diff.heat_mms_error(N, D=0.1, Tf=0.05, dt=0.05 / (2 * N), device="cpu")
+    ref = float(j_diff.heat_mms_error(N, D=0.1, Tf=0.05, dt=0.05 / (2 * N)))
+    assert abs(port - ref) <= 1e-11 * ref
+
+
+def _one_step_pair(N, dt, **kw):
+    """One step at N from the exact ExpSin3 state in both packages, the same
+    integrator options (one Newton sweep)."""
+    from na_dd_tpu.three_d.mms import state_from_mms_when3
+
+    jm, tm = _models()
+    params = dict(num_newton_steps=1, track_residuals=False, krylov_unroll=None)
+    params.update(kw)
+    jg, jcase, _, jinteg = j_make_setup3(JCase, N=N, model=jm, eta=ETA, integrator_params=params)
+    tg, _, _, tinteg = t_make_setup3(TCase, N=N, model=tm, eta=ETA, integrator_params=params,
+                                     device="cpu")
+    js0 = state_from_mms_when3(mms_case=jcase, t=0.0, grid=jg)
+    j_state, j_diag = jax.jit(jinteg.step_fn, static_argnums=1)(jg, J_OPS, js0, 0.0, dt)
+    ts0 = state_from_numpy({k: np.asarray(v) for k, v in js0._asdict().items()}, device="cpu")
+    t_state, t_diag = tinteg.step_fn(tg, T_OPS, ts0, 0.0, dt)
+    return j_state, j_diag, t_state, t_diag
+
+
+@pytest.mark.parametrize("option", ["probe", "matrix_free", "while_form", "direct"])
+def test_solver_option_step_matches_jax(option):
+    """tests/test_three_d_model.py:354 on both packages: the probed, the
+    matrix-free (while form), the while-form and the direct step at N=4
+    against the JAX steps."""
+    kw = {"probe": dict(stencil_source="probe"),
+          "matrix_free": dict(assemble_stencil=False, krylov_unroll=None),
+          "while_form": dict(krylov_unroll=None),
+          "direct": dict(linear_solver="direct")}[option]
+    j_state, j_diag, t_state, t_diag = _one_step_pair(4, 1e-3, **kw)
+    for v in FIELDS:
+        assert_close(getattr(t_state, v), getattr(j_state, v), RTOL_SOLVE)
+    assert bool(t_diag.krylov_converged) and bool(j_diag.krylov_converged)
+    if option != "direct":
+        assert abs(int(t_diag.krylov_iters) - int(j_diag.krylov_iters)) <= 1
+
+
+def _bump_loss_pair(N, steps, dt, kw):
+    """Value and gradients (Kd, initial amplitude) of Σ w_H·cd after
+    ``steps`` steps of the 3-D sin bump, differentiable=True, in both
+    packages."""
+    from na_dd_tpu.three_d.harness import make_integrator3 as j_make_integrator3
+    from na_dd_tpu_torch.core.state import State as TState
+    from na_dd_tpu_torch.three_d.harness import make_integrator3 as t_make_integrator3
+
+    mc = J_DEFAULT_CONSTS._replace(gamma_T=1e-2, **STUDY_CONSTS)
+    jg = j_grid.make_uniform_grid3(N, N, N)
+    jb = jnp.sin(jnp.pi * jg.xx) * jnp.sin(jnp.pi * jg.yy) * jnp.sin(jnp.pi * jg.zz) * jg.interior_mask
+
+    def jloss(Kd, amp):
+        integ = j_make_integrator3(jg, JModel02(mc._replace(Kd=Kd)), differentiable=True, **kw)
+        s = JState(0.2 * amp * jb, 0.1 * amp * jb, 0.0 * jb, 0.05 * amp * jb, amp * jb)
+        for k in range(steps):
+            s, _ = integ.step_fn(jg, J_OPS, s, k * dt, dt)
+        return J_OPS.asum(jg.w_H * s.cd)
+
+    jval, jgrads = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1)))(jnp.asarray(mc.Kd),
+                                                                       jnp.asarray(1.0))
+    tg = t_grid.make_uniform_grid3(N, N, N, device="cpu")
+    tb = torch.sin(np.pi * tg.xx) * torch.sin(np.pi * tg.yy) * torch.sin(np.pi * tg.zz) * tg.interior_mask
+    Kd = torch.tensor(mc.Kd, dtype=torch.float64, requires_grad=True)
+    amp = torch.tensor(1.0, dtype=torch.float64, requires_grad=True)
+    tmc = consts_from_dict(mc._asdict())._replace(Kd=Kd)
+    integ = t_make_integrator3(tg, TModel02(tmc), differentiable=True, **kw)
+    s = TState(0.2 * amp * tb, 0.1 * amp * tb, 0.0 * tb, 0.05 * amp * tb, amp * tb)
+    for k in range(steps):
+        s, _ = integ.step_fn(tg, T_OPS, s, k * dt, dt)
+    val = T_OPS.asum(tg.w_H * s.cd)
+    tgrads = torch.autograd.grad(val, (Kd, amp))
+    return (float(jval), [float(v) for v in jgrads]), (float(val), [float(v) for v in tgrads])
+
+
+@pytest.mark.parametrize("option", ["krylov", "matrix_free"])
+def test_differentiable_3d_matches_jax_grad(option):
+    """IFT gradients in 3-D (K5 on ``Stencil7.transpose`` volumes for the
+    Krylov route; the probed volumes' transpose behind the matrix-free
+    forward) against ``jax.grad`` of the same run: ≤1e-8."""
+    kw = {"krylov": dict(krylov_unroll=None),
+          "matrix_free": dict(assemble_stencil=False, krylov_unroll=None)}[option]
+    (jval, jgrads), (tval, tgrads) = _bump_loss_pair(4, 2, 1e-3, kw)
+    assert abs(tval - jval) <= 1e-12 * abs(jval)
+    for a, b in zip(tgrads, jgrads):
+        assert b != 0.0 and abs(a - b) <= 1e-8 * abs(b)
+
+
+@pytest.mark.parametrize("kw", [dict(precision="mixed", krylov_unroll=8), dict(linear_solver="direct")],
+                         ids=["mixed", "direct"])
+def test_differentiable_3d_refuses_what_jax_cannot_run(kw):
+    """The JAX 3-D integrators fail with AttributeError (no Stencil7
+    transpose) at their first step; the port refuses the same modes with the
+    same exception type when it is built."""
+    from na_dd_tpu.three_d.harness import make_integrator3 as j_make_integrator3
+    from na_dd_tpu_torch.three_d.harness import make_integrator3 as t_make_integrator3
+
+    jm, tm = _models()
+    jg = j_grid.make_uniform_grid3(4, 4, 4)
+    integ = j_make_integrator3(jg, jm, differentiable=True, **kw)
+    s0 = JState(*(jg.interior_mask,) * 5)
+    with pytest.raises(AttributeError, match="transpose"):
+        jax.grad(lambda a: J_OPS.asum(integ.step_fn(jg, J_OPS, s0._replace(cs=a * s0.cs), 0.0,
+                                                    1e-3)[0].cd))(1.0)
+    tg = t_grid.make_uniform_grid3(4, 4, 4, device="cpu")
+    with pytest.raises(AttributeError, match="transpose"):
+        t_make_integrator3(tg, tm, differentiable=True, **kw)
