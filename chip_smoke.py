@@ -60,7 +60,13 @@ version on the card, and drives the port's paths:
   transposed volumes) against CPU-x64 ``jax.grad``; both batched ladders in
   ``precision="mixed"`` (float32 batched K1/K5 under per-level f64
   refinement), each route's steady wall-clock in turns with the one it
-  mirrors.
+  mirrors;
+* K4 with a batch dimension: the pol ladder N=2..256 as one batch and the
+  eta sweep with ``coupling_source="analytic"`` (each Newton sweep of the
+  whole batch one launch of batched K4; the ladder also in
+  ``precision="mixed"``), against CPU-x64 and the per-solve batched routes,
+  with batched K4 against its plain version on their step-1 stacks, an edge
+  stack and a batch of one (the single-system kernel, bit for bit).
 
 It checks the errors against the reference values and the launch counts of
 each path's main level (counts set to 0 just before it, read just after),
@@ -441,7 +447,7 @@ def phase_k4(device):
         check(all(conv), "K4 step-1 systems: a solve did not converge")
         if dtype == torch.float64:
             main_err = err
-    return main_err
+    return dict(main=main_err, batched=phase_k4_batched(device))
 
 
 K2_SHAPES = ((257, 257), (257, 130))
@@ -1074,6 +1080,7 @@ def phase_variants3(device):
     from na_dd_tpu_torch.three_d import (
         MMSCaseCsZeroCrossing3, MMSCasePol3, make_setup3, run_trial3,
     )
+    from na_dd_tpu_torch.three_d.harness import KRYLOV_BUDGET3
 
     model = Model02(default_model_consts._replace(**THREE_D_CONSTS))
     runs = [(f"{v} Pol3 N={N}", v, MMSCasePol3, N, {}, dict(Tf=TF3, dt=dt3(N)))
@@ -1083,8 +1090,10 @@ def phase_variants3(device):
     for label, variant, case_cls, N, case_params, run_kw in runs:
         out = {}
         for dev in (device, "cpu"):
-            g, case, _, integ = make_setup3(case_cls, N=N, model=model, variant=variant, eta=ETA,
-                                            case_params=case_params, device=dev)
+            g, case, _, integ = make_setup3(
+                case_cls, N=N, model=model, variant=variant, eta=ETA, case_params=case_params,
+                integrator_params=dict(krylov_unroll=KRYLOV_BUDGET3, track_residuals=False),
+                device=dev)
             if dev == device:
                 torch.cuda.synchronize()
                 kernels.reset_launch_counts()
@@ -1650,13 +1659,14 @@ def make_trial3(N: int, dtype, device, **integrator_kw):
     ``integrator_kw`` (precision, ...) goes to the integrator."""
     from na_dd_tpu_torch.models.coefficients import Model02
     from na_dd_tpu_torch.models.consts import default_model_consts
-    from na_dd_tpu_torch.three_d.harness import make_setup3
+    from na_dd_tpu_torch.three_d.harness import KRYLOV_BUDGET3, make_setup3
     from na_dd_tpu_torch.three_d.mms import MMSCaseExpSin3
 
     model = Model02(default_model_consts._replace(**THREE_D_CONSTS))
+    params = dict(num_newton_steps=2, krylov_unroll=KRYLOV_BUDGET3, track_residuals=False)
     g, case, _field, integ = make_setup3(
-        MMSCaseExpSin3, N=N, model=model, eta=ETA,
-        integrator_params=dict(num_newton_steps=2, **integrator_kw), dtype=dtype, device=device,
+        MMSCaseExpSin3, N=N, model=model, eta=ETA, integrator_params={**params, **integrator_kw},
+        dtype=dtype, device=device,
     )
     return g, case, integ
 
@@ -3909,6 +3919,293 @@ def phase_batched_mixed(device, f64_2d=None, f64_3d=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# K4 with a batch dimension: the fused analytic batched ladder and eta sweep
+# ---------------------------------------------------------------------------
+_TRIPLE_STACKS = {}
+
+
+def batched_triple_step1(build, ops):
+    """The operands of a batch's first K4 launch (step 1's fused sweep) as
+    kernels.triple_solve takes them: every operand at the batch's shape, the
+    three Jacobi inverse diagonals filled in, dt one a system (a ladder) or
+    a float (an eta sweep); and the Krylov budget."""
+    import torch
+
+    from na_dd_tpu_torch.integrators.pc_trapezoidal import _batch_shape
+
+    integ = build["integrator"]
+    rec = integ.solver = RecordingSolver(integ.solver)
+    dt = build["dt"]
+    t0 = (torch.zeros_like(dt) if isinstance(dt, torch.Tensor)
+          else torch.zeros((), dtype=torch.float64, device=build["state"].T.device))
+    integ.step_fn(build["grid"], ops, build["state"], t0, dt)
+    integ.solver = rec.inner
+    check(len(rec.triples) == 1 and not rec.systems,
+          "a fused batched step should make one triple solve a sweep")
+    *stencils, d, rhs_T, base_cl, base_cd, mask, dt_, _noise = rec.triples[0]
+    (J_T, J_cl, J_cd, C_clT, C_cdT), (d, rhs_T, base_cl, base_cd, mask) = _batch_shape(
+        stencils, (d, rhs_T, base_cl, base_cd, mask))
+    operands = (J_T, J_cl, J_cd, C_clT, C_cdT, d, rhs_T, base_cl, base_cd,
+                jacobi(J_T, mask), jacobi(J_cl, mask), jacobi(J_cd, mask), mask, dt_)
+    return operands, rec.inner.iters
+
+
+def f32_triple(operands):
+    """K4's operands in float32 with the inverse diagonals of the float32
+    planes, as the mixed refinement's inner solve takes them."""
+    import torch
+
+    ops32 = cast_triple(operands, torch.float32)
+    mask32 = ops32[12]
+    return (*ops32[:9], *(jacobi(J, mask32) for J in ops32[:3]), *ops32[12:])
+
+
+def triple_stacks(device):
+    """The batched K4 stacks of the fused analytic paths, built once: the
+    pol ladder's 8 x 257^2 step-1 stack (each level its own dt), the eta
+    sweep's 7 x 33^2 one (one grid, one dt), each with its Krylov budget."""
+    from na_dd_tpu_torch.harness import studies
+    from na_dd_tpu_torch.harness.batched_ladder import build_spatial_ladder_batched
+    from na_dd_tpu_torch.ops.shifts import BATCHED_OPS
+
+    if not _TRIPLE_STACKS:
+        ladder = build_spatial_ladder_batched("pol", levels=BATCH_LEVELS,
+                                              coupling_source="analytic", device=device)
+        _TRIPLE_STACKS["ladder"] = batched_triple_step1(ladder, BATCHED_OPS)
+        sweep = studies.build_eta_study_batched("pol", coupling_source="analytic", device=device)
+        _TRIPLE_STACKS["eta"] = batched_triple_step1(sweep, BATCHED_OPS)
+    return _TRIPLE_STACKS
+
+
+def compare_triple_batched(operands, *, tol, iters, xtol, label):
+    """Batched K4 (ONE launch for the stack) against its plain version on
+    the same stack, system by system: equal (3,) iteration counts and
+    convergence flags, each increment within ``xtol`` of the plain system's
+    max-norm (an increment that is 0 must come out 0), tol_sq within 1e-10
+    (float64) or 1e-4 (float32) relative.  Returns (max abs error, the
+    (B, 3) iteration counts)."""
+    import torch
+
+    from na_dd_tpu_torch.ops import kernels
+
+    before = kernels.LAUNCHES["triple_solve"]
+    *xk, ik = kernels.triple_solve(*operands, tol=tol, iters=iters)
+    check(kernels.LAUNCHES["triple_solve"] == before + 1,
+          f"K4 {label}: a batched triple solve made more than one launch")
+    *xp, ip = kernels.triple_solve_plain(*operands, tol=tol, iters=iters)
+    torch.cuda.synchronize()
+    dtype = xk[0].dtype
+    tiny = torch.finfo(dtype).tiny
+    worst = max(float((a[k] - b[k]).abs().max() / b[k].abs().max().clamp_min(tiny))
+                for a, b in zip(xk, xp) for k in range(a.shape[0]))
+    itk, itp = ik["iters"].tolist(), ip["iters"].tolist()
+    stol = 1e-10 if dtype == torch.float64 else 1e-4
+    tol_rel = float(((ik["tol_sq"] - ip["tol_sq"]).abs()
+                     / ip["tol_sq"].abs().clamp_min(tiny)).max())
+    log(f"[k4 batched] {label}: iters kernel {itk} plain {itp}, max rel diff of a system's "
+        f"increment {worst:.3e} (limit {xtol:g}), tol_sq rel {tol_rel:.3e} (limit {stol:g}), "
+        f"converged {ik['converged'].tolist()}")
+    check(all(bool(torch.isfinite(x).all()) for x in xk), f"K4 {label}: output not finite")
+    check(itk == itp, f"K4 {label}: iteration counts differ")
+    check(worst <= xtol, f"K4 {label}: an increment disagrees with the plain version")
+    check(ik["converged"].tolist() == ip["converged"].tolist(),
+          f"K4 {label}: convergence flags differ")
+    check(tol_rel <= stol, f"K4 {label}: tol_sq disagrees")
+    return max(float((a - b).abs().max()) for a, b in zip(xk, xp)), itk
+
+
+def triple_edge_stack(device, dtype):
+    """Three systems of random dominant K4 operands at 130 x 257 (a ragged
+    grid), one dt a system: system 0 with rhs_T = 0 (its T solve ends before
+    its first iteration while the others iterate), system 1 with diagonal
+    Newton operators (every solve done in one iteration, before the
+    others), system 2 as it is."""
+    import torch
+
+    rng = np.random.default_rng(411)
+    sets = [list(random_triple(rng, (130, 257), dtype, device)) for _ in range(3)]
+    sets[0][6] = torch.zeros_like(sets[0][6])
+    for k in range(3):
+        J = sets[1][k]
+        sets[1][k] = type(J)(J[0], *(torch.zeros_like(c) for c in J[1:]))
+    stack = []
+    for i in range(13):
+        items = [s[i] for s in sets]
+        stack.append(type(items[0])(*(torch.stack(c) for c in zip(*items)))
+                     if isinstance(items[0], tuple) else torch.stack(items))
+    dt = torch.tensor([0.05, 0.02, 0.01], dtype=torch.float64, device=device)
+    return (*stack, dt)
+
+
+def phase_k4_batched(device):
+    """Batched K4 against its plain version on the fused paths' stacks (the
+    ladder's 8 x 257^2 and the eta sweep's 7 x 33^2 step-1 stacks) and on an
+    edge stack (rhs_T = 0, a system done before the others), float64 at 1e-12
+    and float32 at 1e-4 (the batched K1's float32 limit); a batch of one is
+    bit for bit the single-system kernel.  Returns the float64 max abs errors
+    of the two path stacks."""
+    import torch
+
+    from na_dd_tpu_torch.integrators.pc_trapezoidal import default_krylov_tol
+    from na_dd_tpu_torch.ops import kernels
+
+    errs = {}
+    stacks = triple_stacks(device)
+    for dtype, xtol in ((torch.float64, 1e-12), (torch.float32, 1e-4)):
+        name, tol = str(dtype)[6:], default_krylov_tol(dtype)
+        for key, (operands, iters) in stacks.items():
+            ops_d = operands if dtype == torch.float64 else f32_triple(operands)
+            shape = "x".join(str(v) for v in operands[6].shape)
+            err, used = compare_triple_batched(ops_d, tol=tol, iters=iters, xtol=xtol,
+                                               label=f"{name} {key} step-1 stack {shape}")
+            check(min(sum(u) for u in used) > 0, f"K4 {key} stack: a system took no iteration")
+            if dtype == torch.float64:
+                errs[key] = err
+        _, used = compare_triple_batched(triple_edge_stack(device, dtype), tol=tol, iters=40,
+                                         xtol=xtol, label=f"{name} edge stack 3x130x257")
+        check(used[0][0] == 0 and used[1] == [1, 1, 1] and min(used[2]) > 1,
+              f"K4 edge stack: iterations {used}, expected T of system 0 at 0, system 1 "
+              "at 1 a solve, system 2 over 1")
+        # a batch of one launches the single-system kernel: bit for bit
+        operands, solver = step1_triple(dtype, device)
+        one = tuple(type(o)(*(c[None] for c in o)) if isinstance(o, tuple)
+                    else (o[None] if isinstance(o, torch.Tensor) else o) for o in operands)
+        *x1, i1 = kernels.triple_solve(*operands, tol=tol, iters=solver.iters)
+        *xb, ib = kernels.triple_solve(*one, tol=tol, iters=solver.iters)
+        same = all(torch.equal(a[0], b) for a, b in zip(xb, x1))
+        log(f"[k4 batched] {name} a batch of one (1x257x257 step-1): bit for bit the single "
+            f"system's {same}, iterations {ib['iters'].tolist()} against {i1['iters'].tolist()}")
+        check(same and ib["iters"].tolist() == [i1["iters"].tolist()],
+              "K4: a batch of one is not the single-system kernel's result")
+    return errs
+
+
+def triple_batched_row(operands, *, tol, iters, label):
+    """Timing row of batched K4 on one stack: device time, wrapper call,
+    plain version, bound (33 input planes read once and 3 written, 288 bytes
+    a point in float64; per system 44 operations a point an iteration it
+    takes, 29 for the couplings and rhs forms)."""
+    from na_dd_tpu_torch.ops import kernels
+
+    rhs_T = operands[6]
+    nsys, n = rhs_T.shape[0], rhs_T[0].numel()
+    its = kernels.triple_solve(*operands, tol=tol, iters=iters)[3]["iters"].tolist()
+
+    def k4():
+        return kernels.triple_solve(*operands, tol=tol, iters=iters)
+
+    row = kernel_row(
+        "triple_solve", rhs_T.dtype, label=f"{label} (iterations {its})",
+        device_ms=kernel_device_ms(k4, 20, "triple_solve_kernel"), wrapper_ms=time_ms(k4, 50),
+        plain_ms=time_ms(lambda: kernels.triple_solve_plain(*operands, tol=tol, iters=iters), 2),
+        nbytes=36 * rhs_T.numel() * rhs_T.element_size(),
+        ops=sum(44 * max(sum(u), 1) + 29 for u in its) * n)
+    blocks = kernels._BLOCKS.get(("triple_solve", rhs_T.dtype, n, nsys))
+    log(f"[time] triple_solve {label}: cooperative grid {blocks} blocks of 256 threads "
+        f"({blocks // nsys if blocks else None} a system)")
+    return row
+
+
+def phase_batched_analytic(device, per_solve=None, eta_per_solve=None):
+    """The fused analytic batched paths (coupling_source="analytic"), each
+    Newton sweep of the whole batch ONE launch of batched K4: the pol ladder
+    N=2..256 as one batch of 8 levels in float64 (the finest level's 41
+    steps: exactly 41 K4 and no K1 or K2) and in precision="mixed" (123
+    float32 K4, three a step, and 615 float64 K2 for the block residuals and
+    the verdicts), and the eta sweep, 7 eta at N=32 (20 K4 a run, two runs);
+    every level against CPU-x64 (1e-8) and the per-solve batched routes on
+    the card (1e-10; ``per_solve`` / ``eta_per_solve``, run here when not
+    given); each fused route's steady wall-clock in turns with its per-solve
+    twin, once after a warm-up; the timing rows of batched K4 at 8 x 257^2
+    (float64 and the mixed float32) and 7 x 33^2."""
+    import torch
+
+    from na_dd_tpu_torch.harness import studies
+    from na_dd_tpu_torch.harness.batched_ladder import (
+        build_spatial_ladder_batched,
+        run_spatial_ladder_batched,
+    )
+    from na_dd_tpu_torch.integrators.pc_trapezoidal import MIXED_INNER_TOL
+
+    def ladder(**kw):
+        return run_spatial_ladder_batched("pol", levels=BATCH_LEVELS, device=device,
+                                          verbose=False, **kw)
+
+    def sweep(**kw):
+        return studies.run_eta_study_batched("pol", device=device, verbose=False, **kw)
+
+    if per_solve is None:
+        per_solve = ladder()["errors"]
+    if eta_per_solve is None:
+        eta_per_solve = sweep()["errors"]
+    out = {}
+    for tag, kw, expect, expect32 in (
+        ("f64", {}, {"triple_solve": 41}, {}),
+        ("mixed", dict(precision="mixed"), {"triple_solve": 123, "stencil5_apply": 615},
+         {"triple_solve": 123}),
+    ):
+        # the main path: counts set to 0 just before, read just after
+        res, launches, launches32 = counted(lambda: ladder(coupling_source="analytic", **kw))
+        log(f"[batched_analytic] fused {tag} pol ladder N={res['Ns'][0]}..{res['Ns'][-1]} in one "
+            f"batch: launches {launches}, of them float32 {launches32}, first run "
+            f"{res['compile_plus_run_s']:.3f} s")
+        check_counts(f"batched_analytic {tag} ladder", launches, expect)
+        check_counts(f"batched_analytic {tag} ladder (float32)", launches32, expect32)
+        for N, err, e_ps in zip(res["Ns"], res["errors"], per_solve):
+            ref = POL_SPATIAL_CPU_X64[N]
+            rel_x64, rel_ps = abs(err - ref) / ref, abs(err - e_ps) / e_ps
+            log(f"[batched_analytic] {tag} N={N}: error {err!r}, vs CPU-x64 rel {rel_x64:.3e} "
+                f"(limit 1e-8), vs the per-solve batched ladder rel {rel_ps:.3e} (limit 1e-10)")
+            check(math.isfinite(err) and rel_x64 <= 1e-8, f"fused {tag} N={N} off CPU-x64")
+            check(rel_ps <= 1e-10, f"fused {tag} N={N} off the per-solve batched ladder")
+        out[tag] = dict(launches=launches, launches32=launches32, errors=res["errors"])
+
+    res, launches, _ = counted(lambda: sweep(coupling_source="analytic"))
+    nsteps = round(res["Tf"] / res["dt"])
+    log(f"[batched_analytic] fused eta sweep, {len(res['etas'])} eta at N={res['N']}: {nsteps} "
+        f"steps, two runs (first {res['wallclock_s'][0]:.3f} s, steady {res['steady_s'][0]:.3f} "
+        f"s), launches {launches}")
+    check(nsteps == 20, "the eta sweep should take 20 steps")
+    check_counts("batched_analytic eta sweep", launches, {"triple_solve": 2 * nsteps})
+    for eta, err, ref, e_ps in zip(res["etas"], res["errors"], ETA_BATCHED_CPU_X64, eta_per_solve):
+        rel_x64, rel_ps = abs(err - ref) / ref, abs(err - e_ps) / e_ps
+        log(f"[batched_analytic] eta={eta:g}: error {err!r}, vs CPU-x64 rel {rel_x64:.3e} (limit "
+            f"1e-8), vs the per-solve batched sweep rel {rel_ps:.3e} (limit 1e-10)")
+        check(math.isfinite(err) and rel_x64 <= 1e-8, f"fused eta={eta} off CPU-x64")
+        check(rel_ps <= 1e-10, f"fused eta={eta} off the per-solve batched sweep")
+    out["eta"] = dict(launches={k: v // 2 for k, v in launches.items()}, errors=res["errors"])
+
+    runs = {
+        "fused": build_spatial_ladder_batched("pol", levels=BATCH_LEVELS,
+                                              coupling_source="analytic", device=device)["run"],
+        "per_solve": build_spatial_ladder_batched("pol", levels=BATCH_LEVELS, device=device)["run"],
+        "fused eta": studies.build_eta_study_batched("pol", coupling_source="analytic",
+                                                     device=device)["run"],
+        "per_solve eta": studies.build_eta_study_batched("pol", device=device)["run"],
+    }
+    steady = {k: min(v) for k, v in steady_pair(runs, repeats=1).items()}
+    log("[batched_analytic] steady wall-clock in turns (one run after a warm-up): fused ladder "
+        f"{steady['fused']:.6f} s, per-solve ladder {steady['per_solve']:.6f} s; fused eta sweep "
+        f"{steady['fused eta']:.6f} s, per-solve eta sweep {steady['per_solve eta']:.6f} s")
+    out["steady"] = steady
+
+    stacks = triple_stacks(device)
+    rows = {}
+    for key, (operands, iters), tol, label in (
+        ("f64", stacks["ladder"], 1e-13, "f64 8x257x257 batched ladder step-1"),
+        ("f32", (f32_triple(stacks["ladder"][0]), stacks["ladder"][1]), MIXED_INNER_TOL,
+         "f32 8x257x257 batched mixed ladder, first pass"),
+        ("eta", stacks["eta"], 1e-13, "f64 7x33x33 batched eta sweep step-1"),
+    ):
+        rows[key] = triple_batched_row(operands, tol=tol, iters=iters, label=label)
+        rows[key]["max_abs_err"] = compare_triple_batched(
+            operands, tol=tol, iters=iters, xtol=1e-12 if key != "f32" else 1e-4,
+            label=f"{label} (timed)")[0]
+    out["rows"] = rows
+    return out
+
+
 def ptxas_rows(text: str):
     """(kernel, registers, stack frame bytes, spill store bytes, spill load
     bytes) of each entry function in nvcc's ``-Xptxas -v`` report."""
@@ -3945,7 +4242,7 @@ PHASES = ("k2", "k1", "k3", "k4", "slice", "f32", "analytic", "scale", "timings"
           "variants3", "production", "mixed3", "timings_mixed", "simulate", "adaptive",
           "checkpoint", "gradients", "direct", "fit", "batched", "eta_batched", "batched3",
           "eta3", "probe", "while_form", "matrix_free", "probe3", "direct3", "heat3", "gradients3",
-          "batched_mixed")
+          "batched_mixed", "batched_analytic")
 
 
 def main(argv=None) -> int:
@@ -4039,6 +4336,9 @@ def main(argv=None) -> int:
     phase("batched_mixed", phase_batched_mixed, device,
           done["batched"]["errors"] if "batched" in done else None,
           done["batched3"]["errors"] if "batched3" in done else None)
+    phase("batched_analytic", phase_batched_analytic, device,
+          done["batched"]["errors"] if "batched" in done else None,
+          done["eta_batched"]["errors"] if "eta_batched" in done else None)
     if set(only) != set(PHASES):
         log(f"[done] phases {only}; total {time.perf_counter() - t_all:.1f} s (no result line)")
         return 0
@@ -4060,6 +4360,7 @@ def main(argv=None) -> int:
     bl, be, bl3, be3 = done["batched"], done["eta_batched"], done["batched3"], done["eta3"]
     pr, wf, mf, p3 = done["probe"], done["while_form"], done["matrix_free"], done["probe3"]
     d3, h3, g3, bm = done["direct3"], done["heat3"], done["gradients3"], done["batched_mixed"]
+    ba = done["batched_analytic"]
     pk = "na_dd_tpu/ops/pallas_kernels.py"
     entries = []
     # (wrapper, source, TPU kernel, shape, error against the plain version,
@@ -4074,7 +4375,7 @@ def main(argv=None) -> int:
          t2["stencil5_apply"]),
         ("stencil5_apply", "stencil5", f"{pk}:466", "1025x1025", done["k3"], launches_sc,
          t2["stencil5_apply_1025"]),
-        ("triple_solve", "triple_solve", f"{pk}:263", "257x257", done["k4"], launches_an,
+        ("triple_solve", "triple_solve", f"{pk}:263", "257x257", done["k4"]["main"], launches_an,
          t2["triple_solve"]),
         ("bicgstab_solve3", "bicgstab3", f"{pk}:702", "65x65x65", done["k5"], launches3,
          t3["bicgstab_solve3"]),
@@ -4119,6 +4420,13 @@ def main(argv=None) -> int:
          bm["2d"]["row"]["max_abs_err"], bm["2d"]["launches32"], bm["2d"]["row"]),
         ("bicgstab_solve3", "bicgstab3", f"{pk}:702", "5x65x65x65 f32 (batched mixed ladder)",
          bm["3d"]["row"]["max_abs_err"], bm["3d"]["launches32"], bm["3d"]["row"]),
+        # K4 with a batch dimension: the fused analytic batched paths
+        ("triple_solve", "triple_solve", f"{pk}:263", "8x257x257 (batched fused pol ladder)",
+         ba["rows"]["f64"]["max_abs_err"], ba["f64"]["launches"], ba["rows"]["f64"]),
+        ("triple_solve", "triple_solve", f"{pk}:263", "8x257x257 f32 (batched mixed fused ladder)",
+         ba["rows"]["f32"]["max_abs_err"], ba["mixed"]["launches32"], ba["rows"]["f32"]),
+        ("triple_solve", "triple_solve", f"{pk}:263", "7x33x33 (batched fused eta sweep)",
+         ba["rows"]["eta"]["max_abs_err"], ba["eta"]["launches"], ba["rows"]["eta"]),
     ):
         entries.append({
             "name": name, "route": "cuda", "source": f"na_dd_tpu_torch/csrc/{src}.cu",
@@ -4150,6 +4458,9 @@ def main(argv=None) -> int:
         f"s against Krylov {d3['steady']['krylov']:.6f} s; heat N=128 {h3['steady']:.6f} s; 3-D "
         f"value-and-grad {g3['steady']:.6f} s against a forward {g3['forward']:.6f} s; batched "
         f"mixed {bm['2d']['steady']['mixed']:.6f} s / {bm['3d']['steady']['mixed']:.6f} s; "
+        f"fused batched ladder {ba['steady']['fused']:.6f} s against per-solve "
+        f"{ba['steady']['per_solve']:.6f} s, fused eta sweep {ba['steady']['fused eta']:.6f} s "
+        f"against {ba['steady']['per_solve eta']:.6f} s; "
         f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(nvidia_smi_line())

@@ -6,7 +6,8 @@
 // flat index k of the values a callable u gives, with zero inflow.  The solve
 // itself is the __device__ function solve() of a cooperative grid;
 // bicgstab_kernel wraps one call of it, on one system or on a batch of
-// systems (K1 and K5), and K4 calls it three times on one system.
+// systems (K1 and K5), and K4 calls it three times, on one system or on a
+// batch (solve_batched).
 //
 // It computes exactly _bicgstab_inline of na_dd_tpu/ops/pallas_kernels.py
 // (:83) with x0 = 0: the masked-early-exit update of bicgstab_unrolled,
@@ -139,14 +140,17 @@ Work<T> make_work(T* work, size_t n, T* partials) {
                  partials};
 }
 
-// What a solve leaves behind, the same in every thread of the grid:
-// iterations taken while not done, the recurrence residual r.r at exit and
-// tol_sq = tol^2 (b.b).
+// What a solve leaves behind: iterations taken while not done, the
+// recurrence residual r.r at exit and tol_sq = tol^2 (b.b), the same in
+// every thread of the system's blocks; and whether the grid took an
+// iteration (in a batch, whether any system did), the same in every thread
+// of the grid.
 template <typename T>
 struct Result {
   int used;
   T rr;
   T tol_sq;
+  bool looped;
 };
 
 template <typename T, class Op>
@@ -354,7 +358,7 @@ __device__ __forceinline__ Result<T> solve(cg::grid_group& grid, const Op& A,
   T rhat_r = bb;  // r^.r
   if (rr <= tol_sq || iters <= 0) {
     for (int k = first; k < n; k += stride) x[k] = T(0) * __ldg(mask + k);
-    return Result<T>{0, rr, tol_sq};
+    return Result<T>{0, rr, tol_sq, false};
   }
   T rho = T(1), alpha = T(1), omega = T(1);
   int used = 0;
@@ -451,7 +455,7 @@ __device__ __forceinline__ Result<T> solve(cg::grid_group& grid, const Op& A,
     ++used;
     if (last || rr <= tol_sq) break;
   }
-  return Result<T>{used, rr, tol_sq};
+  return Result<T>{used, rr, tol_sq, true};
 }
 
 // The solve of `solve` on a batch: the grid solves sh.nsys systems at once,
@@ -516,7 +520,7 @@ __device__ __forceinline__ Result<T> solve_batched(
     const T bq = bcast[2 * q + 1];
     any |= !(bq <= static_cast<T>(tol_sq_coef) * bq || iters <= 0);
   }
-  if (!any) return Result<T>{0, rr, tol_sq};
+  if (!any) return Result<T>{0, rr, tol_sq, false};
   T rho = T(1), alpha = T(1), omega = T(1);
   int used = 0;
 
@@ -626,7 +630,7 @@ __device__ __forceinline__ Result<T> solve_batched(
     }
     if (!any) break;
   }
-  return Result<T>{used, rr, tol_sq};
+  return Result<T>{used, rr, tol_sq, true};
 }
 
 // kBatched: one system of a batch per share of the grid (Share), the arrays

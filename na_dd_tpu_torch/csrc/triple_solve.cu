@@ -53,6 +53,20 @@
 // The scratch plane and dT, dcl are read with plain loads, never through
 // the read-only path, because this launch wrote them; dcl only at the
 // thread's own point, which this thread wrote.
+//
+// Batch (the leading dimension that jax.vmap of the TPU kernel gives, as the
+// batched ladder and the eta sweep run it): nsys systems of equal shape, one
+// after another in every array, in one cooperative launch.  Each system owns
+// its share of the blocks (bicgstab::Share) and runs the same sequence on
+// it: the three solves are bicgstab::solve_batched (per-system scalars,
+// `done` and iteration counts, zero inflow at each system's own edges), and
+// the coupling passes stride over the system's own points, each after a
+// grid barrier.  dt is per system, read from a device array of nsys float64
+// values (the ladder's levels each have their own), so the wrapper never
+// waits on the host.  The T solve is followed by a sync only when no system
+// took an iteration (Result::looped), the batched form of the single
+// system's rule.  A batch of one launches the single-system instantiation,
+// which spends no registers on the batch's bookkeeping (kBatched).
 #include <cuda_runtime.h>
 
 #include "bicgstab.cuh"
@@ -91,16 +105,27 @@ struct TripleParams {
   bicgstab::Work<T> W;
   int iters;
   double tol_sq_coef;  // tol * tol, cast to T in the kernel
-  double dt;           // cast to T in the kernel
+  double dt;           // cast to T in the kernel, where dt_sys is null
+  const double* dt_sys;  // or one dt a system, on the device
+  int nsys;              // systems, one after another in every array
 };
 
+// The dt of system `sys`, cast to T.
 template <typename T>
-__device__ __forceinline__ void write_result(const TripleParams<T>& P, int k,
+__device__ __forceinline__ T dt_of(const TripleParams<T>& P, int sys) {
+  return static_cast<T>(P.dt_sys != nullptr ? P.dt_sys[sys] : P.dt);
+}
+
+// Solve k's results of system `sys`, written by the system's first thread
+// (`lead`); the outputs hold three entries a system.
+template <typename T>
+__device__ __forceinline__ void write_result(const TripleParams<T>& P, int sys,
+                                             int k, bool lead,
                                              const bicgstab::Result<T>& res) {
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    P.iters_out[k] = res.used;
-    P.res_out[k] = res.rr;
-    P.tolsq_out[k] = res.tol_sq;
+  if (lead) {
+    P.iters_out[3 * sys + k] = res.used;
+    P.res_out[3 * sys + k] = res.rr;
+    P.tolsq_out[3 * sys + k] = res.tol_sq;
   }
 }
 
@@ -133,17 +158,15 @@ struct MaskedRhs {
   __device__ __forceinline__ const T* stored() const { return plane; }
 };
 
+// One system on the whole grid.
 template <typename T>
-__global__ void __launch_bounds__(kThreads, kMinBlocksPerSM)
-    triple_solve_kernel(TripleParams<T> P) {
-  cg::grid_group grid = cg::this_grid();
-  __shared__ T red[bicgstab::kMaxSlotsPerBarrier * kWarps];
-  __shared__ T bcast[bicgstab::kMaxSlotsPerBarrier];
-
+__device__ __forceinline__ void triple_one(cg::grid_group& grid,
+                                           const TripleParams<T>& P, T* red,
+                                           T* bcast) {
   const int n = P.J_T.size();
   const int stride = gridDim.x * kThreads;
   const int first = blockIdx.x * kThreads + threadIdx.x;
-  const T dt = static_cast<T>(P.dt);
+  const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
   const T* __restrict__ mask = P.mask;
   const T* dT = P.dT;
   const auto dT_at = [dT](int m) { return bicgstab::ld(dT, m); };
@@ -152,10 +175,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksPerSM)
   bicgstab::Result<T> res = bicgstab::solve<T>(
       grid, P.J_T, MaskedRhs<T>{P.rhs_T, mask, P.rhs}, P.invd_T, mask, P.dT,
       P.W, P.iters, P.tol_sq_coef, red, bcast);
-  write_result(P, 0, res);
+  write_result(P, 0, 0, lead, res);
   if (res.used == 0) grid.sync();  // dT came after the solve's only barrier
 
   // --- cl rhs coupling + solve ---
+  // dt is read where a coupling pass uses it: held over a solve, it would
+  // take a register there
+  T dt = dt_of(P, 0);
   for (int k = first; k < n; k += stride) {
     const T coup = P.C_clT.apply_of(dT_at, k);
     P.rhs[k] = (__ldg(P.base_cl + k) + dt * coup) * __ldg(mask + k);
@@ -164,9 +190,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksPerSM)
   res = bicgstab::solve<T>(grid, P.J_cl, bicgstab::ArrayRhs<T>{P.rhs},
                            P.invd_cl, mask, P.dcl, P.W, P.iters,
                            P.tol_sq_coef, red, bcast);
-  write_result(P, 1, res);
+  write_result(P, 0, 1, lead, res);
 
   // --- cd rhs coupling + solve ---
+  dt = dt_of(P, 0);
   for (int k = first; k < n; k += stride) {
     const T coup = P.C_cdT.apply_of(dT_at, k) +
                    __ldg(P.d_cdcl + k) * bicgstab::ld(P.dcl, k);
@@ -176,7 +203,81 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksPerSM)
   res = bicgstab::solve<T>(grid, P.J_cd, bicgstab::ArrayRhs<T>{P.rhs},
                            P.invd_cd, mask, P.dcd, P.W, P.iters,
                            P.tol_sq_coef, red, bcast);
-  write_result(P, 2, res);
+  write_result(P, 0, 2, lead, res);
+}
+
+// A batch: the same sequence, each system on its share of the grid with its
+// own arrays, dt and scalars (solve_batched); every block meets every
+// barrier, so a condition for a grid sync must be the same in all of them.
+template <typename T>
+__device__ __forceinline__ void triple_batched(cg::grid_group& grid,
+                                               const TripleParams<T>& P,
+                                               T* red, T* bcast) {
+  const bicgstab::Share sh = bicgstab::Share::of(P.nsys);
+  const int n = P.J_T.size();
+  const size_t off = static_cast<size_t>(sh.sys) * n;
+  const int stride = sh.per * kThreads;
+  const int first =
+      (static_cast<int>(blockIdx.x) - sh.sys * sh.per) * kThreads + threadIdx.x;
+  const bool lead = first == 0;
+  const T* __restrict__ mask = P.mask + off;
+  const bicgstab::Work<T> W = P.W.offset(off);
+  T* rhs = P.rhs + off;
+  const T* dT = P.dT + off;
+  const T* dcl = P.dcl + off;
+  const auto dT_at = [dT](int m) { return bicgstab::ld(dT, m); };
+  const Stencil5Op<T> C_clT = P.C_clT.offset(off);
+  const Stencil5Op<T> C_cdT = P.C_cdT.offset(off);
+
+  // --- T solve, its rhs formed in its first pass ---
+  bicgstab::Result<T> res = bicgstab::solve_batched<T>(
+      grid, P.J_T.offset(off), MaskedRhs<T>{P.rhs_T + off, mask, rhs},
+      P.invd_T + off, mask, P.dT + off, W, P.iters, P.tol_sq_coef, red, bcast,
+      sh);
+  write_result(P, sh.sys, 0, lead, res);
+  if (!res.looped) grid.sync();  // every dT came after the only barrier
+
+  // --- cl rhs coupling + solve ---
+  T dt = dt_of(P, sh.sys);
+  for (int k = first; k < n; k += stride) {
+    const T coup = C_clT.apply_of(dT_at, k);
+    rhs[k] = (__ldg(P.base_cl + off + k) + dt * coup) * __ldg(mask + k);
+  }
+  grid.sync();
+  res = bicgstab::solve_batched<T>(grid, P.J_cl.offset(off),
+                                   bicgstab::ArrayRhs<T>{rhs}, P.invd_cl + off,
+                                   mask, P.dcl + off, W, P.iters,
+                                   P.tol_sq_coef, red, bcast, sh);
+  write_result(P, sh.sys, 1, lead, res);
+
+  // --- cd rhs coupling + solve ---
+  dt = dt_of(P, sh.sys);
+  for (int k = first; k < n; k += stride) {
+    const T coup = C_cdT.apply_of(dT_at, k) +
+                   __ldg(P.d_cdcl + off + k) * bicgstab::ld(dcl, k);
+    rhs[k] = (__ldg(P.base_cd + off + k) + dt * coup) * __ldg(mask + k);
+  }
+  grid.sync();
+  res = bicgstab::solve_batched<T>(grid, P.J_cd.offset(off),
+                                   bicgstab::ArrayRhs<T>{rhs}, P.invd_cd + off,
+                                   mask, P.dcd + off, W, P.iters,
+                                   P.tol_sq_coef, red, bcast, sh);
+  write_result(P, sh.sys, 2, lead, res);
+}
+
+template <typename T, bool kBatched>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSM)
+    triple_solve_kernel(TripleParams<T> P) {
+  cg::grid_group grid = cg::this_grid();
+  constexpr int kSlots = kBatched ? bicgstab::kBatchSlotsPerBarrier
+                                  : bicgstab::kMaxSlotsPerBarrier;
+  __shared__ T red[kSlots * kWarps];
+  __shared__ T bcast[(kBatched ? bicgstab::kMaxBatch : 1) * kSlots];
+  if constexpr (kBatched) {
+    triple_batched(grid, P, red, bcast);
+  } else {
+    triple_one(grid, P, red, bcast);
+  }
 }
 
 template <typename T>
@@ -187,16 +288,22 @@ Stencil5Op<T> op_at(const void* const* planes, int first, int n0, int n1) {
 
 // `in` holds the 33 input planes in the TPU kernel's order: J_T, J_cl, J_cd,
 // C_clT, C_cdT (c0, cxm, cxp, cym, cyp each), d_cdcl, rhs_T, base_cl,
-// base_cd, invd_T, invd_cl, invd_cd, mask.  `out` holds dT, dcl, dcd;
-// `scalars` res[3] then tol_sq[3]; `work` the seven scratch planes.
+// base_cd, invd_T, invd_cl, invd_cd, mask, each holding nsys systems of
+// n0 x n1 points one after another.  `out` holds dT, dcl, dcd (likewise);
+// `iters_out` three counts a system; `scalars` res[nsys][3] then
+// tol_sq[nsys][3]; `work` the eight scratch stacks.  dt_sys, when not null,
+// holds one dt a system on the device, in place of dt.  `blocks` is a
+// multiple of nsys (triple_solve_blocks_*).
 template <typename T>
 int launch(const void* const* in, void* const* out, int* iters_out,
-           void* scalars, void* work, void* partials, int n0, int n1,
-           int iters, double tol_sq_coef, double dt, int blocks,
-           void* stream) {
+           void* scalars, void* work, void* partials, int nsys, int n0,
+           int n1, int iters, double tol_sq_coef, double dt,
+           const double* dt_sys, int blocks, void* stream) {
+  if (nsys < 1 || nsys > bicgstab::kMaxBatch || blocks % nsys != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const T* const* p = reinterpret_cast<const T* const*>(in);
   T* const* o = reinterpret_cast<T* const*>(out);
-  const size_t n = static_cast<size_t>(n0) * n1;
+  const size_t n = static_cast<size_t>(nsys) * n0 * n1;
   T* w = static_cast<T*>(work);
   T* s = static_cast<T*>(scalars);
   TripleParams<T> P{op_at<T>(in, 0, n0, n1),
@@ -217,14 +324,31 @@ int launch(const void* const* in, void* const* out, int* iters_out,
                     o[2],
                     iters_out,
                     s,
-                    s + 3,
+                    s + 3 * nsys,
                     w + bicgstab::kWorkArrays * n,
                     bicgstab::make_work(w, n, static_cast<T*>(partials)),
                     iters,
                     tol_sq_coef,
-                    dt};
-  return bicgstab::launch_cooperative(triple_solve_kernel<T>, P, blocks,
+                    dt,
+                    dt_sys,
+                    nsys};
+  if (nsys == 1)
+    return bicgstab::launch_cooperative(triple_solve_kernel<T, false>, P,
+                                        blocks, stream);
+  return bicgstab::launch_cooperative(triple_solve_kernel<T, true>, P, blocks,
                                       stream);
+}
+
+// The cooperative grid for nsys systems of n points: the triple kernel
+// holds more pointers and registers than K1, so its grid comes from its own
+// occupancy, at two points a thread, divided among the systems.
+template <typename T>
+int grid_blocks(int n, int nsys, int* blocks) {
+  if (nsys == 1)
+    return bicgstab::grid_blocks_of(triple_solve_kernel<T, false>, n, blocks,
+                                    kPointsPerThread);
+  return bicgstab::grid_blocks_of(triple_solve_kernel<T, true>, n, blocks,
+                                  kPointsPerThread, nsys);
 }
 
 }  // namespace
@@ -237,32 +361,28 @@ int triple_solve_num_slots() { return bicgstab::kNumSlots; }
 
 int triple_solve_work_planes() { return kScratchPlanes; }
 
-// The triple kernel holds more pointers and registers than K1, so its
-// cooperative grid comes from its own occupancy, at two points a thread.
-int triple_solve_blocks_f64(int n, int* blocks) {
-  return bicgstab::grid_blocks_of(triple_solve_kernel<double>, n, blocks,
-                                  kPointsPerThread);
+int triple_solve_blocks_f64(int n, int nsys, int* blocks) {
+  return grid_blocks<double>(n, nsys, blocks);
 }
 
-int triple_solve_blocks_f32(int n, int* blocks) {
-  return bicgstab::grid_blocks_of(triple_solve_kernel<float>, n, blocks,
-                                  kPointsPerThread);
+int triple_solve_blocks_f32(int n, int nsys, int* blocks) {
+  return grid_blocks<float>(n, nsys, blocks);
 }
 
 int triple_solve_f64(const void* const* in, void* const* out, int* iters_out,
-                     void* scalars, void* work, void* partials, int n0, int n1,
-                     int iters, double tol_sq_coef, double dt, int blocks,
-                     void* stream) {
-  return launch<double>(in, out, iters_out, scalars, work, partials, n0, n1,
-                        iters, tol_sq_coef, dt, blocks, stream);
+                     void* scalars, void* work, void* partials, int nsys,
+                     int n0, int n1, int iters, double tol_sq_coef, double dt,
+                     const double* dt_sys, int blocks, void* stream) {
+  return launch<double>(in, out, iters_out, scalars, work, partials, nsys, n0,
+                        n1, iters, tol_sq_coef, dt, dt_sys, blocks, stream);
 }
 
 int triple_solve_f32(const void* const* in, void* const* out, int* iters_out,
-                     void* scalars, void* work, void* partials, int n0, int n1,
-                     int iters, double tol_sq_coef, double dt, int blocks,
-                     void* stream) {
-  return launch<float>(in, out, iters_out, scalars, work, partials, n0, n1,
-                       iters, tol_sq_coef, dt, blocks, stream);
+                     void* scalars, void* work, void* partials, int nsys,
+                     int n0, int n1, int iters, double tol_sq_coef, double dt,
+                     const double* dt_sys, int blocks, void* stream) {
+  return launch<float>(in, out, iters_out, scalars, work, partials, nsys, n0,
+                       n1, iters, tol_sq_coef, dt, dt_sys, blocks, stream);
 }
 
 const char* error_string(int code) {

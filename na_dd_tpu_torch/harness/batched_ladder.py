@@ -8,7 +8,8 @@ states, zero-padded to (N_max+1, N_max+1), are stacked into (L, N_max+1,
 N_max+1) tensors, dt rides as an (L, 1, 1) tensor, the reductions go through
 :data:`~na_dd_tpu_torch.ops.shifts.BATCHED_OPS` (one value a level), and
 every Newton solve of every level is ONE launch of the batched BiCGStab
-kernel.  The time loop runs the ladder's longest step count; a coarse level
+kernel (with ``coupling_source="analytic"``, every Newton sweep one launch of
+the batched triple solve).  The time loop runs the ladder's longest step count; a coarse level
 integrates past Tf and its rows past its own step count are dropped on the
 host after the run's one transfer.  So the ladder costs the launches of its
 finest level, not the sum of all levels'.
@@ -114,6 +115,7 @@ def build_spatial_ladder_batched(
     base_N: int = 2,
     eta: float = 50.0,
     precision: str | None = None,
+    coupling_source: str | None = None,
     dtype=None,
     device=None,
 ) -> dict:
@@ -158,7 +160,7 @@ def build_spatial_ladder_batched(
     )
     integ = PCTrapezoidalRegHCsTriple(
         field, regularization_factor=eta, track_residuals=False, krylov_unroll=budget,
-        precision=precision or "full",
+        precision=precision or "full", coupling_source=coupling_source or "jvp",
     )
 
     padded_grids, padded_states = [], []
@@ -191,6 +193,7 @@ def run_spatial_ladder_batched(
     base_N: int = 2,
     eta: float = 50.0,
     precision: str | None = None,
+    coupling_source: str | None = None,
     verbose: bool = True,
     measure_steady: bool = False,
     dtype=None,
@@ -205,12 +208,18 @@ def run_spatial_ladder_batched(
     kernels' build included where it happens).  Runs on the card unless
     ``device="cpu"``.  ``precision="mixed"`` runs every solve as float32
     batched kernel launches under per-level float64 refinement; None or
-    "full" solves in the grid's dtype.  The JAX function reads this from
-    ``NA_DD_TPU_PRECISION``; the port reads no environment.
+    "full" solves in the grid's dtype.  ``coupling_source="analytic"`` takes
+    the cross couplings as closed-form planes and runs each Newton sweep of
+    every level as ONE launch of the batched triple solve (K4, each level
+    with its own dt; in ``precision="mixed"`` the float32 K4 under per-level
+    block refinement); None or "jvp" the ``torch.func.jvp`` couplings and
+    three batched solves.  The JAX function reads these from
+    ``NA_DD_TPU_PRECISION`` and ``NA_DD_TPU_COUPLING``; the port reads no
+    environment.
     """
     ladder = build_spatial_ladder_batched(
-        study, levels=levels, base_N=base_N, eta=eta, precision=precision, dtype=dtype,
-        device=device,
+        study, levels=levels, base_N=base_N, eta=eta, precision=precision,
+        coupling_source=coupling_source, dtype=dtype, device=device,
     )
     Ns, dts, nsteps = ladder["Ns"], ladder["dts"], ladder["nsteps"]
 

@@ -348,6 +348,8 @@ def build_eta_study_batched(
     dt: float = 5e-4,
     Tf: float = 0.01,
     etas: Optional[List[float]] = None,
+    precision: str | None = None,
+    coupling_source: str | None = None,
     dtype=None,
     device=None,
 ) -> dict:
@@ -378,7 +380,8 @@ def build_eta_study_batched(
     forcing = MMSForcingRegHCsTriple(mms_case=case, model=model, regularization_factor=eta)
     field = FieldRegHCsTriple(grid=grid, model=model, forcing=forcing, regularization_factor=eta)
     integ = PCTrapezoidalRegHCsTriple(
-        field, regularization_factor=eta, track_residuals=False, krylov_unroll=unroll
+        field, regularization_factor=eta, track_residuals=False, krylov_unroll=unroll,
+        precision=precision or "full", coupling_source=coupling_source or "jvp",
     )
     states = stack_states([s0] * len(etas))
 
@@ -402,6 +405,8 @@ def run_eta_study_batched(
     dt: float = 5e-4,
     Tf: float = 0.01,
     etas: Optional[List[float]] = None,
+    precision: str | None = None,
+    coupling_source: str | None = None,
     verbose: bool = True,
     dtype=None,
     device=None,
@@ -416,6 +421,11 @@ def run_eta_study_batched(
     η's run the serial one's up to the order of the kernel's sums.  Runs
     twice, as the JAX function does: ``wallclock_s`` the first run,
     ``steady_s`` the second.  On the card unless ``device="cpu"``.
+    ``precision`` ("full" or "mixed") and ``coupling_source`` ("jvp" or
+    "analytic", whose every Newton sweep is one launch of the batched triple
+    solve for all η) are the integrator's; None takes "full" and "jvp", the
+    defaults the JAX function reads from ``NA_DD_TPU_PRECISION`` and
+    ``NA_DD_TPU_COUPLING``.
     """
     from na_dd_tpu_torch.harness.trial import (
         ALL_VARIABLES,
@@ -426,7 +436,8 @@ def run_eta_study_batched(
     )
 
     sweep = build_eta_study_batched(
-        study, N=N, dt=dt, Tf=Tf, etas=etas, dtype=dtype, device=device
+        study, N=N, dt=dt, Tf=Tf, etas=etas, precision=precision,
+        coupling_source=coupling_source, dtype=dtype, device=device,
     )
     etas, dt_adj, num_steps = sweep["etas"], sweep["dt"], sweep["num_steps"]
     t0 = time.perf_counter()

@@ -13,6 +13,7 @@ from na_dd_tpu_torch.integrators.pc_trapezoidal import (
     PCTrapezoidalCsTriple,
     PCTrapezoidalHCsTriple,
     PCTrapezoidalRegHCsTriple,
+    default_krylov_unroll,
 )
 
 __all__ = [
@@ -27,4 +28,5 @@ __all__ = [
     "DirectMixedBackend",
     "MixedBackend",
     "MIXED_INNER_TOL",
+    "default_krylov_unroll",
 ]

@@ -54,9 +54,12 @@ applies between them to the backend's :meth:`KrylovBackend.solve_triple` as
 one call: one launch of the fused triple-solve kernel on CUDA tensors.  The
 JAX package ties that route to ``stencil_backend="pallas"``; the port has no
 such switch (its wrappers pick the kernel by the tensor's device), so
-``fused_triple`` alone selects it.  ``fused_triple=False``, or a 3-D system
-(the fused kernel is 2-D only, as in the JAX package), takes three separate
-solves with the coupling planes applied between them.
+``fused_triple`` alone selects it.  As in the JAX package the route needs an
+iteration budget (an int ``krylov_unroll``): the while form (None, which the
+default "auto" resolves to) takes the per-solve route, and every study and
+batched entry point passes a budget.  ``fused_triple=False``, or a 3-D
+system (the fused kernel is 2-D only, as in the JAX package), takes three
+separate solves with the coupling planes applied between them.
 
 The step also takes a leading batch dimension, the written-out counterpart
 of ``jax.vmap`` over (grid, state, dt) or over η: a stack of states (B, ...)
@@ -65,8 +68,8 @@ regularization factor as (B, 1, 1) tensors, and a batched ops provider
 (:class:`~na_dd_tpu_torch.ops.shifts.BatchedOps`), whose reductions give
 each system its own Krylov verdict, positivity flag and Newton early exit.
 Each Newton solve is then one launch of the batched kernel for all B
-systems; the fused triple solve takes one system, so a batch with analytic
-couplings takes the per-solve route.
+systems, and a fused sweep one launch of the batched triple solve (each
+system with its own dt, scalars and verdicts).
 
 The step is dimension-agnostic: the
 3-D integrators (:mod:`na_dd_tpu_torch.three_d.integrator`) override only
@@ -116,6 +119,16 @@ def default_krylov_tol(dtype: torch.dtype) -> float:
     """1e-13 relative in float64 (the value the parity goldens were
     certified against), 1e-5 in float32 (an f32 solve cannot reach 1e-13)."""
     return 1e-13 if dtype == torch.float64 else 1e-5
+
+
+def default_krylov_unroll() -> int | None:
+    """What ``krylov_unroll="auto"`` (the default) resolves to: None, the
+    while form up to ``krylov_maxiter`` iterations, as the JAX package
+    resolves it on its reference platform, the CPU.  The JAX package's
+    unrolled default elsewhere (48) guards against the TPU's emulated f64 in
+    while-loop scalars; the card computes f64 natively, and its kernels run
+    the while form with a budget of ``krylov_maxiter`` and break when done."""
+    return None
 
 
 #: Relative tolerance of the float32 inner solves of ``precision="mixed"``:
@@ -178,18 +191,20 @@ class KrylovBackend:
         :func:`kernels.triple_solve` (2-D ``Stencil5`` systems):
         ``J_T·δT = rhs_T``, ``J_cl·δcl = base_cl + dt·C_clT·δT``,
         ``J_cd·δcd = base_cd + dt·(C_cdT·δT + d_cdcl ⊙ δcl)`` on the interior.
+        On a batch every operand comes to the batch's shape
+        (:func:`_batch_shape`) and ``dt`` is a float or one value a system.
         Returns ``(δT, δcl, δcd, (info_T, info_cl, info_cd))``, each info as
-        :meth:`solve` returns it, the residual being the recurrence one."""
+        :meth:`solve` returns it (one entry a system on a batch), the
+        residual being the recurrence one."""
+        (J_T, J_cl, J_cd, C_clT, C_cdT), (d_cdcl, rhs_T, base_cl, base_cd, mask) = (
+            _batch_shape((J_T, J_cl, J_cd, C_clT, C_cdT), (d_cdcl, rhs_T, base_cl, base_cd, mask))
+        )
         dT, dcl, dcd, info3 = kernels.triple_solve(
             J_T, J_cl, J_cd, C_clT, C_cdT, d_cdcl, rhs_T, base_cl, base_cd,
             self._inv_diag(J_T, mask), self._inv_diag(J_cl, mask), self._inv_diag(J_cd, mask),
             mask, dt, tol=self.tol_of(rhs_T.dtype), iters=self.iters,
         )
-        infos = tuple(
-            {key: info3[key][k] for key in ("iters", "resnorm_sq", "converged")}
-            for k in range(3)
-        )
-        return dT, dcl, dcd, infos
+        return dT, dcl, dcd, tuple(_triple_info(info3, k) for k in range(3))
 
 
 def _ndim(st) -> int:
@@ -197,19 +212,39 @@ def _ndim(st) -> int:
     return 3 if isinstance(st, Stencil7) else 2
 
 
-def _one_shape(st, rhs, mask):
-    """The planes, rhs and mask of a solve at one shape, as the kernels take
-    them: where the solve is a batch (B, ...) and an operand is one
-    system's (the planes of a grid shared by the batch, such as η sweeps
-    have), that operand is expanded to the batch."""
-    shape = torch.broadcast_shapes(rhs.shape, mask.shape, *(p.shape for p in st))
-    if len(shape) == _ndim(st):
-        return st, rhs, mask
+def _batch_shape(stencils, planes, nd=2):
+    """Stencils and planes of ``nd`` spatial dimensions at one shape, as the
+    kernels take them: where they are a batch (B, ...) and an operand is one
+    system's (the grid's mask, or the planes of a grid shared by the batch,
+    such as η sweeps have), that operand is expanded to the batch."""
+    shape = torch.broadcast_shapes(*(p.shape for st in stencils for p in st),
+                                   *(p.shape for p in planes))
+    if len(shape) == nd:
+        return stencils, planes
 
     def full(t):
         return t if t.shape == shape else t.expand(shape).contiguous()
 
-    return type(st)(*(full(p) for p in st)), full(rhs), full(mask)
+    return (tuple(type(st)(*(full(p) for p in st)) for st in stencils),
+            tuple(full(p) for p in planes))
+
+
+def _one_shape(st, rhs, mask):
+    """The planes, rhs and mask of one solve at one shape
+    (:func:`_batch_shape`)."""
+    (st,), (rhs, mask) = _batch_shape((st,), (rhs, mask), _ndim(st))
+    return st, rhs, mask
+
+
+def _triple_info(info3, k, keys=("iters", "resnorm_sq", "converged")):
+    """Solve ``k``'s entries of a triple solve's info, shaped as a solve's
+    info is: from entries of shape (3,) scalars, from (B, 3) ``iters`` (B,)
+    and the others (B, 1, 1)."""
+    out = {}
+    for key in keys:
+        v = info3[key][..., k]
+        out[key] = v if key == "iters" or v.dim() == 0 else v.reshape(-1, 1, 1)
+    return out
 
 
 def _true_verdict(r, b, iters, noise_sq, nd=2, tol=None):
@@ -323,9 +358,13 @@ class MixedBackend(KrylovBackend):
 
         which one :func:`kernels.triple_solve` on a residual solves in that
         form, so ``z ← z + triple(w − M z)`` refines all three rows at once,
-        one launch a pass.  The inverse diagonals are those of the float32
-        planes.  Verdicts per row as :meth:`solve` gives them, each row's rhs
-        being ``w`` plus its coupling to the rows above."""
+        one launch a pass (for a whole batch: each system's residual, verdict
+        and noise floor its own).  The inverse diagonals are those of the
+        float32 planes.  Verdicts per row as :meth:`solve` gives them, each
+        row's rhs being ``w`` plus its coupling to the rows above."""
+        (J_T, J_cl, J_cd, C_clT, C_cdT), (d_cdcl, rhs_T, base_cl, base_cd, mask) = (
+            _batch_shape((J_T, J_cl, J_cd, C_clT, C_cdT), (d_cdcl, rhs_T, base_cl, base_cd, mask))
+        )
         apply = kernels.stencil5_apply
         f32 = torch.float32
         J_T32, J_cl32, J_cd32 = self._f32(J_T), self._f32(J_cl), self._f32(J_cd)
@@ -356,19 +395,14 @@ class MixedBackend(KrylovBackend):
         if self.final_check:
             bcl = wcl + dt * apply(C_clT, zT)
             bcd = wcd + dt * (apply(C_cdT, zT) + d_cdcl * zcl)
-            infos = (
-                _true_verdict((wT - apply(J_T, zT)) * mask, wT, iters3[0], noise_sq[0], tol=self.tol),
-                _true_verdict((bcl - apply(J_cl, zcl)) * mask, bcl, iters3[1], noise_sq[1],
-                              tol=self.tol),
-                _true_verdict((bcd - apply(J_cd, zcd)) * mask, bcd, iters3[2], noise_sq[2],
-                              tol=self.tol),
+            infos = tuple(
+                _true_verdict((b - apply(J, z)) * mask, b, iters3[..., k], noise_sq[k],
+                              tol=self.tol)
+                for k, (J, z, b) in enumerate(((J_T, zT, wT), (J_cl, zcl, bcl), (J_cd, zcd, bcd)))
             )
         else:
-            infos = tuple(
-                {"iters": iters3[k], "resnorm_sq": info3["resnorm_sq"][k].to(wT.dtype),
-                 "converged": info3["converged"][k]}
-                for k in range(3)
-            )
+            info3 = dict(info3, iters=iters3, resnorm_sq=info3["resnorm_sq"].to(wT.dtype))
+            infos = tuple(_triple_info(info3, k) for k in range(3))
         return zT, zcl, zcd, infos
 
 
@@ -402,7 +436,7 @@ class PCTrapezoidalBase:
         num_newton_steps: int = 1,
         krylov_tol: float | None = None,
         krylov_maxiter: int = 300,
-        krylov_unroll: int | None = 16,
+        krylov_unroll: int | None | str = "auto",
         assemble_stencil: bool = True,
         stencil_source: str = "analytic",
         track_residuals: bool = True,
@@ -419,6 +453,7 @@ class PCTrapezoidalBase:
         JAX package's while form: up to ``krylov_maxiter`` iterations with a
         true early exit; the kernels make the unrolled form's update, so on
         assembled planes they run with that budget and break when done.
+        "auto" (the default) is :func:`default_krylov_unroll`: None.
         krylov_tol: the solves' relative tolerance (None: 1e-13 in float64,
         1e-5 in float32, :func:`default_krylov_tol`).  The assembled solves
         go through ``self.solver``, an object with ``solve(stencil, rhs,
@@ -439,7 +474,8 @@ class PCTrapezoidalBase:
         coupling_source: "jvp" — the cross couplings as ``torch.func.jvp``
         tangents; "analytic" — as closed-form coupling planes
         (``field.stencil_dFcl_dT`` etc.).  fused_triple: with analytic
-        couplings in 2-D, the whole sweep through ``solver.solve_triple``.
+        couplings in 2-D and an int ``krylov_unroll``, the whole sweep
+        through ``solver.solve_triple``, on one system or a batch.
 
         precision: "full" — the solves in the grid's dtype
         (:class:`KrylovBackend`); "mixed" — float32 Krylov under float64
@@ -463,7 +499,11 @@ class PCTrapezoidalBase:
         budget that converges the forward solves (``krylov_converged``) is
         the guard."""
         if isinstance(krylov_unroll, str):
-            raise ValueError(f"krylov_unroll must be an int or None; got {krylov_unroll!r}")
+            if krylov_unroll != "auto":
+                raise ValueError(
+                    f"krylov_unroll must be an int, None or 'auto'; got {krylov_unroll!r}"
+                )
+            krylov_unroll = default_krylov_unroll()
         if stencil_source not in ("analytic", "probe"):
             raise ValueError(
                 f"stencil_source must be 'analytic' or 'probe'; got {stencil_source!r}"
@@ -643,7 +683,7 @@ class PCTrapezoidalBase:
             and self.linear_solver == "krylov"
             and not self.differentiable
             and isinstance(J_T, linsolve.Stencil5)
-            and rhs_T.dim() == 2
+            and self.krylov_unroll is not None
         ):
             # the whole sweep's linear algebra in one call
             fcl0 = field.Fcl(g, ops, s, t1)

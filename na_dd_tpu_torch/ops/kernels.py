@@ -13,12 +13,13 @@ wrapper                     replaces (na_dd_tpu/ops/pallas_kernels.py)
 :func:`bicgstab_solve3`     ``bicgstab_solve3_pallas`` (:702) — K5
 ==========================  ===================================================
 
-K1, K2, K5 and K6 take an optional leading batch dimension, the written-out
+Every kernel takes an optional leading batch dimension, the written-out
 counterpart of ``jax.vmap`` over the TPU kernel: a stack of B planes
 (B, n0, n1) or volumes (B, n0, n1, n2) of one shape goes to ONE launch, each
 system with its own zero inflow, and a solve's ``info`` holds one entry a
 system (``iters`` (B,), ``resnorm_sq`` and ``converged`` (B, 1, 1) or
-(B, 1, 1, 1)).  K4 takes one system.
+(B, 1, 1, 1); K4's (B, 3), one a system and solve, with ``dt`` one a
+system).
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor takes the
 plain version (which autograd traces like any PyTorch code); a CUDA tensor
@@ -49,7 +50,7 @@ from pathlib import Path
 
 import torch
 
-from na_dd_tpu_torch.ops.linsolve import Stencil5, bicgstab_unrolled
+from na_dd_tpu_torch.ops.linsolve import Stencil5, bicgstab, bicgstab_unrolled
 from na_dd_tpu_torch.ops.shifts import LOCAL_OPS
 from na_dd_tpu_torch.three_d.diffusion import Stencil7
 from na_dd_tpu_torch.three_d.shifts import LOCAL_OPS3
@@ -67,6 +68,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+#: systems one launch of a solve kernel holds (``bicgstab::kMaxBatch`` in
+#: ``csrc/bicgstab.cuh``); :func:`triple_solve` refuses more on either device
+MAX_BATCH = 32
 
 #: launches of each kernel since the last :func:`reset_launch_counts`
 LAUNCHES = {
@@ -127,19 +132,24 @@ def _residual_info(apply, stencil, b, x, iters, tol, nd):
     return {"iters": iters, "resnorm_sq": rsq, "converged": rsq <= tol_sq}
 
 
-def _bicgstab_plain(apply, stencil, b, inv_diag, mask, tol, iters, nd):
-    """:func:`bicgstab_unrolled` from x0 = 0 with the Jacobi preconditioner
-    and per-system dot products, then ``x * mask`` and the true-residual
-    info; ``iters`` has the batch's shape, (B,) or ()."""
-    x, info = bicgstab_unrolled(
-        lambda w: apply(stencil, w),
-        b,
-        torch.zeros_like(b),
-        dot=lambda u, v: system_sum(u * v, nd),
-        minv=lambda r: r * inv_diag,
-        tol=tol,
-        iters=iters,
+def _plain_solve(matvec, b, inv_diag, tol, iters, nd):
+    """The masked-early-exit BiCGStab of the kernels from x0 = 0 with the
+    Jacobi preconditioner and per-system dot products.  On CPU tensors the
+    loop also stops once every system is done (:func:`bicgstab`, one host
+    read an iteration, which costs nothing there), which changes no value; on
+    the card it runs the whole budget without a host read."""
+    solve = bicgstab if b.device.type == "cpu" else bicgstab_unrolled
+    budget = {"maxiter" if solve is bicgstab else "iters": iters}
+    return solve(
+        matvec, b, torch.zeros_like(b), dot=lambda u, v: system_sum(u * v, nd),
+        minv=lambda r: r * inv_diag, tol=tol, **budget,
     )
+
+
+def _bicgstab_plain(apply, stencil, b, inv_diag, mask, tol, iters, nd):
+    """:func:`_plain_solve`, then ``x * mask`` and the true-residual info;
+    ``iters`` has the batch's shape, (B,) or ()."""
+    x, info = _plain_solve(lambda w: apply(stencil, w), b, inv_diag, tol, iters, nd)
     x = x * mask
     used = info["iters"].reshape(b.shape[: b.dim() - nd])
     return x, _residual_info(apply, stencil, b, x, used, tol, nd)
@@ -150,35 +160,44 @@ def bicgstab_solve_plain(stencil: Stencil5, b, inv_diag, mask, *, tol: float, it
     return _bicgstab_plain(stencil5_apply_plain, stencil, b, inv_diag, mask, tol, iters, 2)
 
 
+def _dt_stack(dt, rhs_T):
+    """``dt`` in the operands' dtype, as the kernel casts it: a float as it
+    is, a tensor (one value, or one a system of a stack) as (B, 1, 1) on a
+    stack."""
+    if not isinstance(dt, torch.Tensor):
+        return dt
+    dt = dt.to(dtype=rhs_T.dtype, device=rhs_T.device)
+    return dt.reshape(-1, 1, 1) if rhs_T.dim() == 3 and dt.numel() > 1 else dt.reshape(())
+
+
 def triple_solve_plain(
     J_T: Stencil5, J_cl: Stencil5, J_cd: Stencil5, C_clT: Stencil5, C_cdT: Stencil5, d_cdcl,
     rhs_T, base_cl, base_cd, invd_T, invd_cl, invd_cd, mask, dt, *, tol: float, iters: int,
 ):
-    """Plain twin of K4: three :func:`bicgstab_unrolled` solves from x0 = 0
-    with the coupling applies between them.  ``info`` holds, per solve, the
-    iteration count, the recurrence residual ``r·r`` at exit, ``tol_sq =
-    tol²·(b·b)`` of the masked, coupled rhs, and ``converged = resnorm_sq <=
-    tol_sq``."""
+    """Plain twin of K4: three masked-early-exit solves from x0 = 0 with the
+    coupling applies between them, on one system of planes or on a stack
+    (B, n0, n1) solved each alone (``dt`` a float, or a tensor of one value
+    a system).  ``info`` holds, per solve (and system: shape (3,) or
+    (B, 3)), the iteration count, the recurrence residual ``r·r`` at exit,
+    ``tol_sq = tol²·(b·b)`` of the masked, coupled rhs, and ``converged =
+    resnorm_sq <= tol_sq``."""
+    batch = rhs_T.shape[:-2]
+    dt = _dt_stack(dt, rhs_T)
     infos = []
 
     def solve(J, b, inv_diag):
-        x, info = bicgstab_unrolled(
-            lambda w: J.apply(LOCAL_OPS, w),
-            b,
-            torch.zeros_like(b),
-            dot=lambda u, v: torch.sum(u * v),
-            minv=lambda r: r * inv_diag,
-            tol=tol,
-            iters=iters,
+        x, info = _plain_solve(
+            lambda w: J.apply(LOCAL_OPS, w), b, inv_diag, tol, iters, 2
         )
-        infos.append((info["iters"], info["resnorm_sq"], tol * tol * torch.sum(b * b)))
+        tol_sq = tol * tol * system_sum(b * b, 2)
+        infos.append(tuple(v.reshape(batch) for v in (info["iters"], info["resnorm_sq"], tol_sq)))
         return x * mask
 
     dT = solve(J_T, rhs_T * mask, invd_T)
     dcl = solve(J_cl, (base_cl + dt * C_clT.apply(LOCAL_OPS, dT)) * mask, invd_cl)
     coup_cd = C_cdT.apply(LOCAL_OPS, dT) + d_cdcl * dcl
     dcd = solve(J_cd, (base_cd + dt * coup_cd) * mask, invd_cd)
-    its, res, tol_sq = (torch.stack(v) for v in zip(*infos))
+    its, res, tol_sq = (torch.stack(v, dim=-1) for v in zip(*infos))
     return dT, dcl, dcd, {
         "iters": its, "resnorm_sq": res, "tol_sq": tol_sq, "converged": res <= tol_sq,
     }
@@ -251,10 +270,10 @@ def _declare(name: str, lib) -> None:
         lib.bicgstab3_max_batch.restype = i32
     elif name == "triple_solve":
         for fn in (lib.triple_solve_blocks_f64, lib.triple_solve_blocks_f32):
-            fn.argtypes = [i32, ctypes.POINTER(i32)]
+            fn.argtypes = [i32, i32, ctypes.POINTER(i32)]
             fn.restype = i32
         for fn in (lib.triple_solve_f64, lib.triple_solve_f32):
-            fn.argtypes = [vp] * 6 + [i32, i32, i32, f64, f64, i32, vp]
+            fn.argtypes = [vp] * 6 + [i32, i32, i32, i32, f64, f64, vp, i32, vp]
             fn.restype = i32
         lib.triple_solve_input_planes.restype = i32
         lib.triple_solve_num_slots.restype = i32
@@ -393,9 +412,7 @@ def _bicgstab_blocks(lib, prefix: str, dtype, n: int, nsys: int = 1) -> int:
         suffix = "f64" if dtype == torch.float64 else "f32"
         fn = getattr(lib, f"{prefix}_blocks_{suffix}")
         blocks = ctypes.c_int(0)
-        args = (n, ctypes.byref(blocks)) if prefix == "triple_solve" else (
-            n, nsys, ctypes.byref(blocks))
-        _check_launch(lib, fn(*args), f"{prefix} occupancy")
+        _check_launch(lib, fn(n, nsys, ctypes.byref(blocks)), f"{prefix} occupancy")
         _BLOCKS[key] = blocks.value
     return _BLOCKS[key]
 
@@ -465,14 +482,18 @@ def triple_solve(
     ``info["iters"]``, ``["resnorm_sq"]``, ``["tol_sq"]`` and ``["converged"]``
     have one entry per solve, the residual being the recurrence ``r·r`` at
     exit (``bicgstab_unrolled`` semantics), as ``triple_solve_pallas`` reports
-    them.  CPU tensors take :func:`triple_solve_plain`.  Never synchronises
-    with the host.
+    them.
+
+    On a stack of B systems (every operand (B, n0, n1)) the B sweeps run in
+    the same launch, each alone, with ``dt`` a float or one value a system
+    ((B,) or (B, 1, 1), read on the device), and each info entry has shape
+    (B, 3), as ``jax.vmap`` of the TPU kernel gives it.  CPU tensors take
+    :func:`triple_solve_plain`.  Never synchronises with the host.  More
+    than :data:`MAX_BATCH` systems raise, on the CPU too.
     """
-    if rhs_T.dim() != 2:
-        raise ValueError(
-            "triple_solve: one system of planes; a batch takes the per-solve route "
-            f"(K1 with a batch dimension); got shape {tuple(rhs_T.shape)}"
-        )
+    nsys = 1 if rhs_T.dim() == 2 else rhs_T.shape[0]
+    if nsys > MAX_BATCH:
+        raise ValueError(f"triple_solve: at most {MAX_BATCH} systems a launch; got {nsys}")
     if rhs_T.device.type == "cpu":
         return triple_solve_plain(
             J_T, J_cl, J_cd, C_clT, C_cdT, d_cdcl, rhs_T, base_cl, base_cd,
@@ -482,17 +503,26 @@ def triple_solve(
         *J_T, *J_cl, *J_cd, *C_clT, *C_cdT,
         d_cdcl, rhs_T, base_cl, base_cd, invd_T, invd_cl, invd_cd, mask,
     )
-    _check_operands("triple_solve", 2, rhs_T, *planes, batched=False)
+    _check_operands("triple_solve", 2, rhs_T, *planes)
     lib = _lib("triple_solve")
     if len(planes) != lib.triple_solve_input_planes():
         raise ValueError(f"triple_solve: expected {lib.triple_solve_input_planes()} planes")
-    n0, n1 = rhs_T.shape
+    n0, n1 = rhs_T.shape[-2:]
     dtype, device = rhs_T.dtype, rhs_T.device
-    blocks = _bicgstab_blocks(lib, "triple_solve", dtype, n0 * n1)
-    out = torch.empty((3, n0, n1), dtype=dtype, device=device)
-    iters_out = torch.empty(3, dtype=torch.int32, device=device)
-    scalars = torch.empty((2, 3), dtype=dtype, device=device)  # r·r, tol_sq
-    work = torch.empty((lib.triple_solve_work_planes(), n0, n1), dtype=dtype, device=device)
+    dt_host, dt_sys = 0.0, None
+    if isinstance(dt, torch.Tensor):
+        if dt.numel() not in (1, nsys):
+            raise ValueError(
+                f"triple_solve: dt must hold one value or one a system; got {tuple(dt.shape)}"
+            )
+        dt_sys = dt.to(dtype=torch.float64, device=device).reshape(-1).expand(nsys).contiguous()
+    else:
+        dt_host = float(dt)
+    blocks = _bicgstab_blocks(lib, "triple_solve", dtype, n0 * n1, nsys)
+    out = torch.empty((3, *rhs_T.shape), dtype=dtype, device=device)
+    iters_out = torch.empty((nsys, 3), dtype=torch.int32, device=device)
+    scalars = torch.empty((2, nsys, 3), dtype=dtype, device=device)  # r·r, tol_sq
+    work = torch.empty((lib.triple_solve_work_planes(), *rhs_T.shape), dtype=dtype, device=device)
     partials = torch.empty(lib.triple_solve_num_slots() * blocks, dtype=dtype, device=device)
     in_ptrs = (ctypes.c_void_p * len(planes))(*(t.data_ptr() for t in planes))
     out_ptrs = (ctypes.c_void_p * 3)(*(out[k].data_ptr() for k in range(3)))
@@ -500,13 +530,16 @@ def triple_solve(
     code = fn(
         ctypes.cast(in_ptrs, ctypes.c_void_p), ctypes.cast(out_ptrs, ctypes.c_void_p),
         iters_out.data_ptr(), scalars.data_ptr(), work.data_ptr(), partials.data_ptr(),
-        n0, n1, int(iters), float(tol) * float(tol), float(dt), blocks, _stream(rhs_T),
+        nsys, n0, n1, int(iters), float(tol) * float(tol), dt_host,
+        None if dt_sys is None else dt_sys.data_ptr(), blocks, _stream(rhs_T),
     )
     _check_launch(lib, code, "triple_solve")
     _count("triple_solve", dtype)
-    res, tol_sq = scalars[0], scalars[1]
+    its, res, tol_sq = iters_out, scalars[0], scalars[1]
+    if rhs_T.dim() == 2:
+        its, res, tol_sq = its[0], res[0], tol_sq[0]
     return out[0], out[1], out[2], {
-        "iters": iters_out, "resnorm_sq": res, "tol_sq": tol_sq, "converged": res <= tol_sq,
+        "iters": its, "resnorm_sq": res, "tol_sq": tol_sq, "converged": res <= tol_sq,
     }
 
 

@@ -25,8 +25,10 @@ _EXPORTS = {
                  "Mx3", "My3", "Mz3", "grad_H3"),
     "inner_products": ("inner_H3", "inner_p3", "norm_H3", "norm_p3"),
     "quadrature": ("avg_int3",),
-    "diffusion": ("Stencil7", "advection_planes3", "diffusion_planes3",
-                  "midpoint_coupling_planes3", "newton_planes3", "stencil_add_diag3"),
+    "diffusion": ("Stencil7", "advection_planes3", "crank_nicolson_heat_step",
+                  "diffusion_apply3", "diffusion_planes3", "heat_mms_error",
+                  "midpoint_coupling_planes3", "newton_planes3", "probe_stencil3",
+                  "stencil_add_diag3"),
     "fields": ("Field3Base", "FieldCsTriple3", "FieldHCsTriple3", "FieldRegHCsTriple3"),
     "forcing": ("Forcing3Base", "MMSForcingCsTriple3", "MMSForcingHCsTriple3",
                 "MMSForcingRegHCsTriple3", "NoForcing3"),

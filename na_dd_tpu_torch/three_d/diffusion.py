@@ -23,6 +23,7 @@ import torch
 from na_dd_tpu_torch.ops.linsolve import jacobi_from_diag, probe_planes
 from na_dd_tpu_torch.three_d.grid import Grid3, make_uniform_grid3
 from na_dd_tpu_torch.three_d.shifts import LOCAL_OPS3, Ops3
+from na_dd_tpu_torch.three_d.stencils import Dx_reg3, Dx_star3, Dy_reg3, Dy_star3, Dz_reg3, Dz_star3
 
 
 class Stencil7(NamedTuple):
@@ -62,6 +63,18 @@ class Stencil7(NamedTuple):
             czm=ops.shift_zm(self.czp),
             czp=ops.shift_zp(self.czm),
         )
+
+
+def diffusion_apply3(ops: Ops3, g: Grid3, ax, ay, az, u):
+    """w ↦ D*_x(ax ⊙ D₋x w) + D*_y(ay ⊙ D₋y w) + D*_z(az ⊙ D₋z w), the
+    matrix-free 3-D diffusion operator whose planes
+    :func:`diffusion_planes3` gives; ``ax[i,j,k]`` multiplies the flux at the
+    lower x-face of node i, where ``D₋x w`` lives."""
+    return (
+        Dx_star3(ops, g, ax * Dx_reg3(ops, g, u))
+        + Dy_star3(ops, g, ay * Dy_reg3(ops, g, u))
+        + Dz_star3(ops, g, az * Dz_reg3(ops, g, u))
+    )
 
 
 def diffusion_planes3(g: Grid3, ops: Ops3, ax, ay, az) -> Stencil7:

@@ -78,9 +78,10 @@ def make_setup3(
     of the last).
 
     Exactly one of ``N`` (uniform N³ grid in ``dtype`` on ``device``) or
-    ``grid`` must be given.  The integrator takes a Krylov budget of
-    :data:`KRYLOV_BUDGET3` and no residual tracking (the error does not read
-    the residuals) unless ``integrator_params`` says otherwise.
+    ``grid`` must be given.  The integrator takes ``integrator_params`` and
+    nothing else, as in the JAX package: with none, the integrator's defaults
+    (the while form, residual tracking on); the studies pass
+    ``krylov_unroll=KRYLOV_BUDGET3, track_residuals=False``.
     """
     if (N is None) == (grid is None):
         raise ValueError("pass exactly one of N (uniform grid) or grid")
@@ -90,9 +91,7 @@ def make_setup3(
     reg = dict(regularization_factor=eta) if variant == "reghcs" else {}
     forcing = forcing_cls(mms_case=case, model=model, **reg)
     field = field_cls(grid=g, model=model, forcing=forcing, **reg)
-    params = dict(krylov_unroll=KRYLOV_BUDGET3, track_residuals=False)
-    params.update(integrator_params or {})
-    integ = integ_cls(field, **reg, **params)
+    integ = integ_cls(field, **reg, **(integrator_params or {}))
     return g, case, field, integ
 
 

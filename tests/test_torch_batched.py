@@ -233,11 +233,106 @@ def test_batched_plain_apply_is_each_system_alone(shape):
         torch.testing.assert_close(out[k], apply(st_k, u[k]), rtol=0, atol=0)
 
 
-def test_triple_solve_takes_one_system():
+def test_triple_solve_takes_a_stack_up_to_the_batch_limit():
+    """K4 takes a stack (one info entry a system and solve) with one dt or
+    one a system, and refuses more systems than one launch holds
+    (``bicgstab::kMaxBatch``), on the CPU as on the card."""
     one, (st, b, inv, mask) = _batch((9, 8))
-    with pytest.raises(ValueError, match="one system"):
-        kernels.triple_solve(st, st, st, st, st, b, b, b, b, inv, inv, inv, mask, 1e-3,
+    dts = torch.tensor([1e-3, 2e-3, 4e-3], dtype=torch.float64).reshape(3, 1, 1)
+    *_x, info = kernels.triple_solve(st, st, st, st, st, b, b, b, b, inv, inv, inv, mask, dts,
+                                     tol=1e-13, iters=4)
+    assert all(v.shape == (3, 3) for v in info.values())
+    many = kernels.MAX_BATCH + 1
+    big = type(st)(*(c[:1].expand(many, -1, -1) for c in st))
+    bb, ii, mm = (t[:1].expand(many, -1, -1) for t in (b, inv, mask))
+    with pytest.raises(ValueError, match="at most 32 systems"):
+        kernels.triple_solve(big, big, big, big, big, bb, bb, bb, bb, ii, ii, ii, mm, 1e-3,
                              tol=1e-13, iters=4)
+
+
+# ---------------------------------------------------------------------------
+# batched K4 (the fused triple solve) against the JAX kernel under jax.vmap
+# ---------------------------------------------------------------------------
+class _TripleRecorder:
+    """Solver backend that records each triple solve's operands."""
+
+    def __init__(self, inner):
+        self.inner, self.calls = inner, []
+
+    def solve_triple(self, *args):
+        self.calls.append(args)
+        return self.inner.solve_triple(*args)
+
+
+@pytest.fixture(scope="module")
+def ladder_triple():
+    """The K4 operands of step 1 of the fused batched pol ladder (levels=3,
+    three 9 x 9 systems, each level's own dt), as ``kernels.triple_solve``
+    takes them, and the Krylov budget."""
+    from na_dd_tpu_torch.harness.batched_ladder import build_spatial_ladder_batched
+    from na_dd_tpu_torch.integrators.pc_trapezoidal import _batch_shape
+    from na_dd_tpu_torch.ops.linsolve import jacobi_from_diag
+
+    build = build_spatial_ladder_batched("pol", levels=3, coupling_source="analytic", device="cpu")
+    integ = build["integrator"]
+    rec = integ.solver = _TripleRecorder(integ.solver)
+    integ.step_fn(build["grid"], BATCHED_OPS, build["state"], torch.zeros_like(build["dt"]),
+                  build["dt"])
+    integ.solver = rec.inner
+    assert len(rec.calls) == 1
+    *stencils, d, rhs_T, base_cl, base_cd, mask, dt, _noise = rec.calls[0]
+    (J_T, J_cl, J_cd, C_clT, C_cdT), (d, rhs_T, base_cl, base_cd, mask) = _batch_shape(
+        stencils, (d, rhs_T, base_cl, base_cd, mask))
+    invs = tuple(jacobi_from_diag(J.c0, mask) for J in (J_T, J_cl, J_cd))
+    operands = (J_T, J_cl, J_cd, C_clT, C_cdT, d, rhs_T, base_cl, base_cd, *invs, mask, dt)
+    return operands, rec.inner.iters
+
+
+def _to_jax(operands):
+    import jax.numpy as jnp
+
+    def conv(t):
+        if isinstance(t, tuple):
+            return tuple(conv(c) for c in t)
+        return jnp.asarray(t.numpy())
+
+    *planes, dt = operands
+    return [conv(tuple(t)) if isinstance(t, tuple) else conv(t) for t in planes], \
+        jnp.asarray(dt.reshape(-1).numpy())
+
+
+def test_batched_plain_triple_solve_matches_jax_vmap(ladder_triple):
+    """The plain batched K4 against ``jax.vmap`` of the TPU kernel in
+    interpret mode on the ladder's step-1 stack: every increment of every
+    system to 1e-12 of the system's max-norm, the (B, 3) iteration counts
+    equal; and each system of the batch against the unbatched plain K4 on it
+    alone (equal counts, increments to 1e-15)."""
+    from na_dd_tpu.ops.pallas_kernels import triple_solve_pallas
+
+    operands, iters = ladder_triple
+    tol = 1e-13
+    *xs, info = kernels.triple_solve(*operands, tol=tol, iters=iters)
+    planes, dt = _to_jax(operands)
+    *jxs, jinfo = jax.vmap(
+        lambda *a: triple_solve_pallas(*a, tol=tol, iters=iters, interpret=True)
+    )(*planes, dt)
+    assert info["iters"].shape == tuple(jinfo["iters"].shape) == (3, 3)
+    np.testing.assert_array_equal(info["iters"].numpy(), np.asarray(jinfo["iters"]))
+    np.testing.assert_array_equal(info["converged"].numpy(), np.asarray(jinfo["converged"]))
+    assert int(info["iters"].sum()) > 0
+    for x, jx in zip(xs, jxs):
+        jx = np.asarray(jx)
+        for k in range(3):
+            scale = max(float(np.abs(jx[k]).max()), 1e-300)
+            assert float(np.abs(x[k].numpy() - jx[k]).max()) <= 1e-12 * scale
+    for k in range(3):
+        one = tuple(type(t)(*(c[k] for c in t)) if isinstance(t, tuple) else t[k]
+                    for t in operands)
+        *xk, info_k = kernels.triple_solve(*one, tol=tol, iters=iters)
+        assert info_k["iters"].tolist() == info["iters"][k].tolist()
+        for x, x1 in zip(xs, xk):
+            scale = max(float(x1.abs().max()), 1e-300)
+            assert float((x[k] - x1).abs().max()) <= 1e-15 * scale
 
 
 # ---------------------------------------------------------------------------
@@ -362,3 +457,51 @@ def test_mixed_backend_verdicts_are_per_system():
                                    tensor_from_numpy(rhs, device="cpu"), m)
         assert torch.allclose(x[k], xk, rtol=1e-13, atol=0.0)
         assert int(info["iters"][k]) == int(info_k["iters"]) and bool(info["converged"][k])
+
+
+# ---------------------------------------------------------------------------
+# the fused analytic batched entry points (batched K4) against the JAX
+# package's, whose vmapped sweep runs the TPU kernel in interpret mode
+# ---------------------------------------------------------------------------
+FUSED_ETA_KW = dict(N=8, dt=2e-3)
+
+
+def _jax_fused_env(monkeypatch, precision="full"):
+    monkeypatch.setenv("NA_DD_TPU_COUPLING", "analytic")
+    monkeypatch.setenv("NA_DD_TPU_STENCIL", "pallas")
+    monkeypatch.setenv("NA_DD_TPU_PRECISION", precision)
+
+
+def test_fused_spatial_ladder_batched_matches_jax(ladder, monkeypatch):
+    """``coupling_source="analytic"`` on the batched ladder (one batched K4 a
+    Newton sweep) against the JAX ladder under NA_DD_TPU_COUPLING=analytic
+    (``krylov_scanned=False``, which its fused branch needs): each level to
+    1e-10, and to the port's jvp-route batched ladder to 1e-10."""
+    _jax_fused_env(monkeypatch)
+    jax_res = j_bl.run_spatial_ladder_batched("pol", levels=3, verbose=False, krylov_scanned=False)
+    port = run_spatial_ladder_batched("pol", levels=3, verbose=False, device="cpu",
+                                      coupling_source="analytic")
+    assert port["Ns"] == jax_res["Ns"] == [2, 4, 8]
+    for e_p, e_j, e_jvp in zip(port["errors"], jax_res["errors"], ladder[1]["errors"]):
+        assert _rel(e_p, e_j) <= 1e-10
+        assert _rel(e_p, e_jvp) <= 1e-10
+
+
+@pytest.mark.parametrize("precision", ["full", "mixed"])
+def test_fused_eta_study_batched_matches_jax(precision, monkeypatch):
+    """The η sweep with analytic couplings (one batched K4 a sweep for all η;
+    in "mixed" the float32 K4 under per-η block refinement) against the JAX
+    sweep under the same environment: each η to 1e-10; the mixed sweep also
+    to the port's float64 fused sweep to 1e-12."""
+    _jax_fused_env(monkeypatch, precision)
+    jax_res = j_run_eta_study_batched("pol", verbose=False, **FUSED_ETA_KW)
+    port = run_eta_study_batched("pol", verbose=False, device="cpu", precision=precision,
+                                 coupling_source="analytic", **FUSED_ETA_KW)
+    assert port["etas"] == jax_res["etas"] and len(port["etas"]) == 7
+    for e_p, e_j in zip(port["errors"], jax_res["errors"]):
+        assert _rel(e_p, e_j) <= 1e-10
+    if precision == "mixed":
+        f64 = run_eta_study_batched("pol", verbose=False, device="cpu",
+                                    coupling_source="analytic", **FUSED_ETA_KW)
+        for e_p, e_f in zip(port["errors"], f64["errors"]):
+            assert _rel(e_p, e_f) <= 1e-12

@@ -209,6 +209,66 @@ def test_triple_solve_kernel_budget_cut(card, shape, iters):
     assert float(rel.max()) <= 1e-10
 
 
+def _stack(items):
+    if isinstance(items[0], tuple):
+        return type(items[0])(*(torch.stack(c) for c in zip(*items)))
+    return torch.stack(items)
+
+
+def _triple_stack(seed, shape, nsys, dtype, device):
+    """``nsys`` sets of triple-solve operands stacked (B, n0, n1), one dt a
+    system (a float64 tensor, as the batched ladder passes it); system 0's
+    rhs_T is 0, so its T solve ends before its first iteration while the
+    others iterate."""
+    sets = [_triple(seed + k, shape, dtype, device) for k in range(nsys)]
+    operands = [_stack([s[i] for s in sets]) for i in range(13)]
+    operands[6][0].zero_()
+    dt = torch.tensor([0.02 * (k + 1) for k in range(nsys)], dtype=torch.float64, device=device)
+    return (*operands, dt)
+
+
+def _system_of(operands, k):
+    return tuple(type(t)(*(c[k] for c in t)) if isinstance(t, tuple) else t[k] for t in operands)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape, nsys", [((65, 65), 4), ((33, 20), 3), ((9, 9), 2)])
+def test_batched_triple_solve_kernel_vs_plain(card, dtype, shape, nsys):
+    """One launch for the stack against the plain stack, and each system
+    against the unbatched kernel on it alone: equal (B, 3) iteration counts,
+    increments within the dtype's tolerance."""
+    operands = _triple_stack(44, shape, nsys, dtype, card)
+    kernels.reset_launch_counts()
+    *xk, ik = kernels.triple_solve(*operands, tol=KRYLOV_TOL[dtype], iters=40)
+    assert kernels.LAUNCHES["triple_solve"] == 1
+    *xp, ip = kernels.triple_solve_plain(*operands, tol=KRYLOV_TOL[dtype], iters=40)
+    assert ik["iters"].shape == (nsys, 3) and ik["iters"].tolist() == ip["iters"].tolist()
+    assert ik["iters"][0, 0] == 0 and int(ik["iters"][1:].min()) > 0
+    assert ik["converged"].tolist() == ip["converged"].tolist()
+    for a, b in zip(xk, xp):
+        for k in range(nsys):
+            assert_close(a[k], b[k], TOL[dtype])
+    for k in range(nsys):
+        *x1, i1 = kernels.triple_solve(*_system_of(operands, k), tol=KRYLOV_TOL[dtype], iters=40)
+        assert i1["iters"].tolist() == ik["iters"][k].tolist()
+        for a, b in zip(xk, x1):
+            assert_close(a[k], b, TOL[dtype])
+
+
+def test_triple_solve_batch_of_one_is_the_single_kernel(card):
+    """A stack of one system launches the single-system kernel: bit for bit
+    the unbatched call, dt as a float or as a one-element tensor."""
+    operands = _triple(45, (257, 257), torch.float64, card)
+    *x1, i1 = kernels.triple_solve(*operands, tol=1e-13, iters=40)
+    one = [_stack([t]) if isinstance(t, (tuple, torch.Tensor)) else t for t in operands]
+    for dt in (0.05, torch.tensor([0.05], dtype=torch.float64, device=card)):
+        one[-1] = dt
+        *xb, ib = kernels.triple_solve(*one, tol=1e-13, iters=40)
+        assert ib["iters"].tolist() == [i1["iters"].tolist()]
+        for a, b in zip(xb, x1):
+            assert torch.equal(a[0], b)
+
+
 def test_triple_solve_refuses_mixed_operands(card):
     operands = list(_triple(42, (17, 17), torch.float64, card))
     operands[6] = operands[6].float()  # rhs_T
@@ -621,9 +681,18 @@ def test_batched_wrappers_refuse_bad_stacks(card):
             *(t[:1].expand(big, -1, -1).contiguous() for t in (b, inv, mask)))
     with pytest.raises(ValueError, match="systems a launch"):
         kernels.bicgstab_solve(*many, tol=1e-13, iters=4)
-    with pytest.raises(ValueError, match="one system"):
-        kernels.triple_solve(st, st, st, st, st, b, b, b, b, inv, inv, inv, mask, 1e-3,
+    # K4 takes a stack, but not a mismatched one, a dt of another length, or
+    # more systems than a launch holds
+    with pytest.raises(ValueError, match="must match"):
+        kernels.triple_solve(st, st, st, st, st, b, b[:2], b, b, inv, inv, inv, mask, 1e-3,
                              tol=1e-13, iters=4)
+    with pytest.raises(ValueError, match="dt must hold"):
+        kernels.triple_solve(st, st, st, st, st, b, b, b, b, inv, inv, inv, mask,
+                             torch.ones(2, dtype=torch.float64, device=card), tol=1e-13, iters=4)
+    big_st, big_b, big_inv, big_mask = many
+    with pytest.raises(ValueError, match="systems a launch"):
+        kernels.triple_solve(big_st, big_st, big_st, big_st, big_st, big_b, big_b, big_b, big_b,
+                             big_inv, big_inv, big_inv, big_mask, 1e-3, tol=1e-13, iters=4)
 
 
 def test_batched_solve_never_syncs(card):

@@ -92,6 +92,58 @@ def test_cuda_source_includes_only_its_own_and_toolkit_headers(name):
         assert 'extern "C"' in text and "error_string" in text
 
 
+JAX_PACKAGE = REPO / "na_dd_tpu"
+#: names of the JAX package's ``__all__`` that the port leaves out on
+#: purpose: the x64 set-up (torch needs none) and, until the parallel slice,
+#: the sharded 3-D ops and the ``parallel`` and ``utils`` packages
+NOT_PORTED = {"setup_x64", "HaloOps3"}
+NOT_PORTED_PACKAGES = {"parallel", "utils"}
+
+
+def _jax_exports():
+    """(port package, name) for every name of every ``__all__`` of the JAX
+    package's ``__init__.py`` files, read from their AST (no import)."""
+    for init in sorted(JAX_PACKAGE.rglob("__init__.py")):
+        sub = init.parent.relative_to(JAX_PACKAGE).parts
+        if sub and sub[0] in NOT_PORTED_PACKAGES:
+            continue
+        for node in ast.parse(init.read_text()).body:
+            if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets
+            ):
+                for name in ast.literal_eval(node.value):
+                    yield ".".join(("na_dd_tpu_torch", *sub)), name
+
+
+JAX_EXPORTS = list(_jax_exports())
+
+
+def test_jax_exports_were_found():
+    packages = {pkg for pkg, _ in JAX_EXPORTS}
+    assert {"na_dd_tpu_torch.ops", "na_dd_tpu_torch.models", "na_dd_tpu_torch.integrators",
+            "na_dd_tpu_torch.three_d"} <= packages
+    assert len(JAX_EXPORTS) >= 100
+
+
+@pytest.mark.parametrize("package", sorted({pkg for pkg, _ in JAX_EXPORTS}))
+def test_every_jax_export_resolves_on_the_port(package):
+    """Every name the JAX subpackage exports resolves on the port's twin
+    package (eagerly or through its lazy ``__getattr__``), but for the
+    listed non-ports."""
+    import importlib
+
+    module = importlib.import_module(package)
+    missing = [name for pkg, name in JAX_EXPORTS
+               if pkg == package and name not in NOT_PORTED and not hasattr(module, name)]
+    assert not missing, f"{package} lacks {missing}"
+
+
+def test_max_batch_is_the_kernels():
+    """The wrappers' batch limit is the one the CUDA sources compile in."""
+    found = re.search(r"constexpr int kMaxBatch = (\d+);", (CSRC / "bicgstab.cuh").read_text())
+    assert found and int(found.group(1)) == kernels.MAX_BATCH
+
+
 class _AnyLibrary:
     """Stands in for a ctypes library: any symbol can be declared on it."""
 

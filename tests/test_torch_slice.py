@@ -220,6 +220,50 @@ def test_coupling_source_is_validated():
     assert integ.coupling_source == "jvp" and integ.fused_triple is True
 
 
+def test_default_budget_step_matches_jax():
+    """Both integrators built with no solver arguments: the port's default
+    "auto" resolves as the JAX package's does on the CPU, to the while form
+    (``default_krylov_unroll()`` is None).  One step of the pol N=128 level
+    from the exact state, stiff enough that the old fixed budget of 16 stops
+    short: each field to 1e-12 of its max-norm, every solve converged.  At
+    dt=0.2 (27 + 23 + 2 iterations) the iteration totals are equal.  At
+    dt=0.5 the two solves of 38-44 iterations end where the residual
+    stagnates at the tolerance, and the count there follows the order of
+    the sums: the JAX package's own jitted and eager solves of the same
+    systems take 41 + 38 and 42 + 39, the port 43 + 44; so there both only
+    exceed three budgets of 16."""
+    from na_dd_tpu_torch.integrators import default_krylov_unroll
+
+    N = 128
+    no_solver_args = dict(
+        forcing_terms_params=dict(regularization_factor=ETA),
+        field_params=dict(regularization_factor=ETA),
+        integrator_params=dict(regularization_factor=ETA),
+    )
+    jt = JTrial(j_make_uniform_grid(N, N), JModel02(J_CONSTS), JCase, JField, JForcing,
+                JIntegrator, **no_solver_args)
+    j_step = jax.jit(jt.integrator.step_fn, static_argnums=1)
+    tt = TTrial(t_make_uniform_grid(N, N, device="cpu"),
+                TModel02(consts_from_dict(J_CONSTS._asdict())), TCase, TField, TForcing,
+                TIntegrator, **no_solver_args)
+    assert default_krylov_unroll() is None and tt.integrator.krylov_unroll is None
+    s0 = state_from_numpy({k: np.asarray(v) for k, v in jt.initial_state._asdict().items()},
+                          device="cpu")
+    for dt in (0.2, 0.5):
+        j_state, j_diag = j_step(jt.grid, J_OPS, jt.initial_state, 0.0, dt)
+        t_state, t_diag = tt.integrator.step_fn(tt.grid, T_OPS, s0, 0.0, dt)
+        t_iters, j_iters = int(t_diag.krylov_iters), int(j_diag.krylov_iters)
+        if dt == 0.2:
+            assert t_iters == j_iters == 52
+        else:
+            assert min(t_iters, j_iters) > 3 * 16
+        assert bool(t_diag.krylov_converged) and bool(j_diag.krylov_converged)
+        for field in FIELDS:
+            ref = np.asarray(getattr(j_state, field))
+            got = getattr(t_state, field).numpy()
+            assert np.max(np.abs(got - ref)) <= 1e-12 * np.max(np.abs(ref)), (dt, field)
+
+
 # ---------------------------------------------------------------------------
 # the harness's production options, the time tables and the studies module:
 # twins of tests/test_harness.py (collect_tail, collect_precompute) and of
