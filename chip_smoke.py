@@ -66,7 +66,14 @@ version on the card, and drives the port's paths:
   whole batch one launch of batched K4; the ladder also in
   ``precision="mixed"``), against CPU-x64 and the per-solve batched routes,
   with batched K4 against its plain version on their step-1 stacks, an edge
-  stack and a batch of one (the single-system kernel, bit for bit).
+  stack and a batch of one (the single-system kernel, bit for bit);
+* the parallel layer (``na_dd_tpu_torch.parallel``): 4 gloo ranks on the one
+  card run the pol level N=255 sharded over rows (5 steps; the Krylov
+  matvec K2 on halo-padded blocks) and, on a 2 x 2 mesh, the 2-D step,
+  mixed, direct, value-and-grad and 2 steps of ExpSin3 N=31 (K6 on
+  halo-padded volumes), each against the local run on the card; a sharded
+  checkpoint saved by 4 ranks restored on 2 and on 1; the ensemble at
+  B = 1, 8, 32 (batched K1/K2) and dp=2 against dp=1.
 
 It checks the errors against the reference values and the launch counts of
 each path's main level (counts set to 0 just before it, read just after),
@@ -645,20 +652,21 @@ def phase_slice_f64(device):
 
     runs = steady_in_turns({"jvp": (trial, err)}, dt)["jvp"]
     steady = min(runs)
-    log(f"[f64] N=256 steady wall-clock {steady:.6f} s (min of 3 after a warm-up; runs "
-        + ", ".join(f"{r:.6f}" for r in runs) + " s)")
+    log(f"[f64] N=256 steady wall-clock {steady:.6f} s (one run after the gate's)")
     return launches, steady, err, s.series.krylov_iters.tolist()
 
 
-def steady_in_turns(routes, dt, repeats=3):
+def steady_in_turns(routes, dt, repeats=1, cold=()):
     """``repeats`` timed runs of each ``{name: (trial, error[, run
-    kwargs])}`` after a warm-up of each, taken in turns (a, b, c, a, b, c,
-    ...) so that drift of the host falls on all alike; each run must repeat
-    its error."""
+    kwargs])}``, taken in turns (a, b, c, a, b, c, ...) so that drift of the
+    host falls on all alike; each run must repeat its error.  Each route has
+    run once for its gate, its warm-up; those in ``cold`` have not, and run
+    once more first."""
     import torch
 
     routes = {name: (r + ({},))[:3] for name, r in routes.items()}
-    for trial, _, run_kw in routes.values():
+    for name in cold:
+        trial, _, run_kw = routes[name]
         trial.run_for_errors(Tf=TF, dt=dt, **run_kw)
     runs = {name: [] for name in routes}
     for _ in range(repeats):
@@ -735,11 +743,11 @@ def phase_analytic(device, jvp_iters=None):
     trial_jvp, _ = make_trial(MAIN_N, torch.float64, device)
     routes = {"fused": (trial, err), "per-solve": (trial_ps, err_ps),
               "jvp": (trial_jvp, N256_F64_PORT)}
-    runs = steady_in_turns(routes, dt)
+    runs = steady_in_turns(routes, dt, cold=("jvp",))
     steady, steady_ps = min(runs["fused"]), min(runs["per-solve"])
     for name, times in runs.items():
-        log(f"[analytic] N=256 {name} steady wall-clock {min(times):.6f} s (min of 3 after a "
-            "warm-up, the routes run in turns; runs " + ", ".join(f"{r:.6f}" for r in times) + " s)")
+        log(f"[analytic] N=256 {name} steady wall-clock {min(times):.6f} s (one run after a "
+            "warm-up, the routes run in turns)")
 
     # float32, fused
     kernels.reset_launch_counts()
@@ -945,8 +953,8 @@ def phase_expsin(device):
 
     runs = steady_in_turns({"jvp": (trial, err), "analytic fused": (trial_an, err_an)}, dt)
     for name, times in runs.items():
-        log(f"[expsin] N={MAIN_N} {name} steady wall-clock {min(times):.6f} s (min of 3 after a warm-up, "
-            "the routes in turns; runs " + ", ".join(f"{r:.6f}" for r in times) + " s)")
+        log(f"[expsin] N={MAIN_N} {name} steady wall-clock {min(times):.6f} s (one run after the "
+            "gate's, the routes in turns)")
 
     steps = 5
     wall, found = profile_device(lambda: trial.run_for_errors(Tf=steps * dt, dt=dt))
@@ -1802,17 +1810,13 @@ def phase_three_d_f64(device):
     for name in ("bicgstab_solve", "stencil5_apply"):
         check(launches[name] == 0, f"the 3-D path launched the 2-D kernel {name}")
 
-    run_trial3(g, case, integ, Tf=TF3, dt=dt)  # warm-up
-    runs = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r2 = run_trial3(g, case, integ, Tf=TF3, dt=dt)
-        runs.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r2 = run_trial3(g, case, integ, Tf=TF3, dt=dt)
+    steady = time.perf_counter() - t0
     check(r2["error"] == err, "repeat 3-D run changed the error")
-    steady = min(runs)
-    log(f"[3d f64] N={N} steady wall-clock {steady:.6f} s (min of 3 after a warm-up; runs "
-        + ", ".join(f"{x:.6f}" for x in runs) + f" s; {1e3 * steady / nsteps:.3f} ms a step)")
+    log(f"[3d f64] N={N} steady wall-clock {steady:.6f} s (one run after the gate's; "
+        f"{1e3 * steady / nsteps:.3f} ms a step)")
     return launches, steady, err
 
 
@@ -2098,12 +2102,12 @@ def phase_production(device):
     del tabled, exact
 
     dt = (1.0 / MAIN_N) ** 1.5
-    runs = steady_in_turns(routes, dt, repeats=2)
+    runs = steady_in_turns(routes, dt)
     steady = {}
     for mode, times in runs.items():
         steady[mode] = min(times)
-        log(f"[production] {mode} steady wall-clock {min(times):.6f} s (min of 2 after a "
-            "warm-up, the modes in turns; runs " + ", ".join(f"{r:.6f}" for r in times) + " s)")
+        log(f"[production] {mode} steady wall-clock {min(times):.6f} s (one run after the "
+            "gate's, the modes in turns)")
 
     steps = 5
     for mode in ("mixed_fast", "f64 + tables"):
@@ -2182,16 +2186,15 @@ def phase_mixed3(device, err64=None):
     for name in ("bicgstab_solve", "stencil5_apply", "triple_solve"):
         check(launches[name] == 0, f"the 3-D mixed path launched the 2-D kernel {name}")
     runs = {"f64": [], "mixed": []}
-    for _ in range(2):
-        for name, (g_, c_, i_) in (("f64", (g64, case64, integ64)), ("mixed", (g, case, integ))):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            r_ = run_trial3(g_, c_, i_, Tf=TF3, dt=dt)
-            runs[name].append(time.perf_counter() - t0)
-            check(r_["error"] == (err if name == "mixed" else err64), f"repeat 3-D {name} changed")
+    for name, (g_, c_, i_) in (("f64", (g64, case64, integ64)), ("mixed", (g, case, integ))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r_ = run_trial3(g_, c_, i_, Tf=TF3, dt=dt)
+        runs[name].append(time.perf_counter() - t0)
+        check(r_["error"] == (err if name == "mixed" else err64), f"repeat 3-D {name} changed")
     for name, times in runs.items():
-        log(f"[mixed3] N={N} {name} steady wall-clock {min(times):.6f} s (min of 2 after a run, "
-            "in turns; runs " + ", ".join(f"{x:.6f}" for x in times) + " s)")
+        log(f"[mixed3] N={N} {name} steady wall-clock {min(times):.6f} s (one run after its "
+            "gate's, in turns)")
     return launches32, min(runs["mixed"]), err
 
 
@@ -2381,7 +2384,7 @@ def check_norms(label, got, ref, rtol=MODELLER_RTOL):
     check(worst <= rtol, f"{label}: H-norms off CPU-x64")
 
 
-def steady_calls(fn, repeats=3):
+def steady_calls(fn, repeats=1):
     """Host-clock seconds of ``repeats`` calls of ``fn`` after a warm-up,
     each ending in a synchronisation."""
     import torch
@@ -2448,8 +2451,8 @@ def phase_simulate(device):
         f"{n_launch / steps:.0f} launches a step")
     runs = steady_calls(lambda: simulate(integ, g, s0, dt=RELEASE_DT, num_steps=RELEASE_STEPS))
     steady = min(runs)
-    log(f"[simulate] steady wall-clock {steady:.6f} s for {RELEASE_STEPS} steps (min of 3 after "
-        "a warm-up; runs " + ", ".join(f"{r:.6f}" for r in runs) + " s)")
+    log(f"[simulate] steady wall-clock {steady:.6f} s for {RELEASE_STEPS} steps (one run after "
+        "a warm-up)")
     del fin, snaps
     return launches, steady, phase_simulate3(device)
 
@@ -2528,8 +2531,8 @@ def phase_adaptive(device):
     check(abs(info["t"] - ref["info"]["t"]) <= 1e-15, "adaptive: final t off CPU-x64")
     check(launches["bicgstab_solve"] == 3 * attempts, "adaptive: K1 launches")
     check_norms("adaptive", h_norms(LOCAL_OPS, g, s), ref["final_norms"])
-    runs = steady_calls(lambda: simulate_adaptive(integ, g, s0, **ADAPTIVE), repeats=2)
-    log(f"[adaptive] steady wall-clock {min(runs):.6f} s (min of 2 after a warm-up)")
+    runs = steady_calls(lambda: simulate_adaptive(integ, g, s0, **ADAPTIVE))
+    log(f"[adaptive] steady wall-clock {min(runs):.6f} s (one run after a warm-up)")
     return launches, min(runs)
 
 
@@ -2758,16 +2761,16 @@ def phase_gradients(device):
         base = torch.cuda.memory_allocated()
         value_and_grad()
         peak = torch.cuda.max_memory_allocated() - base
-        runs = steady_calls(value_and_grad, repeats=2)
+        runs = steady_calls(value_and_grad)
         timings[remat] = (min(runs), peak)
-        log(f"[gradients] value-and-grad, remat={remat}: {min(runs):.6f} s (min of 2 after a "
+        log(f"[gradients] value-and-grad, remat={remat}: {min(runs):.6f} s (one run after a "
             f"warm-up), peak memory above the inputs {peak / 1e6:.1f} MB")
 
     def forward():
         with torch.no_grad():
             return dissolved_drug_fraction(LOCAL_OPS, g, sim(release_leaves(RELEASE_BASE, device), s0))
 
-    fwd = min(steady_calls(forward, repeats=2))
+    fwd = min(steady_calls(forward))
     log(f"[gradients] one forward (no grad) {fwd:.6f} s; value-and-grad / forward "
         f"{timings[True][0] / fwd:.2f} (remat), {timings[False][0] / fwd:.2f} (stored)")
 
@@ -2867,9 +2870,9 @@ def phase_direct(device):
           "direct: launches (0 K1, 123 K2 for the verdicts)")
     trial_k, _ = make_trial(MAIN_N, torch.float64, device)
     err_k = trial_k.run_for_errors(Tf=TF, dt=dt).overall_combined_error
-    runs = steady_in_turns({"direct": (trial, err), "krylov": (trial_k, err_k)}, dt, repeats=2)
+    runs = steady_in_turns({"direct": (trial, err), "krylov": (trial_k, err_k)}, dt)
     log(f"[direct] steady wall-clock in turns: direct {min(runs['direct']):.6f} s, Krylov "
-        f"{min(runs['krylov']):.6f} s (min of 2 after a warm-up)")
+        f"{min(runs['krylov']):.6f} s (one run after the gate's)")
     return launches, min(runs["direct"]), min(runs["krylov"]), err
 
 
@@ -3072,9 +3075,10 @@ def phase_batched(device):
     their plain versions and against the unbatched kernels on the ladder's
     step-1 stacks and on edge-case stacks; the main path with its launch
     counts (the finest level's 41 steps: 123 K1 and 123 K2); every level
-    against CPU-x64 (1e-8) and the port's serial ladder on the card (1e-10);
-    the batched and serial ladders' steady wall-clock in turns; five batched
-    steps under the profiler; the timing rows at 8 x 257^2."""
+    against CPU-x64 (1e-8) and the port's serial ladder on the card (1e-10;
+    the serial ladder runs once, untimed: its wall-clock, 3.71-5.14 s, is
+    on record in PERF.md); the batched ladder's steady wall-clock; five
+    batched steps under the profiler; the timing rows at 8 x 257^2."""
     import torch
 
     from na_dd_tpu_torch.harness.batched_ladder import (
@@ -3107,10 +3111,11 @@ def phase_batched(device):
     for name in ("bicgstab_solve3", "stencil7_apply", "triple_solve"):
         check(launches[name] == 0, f"the batched 2-D ladder launched {name}")
 
-    # the serial ladder on the card: its trials, built once, then run
-    serial = {N: make_study_trial(N, torch.float64, device) for N in res["Ns"]}
-    serial_err = {N: tr.run_for_errors(Tf=TF, dt=dt).overall_combined_error
-                  for N, (tr, dt) in serial.items()}
+    # the serial ladder on the card, once and untimed
+    serial_err = {}
+    for N in res["Ns"]:
+        tr, dt = make_study_trial(N, torch.float64, device)
+        serial_err[N] = tr.run_for_errors(Tf=TF, dt=dt).overall_combined_error
     for N, err in zip(res["Ns"], res["errors"]):
         ref = POL_SPATIAL_CPU_X64[N]
         rel_x64, rel_s = abs(err - ref) / ref, abs(err - serial_err[N]) / serial_err[N]
@@ -3119,17 +3124,10 @@ def phase_batched(device):
         check(math.isfinite(err) and rel_x64 <= 1e-8, f"batched N={N} off the CPU-x64 value")
         check(rel_s <= 1e-10, f"batched N={N} off the serial ladder")
 
-    times = steady_pair({
-        "batched": ladder["run"],
-        "serial": lambda: [tr.run_for_errors(Tf=TF, dt=dt) for tr, dt in serial.values()],
-    }, repeats=1)
+    times = steady_pair({"batched": ladder["run"]}, repeats=1)
     steady = {k: min(v) for k, v in times.items()}
-    log("[batched] steady wall-clock in turns (one run after a warm-up): batched ladder "
-        f"{steady['batched']:.6f} s (runs {', '.join(f'{x:.6f}' for x in times['batched'])}), "
-        f"serial ladder {steady['serial']:.6f} s (runs "
-        f"{', '.join(f'{x:.6f}' for x in times['serial'])}); serial / batched "
-        f"{steady['serial'] / steady['batched']:.2f}")
-    del serial
+    log("[batched] steady wall-clock (one run after a warm-up): batched ladder "
+        f"{steady['batched']:.6f} s")
 
     steps = 5
     per_step, idle = profile_batched("the batched pol ladder (8 x 257^2)", lambda: _simulate(
@@ -3148,8 +3146,9 @@ def phase_eta_batched(device):
     """The pol notebook's cell-13 sweep, 7 eta at N=32 and 20 steps, as ONE
     batch (run_eta_study_batched, which runs it twice as the JAX function
     does: 60 K1 and 60 K2 a run); every eta against CPU-x64 (1e-8) and the
-    port's serial sweep on the card (1e-10); steady wall-clock against the
-    serial sweep in turns."""
+    port's serial sweep on the card (1e-10; the serial sweep runs once,
+    untimed: its wall-clock, 8.46 s, is on record in PERF.md); the batched
+    sweep's steady wall-clock."""
     import torch
 
     from na_dd_tpu_torch.harness import studies
@@ -3169,12 +3168,12 @@ def phase_eta_batched(device):
         check(launches[name] == 2 * 3 * nsteps,
               f"{name} launched {launches[name]} times, expected 2 runs x {3 * nsteps}")
 
+    # the serial sweep on the card, once and untimed
     cfg, mc = studies.STUDIES["pol"], studies.study_consts("pol")
     dt = 5e-4  # the sweep's (notebook cell 13)
-    trials = [studies._make_trial(MMSCasePol, 32, eta, mc=mc, dtype=torch.float64, device=device,
+    serial = [studies._make_trial(MMSCasePol, 32, eta, mc=mc, dtype=torch.float64, device=device,
                                   krylov_unroll=studies._study_unroll(cfg, 32, dt, mc))
-              for eta in res["etas"]]
-    serial = [tr.run_for_errors(Tf=0.01, dt=dt).overall_combined_error for tr in trials]
+              .run_for_errors(Tf=0.01, dt=dt).overall_combined_error for eta in res["etas"]]
     for eta, err, ref, s in zip(res["etas"], res["errors"], ETA_BATCHED_CPU_X64, serial):
         rel_x64, rel_s = abs(err - ref) / ref, abs(err - s) / s
         log(f"[eta batched] eta={eta:g}: error {err!r}, vs CPU-x64 rel {rel_x64:.3e} (limit "
@@ -3183,14 +3182,10 @@ def phase_eta_batched(device):
         check(rel_s <= 1e-10, f"eta={eta} off the serial run")
 
     sweep = studies.build_eta_study_batched("pol", device=device)
-    times = steady_pair({
-        "batched": sweep["run"],
-        "serial": lambda: [tr.run_for_errors(Tf=0.01, dt=dt) for tr in trials],
-    }, repeats=1)
+    times = steady_pair({"batched": sweep["run"]}, repeats=1)
     steady = {k: min(v) for k, v in times.items()}
-    log(f"[eta batched] steady wall-clock in turns (one run after a warm-up): batched {steady['batched']:.6f} s, "
-        f"serial {steady['serial']:.6f} s; serial / batched "
-        f"{steady['serial'] / steady['batched']:.2f}")
+    log(f"[eta batched] steady wall-clock (one run after a warm-up): batched "
+        f"{steady['batched']:.6f} s")
 
     # K1 on the sweep's step-1 T stack (7 x 33^2: one grid, seven states)
     from na_dd_tpu_torch.integrators.pc_trapezoidal import _one_shape
@@ -3215,9 +3210,10 @@ def phase_batched3(device):
     the batched K5/K6 against their plain versions and the unbatched kernels
     on its step-1 stacks and on edge-case stacks; the main path (the finest
     level's 32 steps: 192 K5 and 192 K6); every level against CPU-x64 (1e-8),
-    every solve converged; steady wall-clock against the serial run_trial3
-    ladder in turns; five batched steps under the profiler; the timing rows
-    at 5 x 65^3."""
+    every solve converged; the batched ladder's steady wall-clock (the
+    serial run_trial3 ladder's, 10.41-11.30 s, is on record in PERF.md and
+    is no longer run); five batched steps under the profiler; the timing
+    rows at 5 x 65^3."""
     import torch
 
     from na_dd_tpu_torch.models.coefficients import Model02
@@ -3227,7 +3223,6 @@ def phase_batched3(device):
         build_spatial_ladder3_batched,
         run_spatial_ladder3_batched,
     )
-    from na_dd_tpu_torch.three_d.harness import run_trial3
     from na_dd_tpu_torch.three_d.mms import MMSCaseExpSin3
     from na_dd_tpu_torch.three_d.shifts import BATCHED_OPS3
 
@@ -3259,19 +3254,10 @@ def phase_batched3(device):
         log(f"[batched3] N={N}: error {err!r}, vs CPU-x64 {ref!r} rel {rel:.3e} (limit 1e-8)")
         check(math.isfinite(err) and rel <= 1e-8, f"batched 3-D N={N} off the CPU-x64 value")
 
-    serial = {N: make_trial3(N, torch.float64, device) for N in res["Ns"]}
-    times = steady_pair({
-        "batched": ladder["run"],
-        "serial": lambda: [run_trial3(g, case, integ, Tf=TF3, dt=dt3(N))
-                           for N, (g, case, integ) in serial.items()],
-    }, repeats=1)
+    times = steady_pair({"batched": ladder["run"]}, repeats=1)
     steady = {k: min(v) for k, v in times.items()}
-    log("[batched3] steady wall-clock in turns (one run after a warm-up): batched ladder "
-        f"{steady['batched']:.6f} s (runs {', '.join(f'{x:.6f}' for x in times['batched'])}), "
-        f"serial run_trial3 ladder {steady['serial']:.6f} s (runs "
-        f"{', '.join(f'{x:.6f}' for x in times['serial'])}); serial / batched "
-        f"{steady['serial'] / steady['batched']:.2f}")
-    del serial
+    log(f"[batched3] steady wall-clock (one run after a warm-up): batched ladder "
+        f"{steady['batched']:.6f} s")
 
     steps = 5
     integ, grid, case = ladder["integrator"], ladder["grid"], ladder["case"]
@@ -3541,9 +3527,9 @@ def phase_while_form(device):
     steady, runs, _ = turns({
         "while": lambda: trial.run_for_errors(Tf=TF, dt=dt),
         "default": lambda: trial_d.run_for_errors(Tf=TF, dt=dt),
-    }, repeats=2)
+    })
     log(f"[while] steady wall-clock in turns: while form {steady['while']:.6f} s, default budget "
-        f"{steady['default']:.6f} s (min of 2; runs {runs})")
+        f"{steady['default']:.6f} s (runs {runs})")
     return dict(launches=launches, err=err, steady=steady, row=row, pair=pair)
 
 
@@ -3579,9 +3565,9 @@ def phase_matrix_free(device):
     steady, runs, _ = turns({
         "matrix_free": lambda: trial.run_for_errors(Tf=steps * dt, dt=dt),
         "analytic": lambda: trial_an.run_for_errors(Tf=steps * dt, dt=dt),
-    }, repeats=2)
+    })
     log(f"[matrix_free] steady wall-clock in turns: matrix-free {steady['matrix_free']:.6f} s, "
-        f"analytic planes {steady['analytic']:.6f} s (min of 2; runs {runs})")
+        f"analytic planes {steady['analytic']:.6f} s (runs {runs})")
     return dict(launches=launches, err=err, steady=steady)
 
 
@@ -4206,6 +4192,359 @@ def phase_batched_analytic(device, per_solve=None, eta_per_solve=None):
     return out
 
 
+# the parallel phase: the pol level N=255 (256 rows over 4 ranks; the main
+# level's 257 rows do not divide), 5 steps; the 2 x 2 checks; the ensemble
+PAR_N, PAR_STEPS, PAR_WORLD = 255, 5, 4
+PAR_SMALL_N, PAR_N3 = 15, 31
+PAR_ENSEMBLE = dict(study="pol", N=64, Tf=0.01, dt=5e-4)  # the JAX study's defaults
+PAR_BATCHES = (1, 8, 32, 128)  # the JAX study's batches; 128 runs as 4 parts of 32
+PAR_K1_B = 32  # the batch whose step-1 T stack the kernels line times (one K1 launch)
+PAR_DP_B = 8
+
+
+def par_gathered(ops, state):
+    from na_dd_tpu_torch.core.state import State
+
+    return State(*(ops.gather_full(v.detach()) for v in state))
+
+
+def par_counted(ops, fn):
+    """``fn()`` on this rank with the launch counts and the ops' traffic
+    set to 0 just before and read just after: (result, launches, traffic,
+    wall-clock s)."""
+    import torch
+
+    from na_dd_tpu_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    ops.stats.reset()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(kernels.LAUNCHES), dict(vars(ops.stats)), time.perf_counter() - t0
+
+
+def par_integrators(trial):
+    """The level's integrator and its ``precision="mixed"`` twin on the same
+    field (one MMS case built, not two)."""
+    integ = trial.integrator
+    mixed = type(integ)(trial.field, regularization_factor=ETA, track_residuals=False,
+                        krylov_unroll=integ.krylov_unroll, precision="mixed")
+    return {"step": integ, "mixed": mixed}
+
+
+def parallel_rank(rank, device, ckpt_dir, etas_dp):
+    """The body of each of the 4 ranks (gloo, every rank on the one card):
+    the sharded N=255 level on a (4,) x mesh (counted, then again warm),
+    saved as a sharded checkpoint; on a (2, 2) mesh the 2-D step, mixed,
+    direct and value-and-grad steps and 2 steps of ExpSin3 N=31; the
+    checkpoint read back by ranks 0 and 1 as a (2,) row layout; the
+    ensemble at dp=2 on ranks 0 and 1 (a sub-group, as the JAX study's
+    ``--dp`` takes the first devices).  Rank 0 returns the gathered
+    results; every rank its launch counts and traffic."""
+    import torch
+    import torch.distributed as dist
+
+    from na_dd_tpu_torch.core.state import State
+    from na_dd_tpu_torch.harness.checkpoint import load_state_sharded, save_state_sharded
+    from na_dd_tpu_torch.harness.ensemble import simulate_ensemble
+    from na_dd_tpu_torch.parallel import HaloOps, build_sharded_step, make_mesh
+    from na_dd_tpu_torch.parallel import shard_grid_and_state
+    from na_dd_tpu_torch.parallel.step import build_sharded_simulation
+    from na_dd_tpu_torch.three_d import HaloOps3
+    from na_dd_tpu_torch.three_d.harness import run_trial3
+    from na_dd_tpu_torch.three_d.mms import state_from_mms_when3
+
+    f64 = torch.float64
+    out, counts = {}, {}
+    trial, dt = make_trial(PAR_N, f64, device)
+    mesh = make_mesh((PAR_WORLD,), ("x",))
+    gs, ss = shard_grid_and_state(mesh, trial.grid, trial.initial_state)
+    sim = build_sharded_simulation(trial.integrator, mesh, mms_case=trial.mms_case,
+                                   num_steps=PAR_STEPS, t0=0.0, dt=dt)
+    (s_fin, errors), counts["level"], traffic, wall = par_counted(sim.ops, lambda: sim(gs, ss))
+    _, _, _, wall_warm = par_counted(sim.ops, lambda: sim(gs, ss))
+    out["level"] = dict(state=par_gathered(sim.ops, s_fin), errors=errors, wall=wall,
+                        wall_warm=wall_warm)
+    counts["level_traffic"] = traffic
+    save_state_sharded(ckpt_dir, s_fin, t=PAR_STEPS * dt, step=PAR_STEPS, ops=sim.ops)
+    if rank < 2:
+        layout = HaloOps(make_mesh((2,), ("x",), rank=rank), axis_x="x")
+        counts["ckpt2"] = load_state_sharded(ckpt_dir, ops=layout, device=device)[0]
+
+    mesh22 = make_mesh((2, 2), ("x", "y"))
+    t0 = torch.zeros((), dtype=f64, device=device)
+    g_b, s_b = shard_grid_and_state(mesh22, trial.grid, trial.initial_state, axis_x="x",
+                                    axis_y="y")
+    small_trial, dt_s = make_trial(PAR_SMALL_N, f64, device, linear_solver="direct")
+    cases = [(key, integ, g_b, s_b, dt) for key, integ in par_integrators(trial).items()]
+    cases.append(("direct", small_trial.integrator)
+                 + shard_grid_and_state(mesh22, small_trial.grid, small_trial.initial_state,
+                                        axis_x="x", axis_y="y") + (dt_s,))
+    for key, integ, g_k, s_k, dt_k in cases:
+        step = build_sharded_step(integ, mesh22, axis_x="x", axis_y="y")
+        (s1, small), counts[key], _, _ = par_counted(step.ops, lambda: step(g_k, s_k, t0, dt_k))
+        out[key] = dict(state=par_gathered(step.ops, s1), converged=small["krylov_converged"])
+
+    tr, dt_g = make_trial(PAR_SMALL_N, f64, device, differentiable=True)
+    g_b, s_b = shard_grid_and_state(mesh22, tr.grid, tr.initial_state, axis_x="x", axis_y="y")
+    leaves = State(*(v.clone().requires_grad_(True) for v in s_b))
+    step = build_sharded_step(tr.integrator, mesh22, axis_x="x", axis_y="y")
+
+    def value_and_grad():
+        s1, _small = step(g_b, leaves, t0, dt_g)
+        loss = torch.sum(s1.T * s1.T) + torch.sum(s1.cd)
+        loss.backward()
+        return step.ops.asum(loss.detach())
+
+    value, counts["grad"], _, _ = par_counted(step.ops, value_and_grad)
+    out["grad"] = dict(value=value, grads=State(*(step.ops.gather_full(v.grad) for v in leaves)))
+
+    g3, case3, integ3 = make_trial3(PAR_N3, f64, device)
+    hops3 = HaloOps3(mesh22, axis_x="x", axis_y="y")
+    g3b, _ = shard_grid_and_state(mesh22, g3, state_from_mms_when3(mms_case=case3, t=0.0, grid=g3),
+                                  axis_x="x", axis_y="y")
+    res, counts["sim3"], counts["sim3_traffic"], _ = par_counted(
+        hops3, lambda: run_trial3(g3b, case3, integ3, Tf=2 * dt3(PAR_N3), dt=dt3(PAR_N3),
+                                  ops=hops3))
+    out["sim3"] = dict(state=par_gathered(hops3, res["state"]), error=res["error"],
+                       converged=res["krylov_converged"])
+
+    pair = dist.new_group([0, 1])
+    if rank < 2:
+        out["ensemble"] = simulate_ensemble(etas_dp, mesh=make_mesh((2,), ("b",), group=pair),
+                                            device=device, **PAR_ENSEMBLE)
+    return dict(out if rank == 0 else {}, counts=counts)
+
+
+def par_check_state(label, got, ref, tol=1e-12):
+    d = max(float((a.to(b.device) - b).abs().max()) for a, b in zip(got, ref))
+    log(f"[parallel] {label}: max abs diff to the local run on the card {d:.3e} (limit {tol:g})")
+    check(d <= tol, f"parallel {label}: off the local run")
+    return d
+
+
+def par_check_errors(label, got, ref):
+    """Each error norm (the square root of each squared norm) to 1e-12 of
+    itself or 1e-15 absolute, the rounding floor of the O(1) state."""
+    worst = 0.0
+    for a, b in zip(got, ref):
+        for v in b:
+            ea = np.sqrt(np.asarray(a[v].cpu(), dtype=np.float64))
+            eb = np.sqrt(np.asarray(b[v].cpu(), dtype=np.float64))
+            worst = max(worst, float(np.max(np.abs(ea - eb) / np.maximum(eb, 1e-300))))
+            check(bool(np.all(np.abs(ea - eb) <= 1e-12 * eb + 1e-15)),
+                  f"parallel {label}: the {v} error norms are off the local run")
+    log(f"[parallel] {label}: error norms, max rel diff to the local run {worst:.3e} (limit "
+        "1e-12, or 1e-15 absolute)")
+
+
+def par_padded_block(full, rows, cols):
+    """The halo-padded block ``full[rows, cols]`` a rank gives the apply
+    kernel: one more line of its neighbours on each side of the first two
+    dimensions, zeros past the grid's edge."""
+    import torch.nn.functional as F
+
+    r0, r1 = rows
+    c0, c1 = cols
+    n0, n1 = full.shape[0], full.shape[1]
+    pad = [0, 0] * (full.dim() - 2)
+    core = full[max(r0 - 1, 0):min(r1 + 1, n0), max(c0 - 1, 0):min(c1 + 1, n1)]
+    return F.pad(core, pad + [int(c0 == 0), int(c1 == n1), int(r0 == 0), int(r1 == n0)]
+                 ).contiguous()
+
+
+def par_padded_planes(st, rows, cols):
+    """A stencil's planes of the block, zero in the halo."""
+    import torch.nn.functional as F
+
+    pad = [0, 0] * (st.c0.dim() - 2) + [1, 1, 1, 1]
+    return type(st)(*(F.pad(p[rows[0]:rows[1], cols[0]:cols[1]], pad).contiguous() for p in st))
+
+
+def phase_parallel(device):
+    """The parallel layer on the card: 4 gloo ranks, all on the one card
+    (the only multi-rank layout one card allows: this measures correctness,
+    not scaling).  The sharded pol level N=255 (5 steps; its K2 launches on
+    halo-padded blocks counted) against the port's local run on the card
+    (1e-12); on a 2 x 2 mesh the 2-D step, mixed, direct (N=15),
+    value-and-grad (N=15) and 2 steps of ExpSin3 N=31 (K6 on halo-padded
+    volumes), each against its local run on the card; the sharded
+    checkpoint saved by 4 ranks and restored on 2 and on 1 (bit for bit);
+    the ensemble at the JAX study's defaults, B = 1, 8, 32 (batched K1/K2;
+    a first run and one warm run each), and dp=2 (ranks 0 and 1) against
+    dp=1 at B = 8 (1e-13, equal iterations)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from na_dd_tpu_torch.core.state import State
+    from na_dd_tpu_torch.harness.checkpoint import load_state_sharded
+    from na_dd_tpu_torch.harness.ensemble import build_ensemble
+    from na_dd_tpu_torch.integrators.pc_trapezoidal import _one_shape
+    from na_dd_tpu_torch.ops.shifts import BATCHED_OPS, LOCAL_OPS
+    from na_dd_tpu_torch.parallel import run_ranks
+    from na_dd_tpu_torch.parallel.step import simulate_with_errors
+    from na_dd_tpu_torch.three_d.harness import run_trial3
+
+    f64 = torch.float64
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    etas_dp = np.linspace(20.0, 200.0, PAR_DP_B).tolist()
+    try:
+        t0 = time.perf_counter()
+        ranks = run_ranks(parallel_rank, PAR_WORLD, backend="gloo", device="cuda",
+                          args=(ckpt, etas_dp), timeout_s=600.0)
+        wall4 = time.perf_counter() - t0
+        whole, t_ck, step_ck = load_state_sharded(ckpt, device=device)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    r0 = ranks[0]
+    log(f"[parallel] 4 gloo ranks on one card: {wall4:.3f} s with the spawn")
+    for rank, r in enumerate(ranks):
+        c = r["counts"]
+        log(f"[parallel] rank {rank}: N={PAR_N} sharded level launches {c['level']}, traffic "
+            f"{c['level_traffic']}; 2x2 step {c['step']}, mixed {c['mixed']}, direct "
+            f"{c['direct']}, value-and-grad {c['grad']}, ExpSin3 N={PAR_N3} {c['sim3']}, "
+            f"traffic {c['sim3_traffic']}")
+        check(c["level"]["stencil5_apply"] > 0, f"rank {rank}: no K2 on halo-padded blocks")
+        check(c["level"]["bicgstab_solve"] == 0 and c["level"]["triple_solve"] == 0,
+              f"rank {rank}: a local solve kernel ran on a sharded level")
+        check(c["sim3"]["stencil7_apply"] > 0 and c["sim3"]["bicgstab_solve3"] == 0,
+              f"rank {rank}: the sharded 3-D steps should run K6 and no K5")
+    level = r0["level"]
+    per_step = {k: v / PAR_STEPS for k, v in ranks[0]["counts"]["level_traffic"].items()}
+    log(f"[parallel] N={PAR_N} sharded level, {PAR_STEPS} steps on 4 ranks: {level['wall']:.6f} s, "
+        f"warm {level['wall_warm']:.6f} s (rank 0's clock); a step on rank 0: {per_step['exchanges']:.1f} halo exchanges, "
+        f"{per_step['reductions']:.1f} all-reduces, {per_step['staged_bytes']:.0f} bytes staged "
+        "through pinned host memory")
+
+    # the local runs on the card
+    trial, dt = make_trial(PAR_N, f64, device)
+    t_loc = time.perf_counter()
+    local = simulate_with_errors(trial.integrator, trial.grid, LOCAL_OPS, trial.initial_state,
+                                 mms_case=trial.mms_case, num_steps=PAR_STEPS, t0=0.0, dt=dt)
+    torch.cuda.synchronize()
+    t_loc = time.perf_counter() - t_loc
+    t_warm = time.perf_counter()
+    simulate_with_errors(trial.integrator, trial.grid, LOCAL_OPS, trial.initial_state,
+                         mms_case=trial.mms_case, num_steps=PAR_STEPS, t0=0.0, dt=dt)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t_warm
+    log(f"[parallel] N={PAR_N} local level, {PAR_STEPS} steps: {t_loc:.6f} s, warm {t_warm:.6f} s")
+    par_check_state(f"N={PAR_N} sharded level (4 ranks)", level["state"], local[0])
+    s_err, l_err = level["errors"], local[1]
+    par_check_errors(f"N={PAR_N} sharded level", (s_err[0], s_err[1], *s_err[2][:2]),
+                     (l_err[0], l_err[1], *l_err[2][:2]))
+    z = torch.zeros((), dtype=f64, device=device)
+    small_trial, dt_s = make_trial(PAR_SMALL_N, f64, device, linear_solver="direct")
+    cases = [(key, integ, trial, dt, PAR_N) for key, integ in par_integrators(trial).items()]
+    cases.append(("direct", small_trial.integrator, small_trial, dt_s, PAR_SMALL_N))
+    for key, integ, tr, dt_k, N in cases:
+        ref, _ = integ.step_fn(tr.grid, LOCAL_OPS, tr.initial_state, z, dt_k)
+        check(bool(r0[key]["converged"]), f"parallel {key}: a solve missed its tolerance")
+        par_check_state(f"2x2 {key} (N={N})", r0[key]["state"], ref)
+    tr, dt_g = make_trial(PAR_SMALL_N, f64, device, differentiable=True)
+    leaves = State(*(v.clone().requires_grad_(True) for v in tr.initial_state))
+    s1, _ = tr.integrator.step_fn(tr.grid, LOCAL_OPS, leaves, z, dt_g)
+    loss = torch.sum(s1.T * s1.T) + torch.sum(s1.cd)
+    loss.backward()
+    value = float(loss.detach())
+    rel_v = abs(float(r0["grad"]["value"]) - value) / abs(value)
+    worst_g = 0.0
+    for a, b in zip(r0["grad"]["grads"], leaves):
+        a, b = a.to(device), b.grad
+        worst_g = max(worst_g, float(((a - b).abs() / (1e-10 * b.abs() + 1e-12)).max()))
+    log(f"[parallel] 2x2 value-and-grad (N={PAR_SMALL_N}): value rel diff {rel_v:.3e} (limit "
+        f"1e-12), gradients at {worst_g:.3e} of rtol 1e-10 + atol 1e-12 (limit 1)")
+    check(rel_v <= 1e-12 and worst_g <= 1.0, "parallel value-and-grad off the local one")
+    g3, case3, integ3 = make_trial3(PAR_N3, f64, device)
+    ref3 = run_trial3(g3, case3, integ3, Tf=2 * dt3(PAR_N3), dt=dt3(PAR_N3))
+    rel3 = abs(r0["sim3"]["error"] - ref3["error"]) / ref3["error"]
+    log(f"[parallel] 2x2 ExpSin3 N={PAR_N3}, 2 steps: error {r0['sim3']['error']!r} against "
+        f"{ref3['error']!r} locally, rel {rel3:.3e} (limit 1e-12)")
+    check(r0["sim3"]["converged"] and rel3 <= 1e-12, "parallel 3-D error off the local run")
+    par_check_state(f"2x2 ExpSin3 N={PAR_N3}", r0["sim3"]["state"], ref3["state"])
+
+    # the checkpoint: written by 4 ranks, read by 2 and by 1, bit for bit
+    check((t_ck, step_ck) == (PAR_STEPS * dt, PAR_STEPS), "checkpoint t/step not as saved")
+    for rank in (0, 1):
+        rows = slice(rank * (PAR_N + 1) // 2, (rank + 1) * (PAR_N + 1) // 2)
+        block = ranks[rank]["counts"]["ckpt2"]
+        check(all(torch.equal(a.cpu(), b[rows].cpu()) for a, b in zip(block, level["state"])),
+              f"checkpoint block of rank {rank} of 2 is not the saved rows")
+    check(all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(whole, level["state"])),
+          "checkpoint restored on one rank is not the saved state")
+    log("[parallel] checkpoint saved by 4 ranks restored bit for bit on 2 and on 1")
+
+    # the ensemble at the JAX study's defaults
+    ens_rows, dp1 = {}, None
+    for B in PAR_BATCHES:
+        build = build_ensemble(np.linspace(20.0, 200.0, B).tolist(), device=device,
+                               **PAR_ENSEMBLE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (s_e, it_e), launches_e, _ = counted(build["run"])
+        first = time.perf_counter() - t0
+        steady = turns({"run": build["run"]})[0]["run"]
+        check(all(bool(v.isfinite().all()) for v in s_e), f"ensemble B={B}: non-finite state")
+        n_parts = len(build["parts"])
+        check(launches_e["bicgstab_solve"] == 3 * build["num_steps"] * n_parts,
+              f"ensemble B={B}: {launches_e['bicgstab_solve']} K1 launches, expected one a "
+              f"solve of each of its {n_parts} parts")
+        ens_rows[B] = dict(first=first, steady=steady, launches=launches_e, build=build)
+        log(f"[ensemble] pol N={PAR_ENSEMBLE['N']} steps={build['num_steps']} budget "
+            f"{build['budget']} B={B:3d}: steady {steady:.6f} s, {B / steady:.3f} sims/s, per-sim "
+            f"{1e3 * steady / B:.3f} ms (first run {first:.6f} s; launches {launches_e})")
+        if B == PAR_DP_B:
+            dp1 = (s_e, it_e)
+    s_dp, it_dp = r0["ensemble"]
+    d_dp = max(float((a.to(device) - b).abs().max()) for a, b in zip(s_dp, dp1[0]))
+    same_it = torch.equal(it_dp.to(device), dp1[1])
+    log(f"[ensemble] dp=2 against dp=1 at B={PAR_DP_B}: max abs diff {d_dp:.3e} (limit 1e-13; "
+        f"bit for bit: {d_dp == 0.0}), per-member iterations equal: {same_it}")
+    check(d_dp <= 1e-13 and same_it, "the dp=2 ensemble is off the dp=1 one")
+
+    # the kernels on this path at its shapes: K2 on a rank's halo-padded
+    # block of the N=255 level, K6 on a 2x2 block of ExpSin3 N=31, batched
+    # K1 on the B=32 ensemble's step-1 T stack
+    systems, _inner = step1_systems(f64, device, N=PAR_N)
+    st, b, _mask = systems[0]
+    rows = ((PAR_N + 1) // PAR_WORLD, 2 * (PAR_N + 1) // PAR_WORLD)
+    cols = (0, PAR_N + 1)
+    row_k2 = apply_row(par_padded_planes(st, rows, cols), par_padded_block(b, rows, cols),
+                       f"f64 {rows[1] - rows[0] + 2}x{PAR_N + 3} halo-padded block")
+    sys3, _ = step1_systems3(PAR_N3, f64, device)
+    st3, b3, _m3 = sys3[0]
+    half = (PAR_N3 + 1) // 2
+    row_k6 = apply_row(par_padded_planes(st3, (0, half), (0, half)),
+                       par_padded_block(b3, (0, half), (0, half)),
+                       f"f64 {half + 2}x{half + 2}x{PAR_N3 + 1} halo-padded block")
+    build = ens_rows[PAR_K1_B]["build"]
+    integ = build["parts"][0]["integrator"]
+    rec = integ.solver = RecordingSolver(integ.solver)
+    integ.step_fn(build["grid"], BATCHED_OPS, build["parts"][0]["state"], z, build["dt"])
+    integ.solver = rec.inner
+    st_e, b_e, mask_e = _one_shape(*rec.systems[0])
+    err_k1, _ = compare_batched_solve(st_e, b_e, jacobi(st_e, mask_e), mask_e, tol=1e-13,
+                                      iters=rec.inner.iters, xtol=1e-12,
+                                      label=f"f64 {tuple(b_e.shape)} ensemble step-1 T")
+    row_k1 = solve_row(st_e, b_e, mask_e, tol=1e-13, iters=rec.inner.iters,
+                       label=f"f64 {tuple(b_e.shape)} ensemble")
+    row_k1["max_abs_err"] = err_k1
+    total = {name: sum(r["counts"][key][name] for r in ranks)
+             for key, name in (("level", "stencil5_apply"), ("sim3", "stencil7_apply"))}
+    return dict(
+        rows=dict(k2=row_k2, k6=row_k6, k1=row_k1),
+        launches=dict(k2={"stencil5_apply": total["stencil5_apply"]},
+                      k6={"stencil7_apply": total["stencil7_apply"]},
+                      k1=ens_rows[PAR_K1_B]["launches"]),
+        level_wall=level["wall_warm"], local_wall=t_warm, per_step=per_step,
+        ensemble={B: (r["steady"], B / r["steady"]) for B, r in ens_rows.items()},
+    )
+
+
 def ptxas_rows(text: str):
     """(kernel, registers, stack frame bytes, spill store bytes, spill load
     bytes) of each entry function in nvcc's ``-Xptxas -v`` report."""
@@ -4242,7 +4581,7 @@ PHASES = ("k2", "k1", "k3", "k4", "slice", "f32", "analytic", "scale", "timings"
           "variants3", "production", "mixed3", "timings_mixed", "simulate", "adaptive",
           "checkpoint", "gradients", "direct", "fit", "batched", "eta_batched", "batched3",
           "eta3", "probe", "while_form", "matrix_free", "probe3", "direct3", "heat3", "gradients3",
-          "batched_mixed", "batched_analytic")
+          "batched_mixed", "batched_analytic", "parallel")
 
 
 def main(argv=None) -> int:
@@ -4339,6 +4678,7 @@ def main(argv=None) -> int:
     phase("batched_analytic", phase_batched_analytic, device,
           done["batched"]["errors"] if "batched" in done else None,
           done["eta_batched"]["errors"] if "eta_batched" in done else None)
+    phase("parallel", phase_parallel, device)
     if set(only) != set(PHASES):
         log(f"[done] phases {only}; total {time.perf_counter() - t_all:.1f} s (no result line)")
         return 0
@@ -4360,7 +4700,7 @@ def main(argv=None) -> int:
     bl, be, bl3, be3 = done["batched"], done["eta_batched"], done["batched3"], done["eta3"]
     pr, wf, mf, p3 = done["probe"], done["while_form"], done["matrix_free"], done["probe3"]
     d3, h3, g3, bm = done["direct3"], done["heat3"], done["gradients3"], done["batched_mixed"]
-    ba = done["batched_analytic"]
+    ba, par = done["batched_analytic"], done["parallel"]
     pk = "na_dd_tpu/ops/pallas_kernels.py"
     entries = []
     # (wrapper, source, TPU kernel, shape, error against the plain version,
@@ -4427,6 +4767,17 @@ def main(argv=None) -> int:
          ba["rows"]["f32"]["max_abs_err"], ba["mixed"]["launches32"], ba["rows"]["f32"]),
         ("triple_solve", "triple_solve", f"{pk}:263", "7x33x33 (batched fused eta sweep)",
          ba["rows"]["eta"]["max_abs_err"], ba["eta"]["launches"], ba["rows"]["eta"]),
+        # the parallel layer: K2/K6 on halo-padded blocks (every rank's
+        # launches), batched K1 in the ensemble
+        ("stencil5_apply", "stencil5", f"{pk}:523",
+         f"{(PAR_N + 1) // PAR_WORLD + 2}x{PAR_N + 3} (halo-padded block, {PAR_WORLD} ranks)",
+         par["rows"]["k2"]["max_abs_err"], par["launches"]["k2"], par["rows"]["k2"]),
+        ("stencil7_apply", "stencil7", f"{pk}:615",
+         f"{(PAR_N3 + 1) // 2 + 2}x{(PAR_N3 + 1) // 2 + 2}x{PAR_N3 + 1} (halo-padded block, 2x2)",
+         par["rows"]["k6"]["max_abs_err"], par["launches"]["k6"], par["rows"]["k6"]),
+        ("bicgstab_solve", "bicgstab", f"{pk}:342",
+         f"{PAR_K1_B}x{PAR_ENSEMBLE['N'] + 1}x{PAR_ENSEMBLE['N'] + 1} (ensemble)",
+         par["rows"]["k1"]["max_abs_err"], par["launches"]["k1"], par["rows"]["k1"]),
     ):
         entries.append({
             "name": name, "route": "cuda", "source": f"na_dd_tpu_torch/csrc/{src}.cu",
@@ -4446,11 +4797,11 @@ def main(argv=None) -> int:
         f"{steady_ad:.6f} s, forward {fwd_time:.6f} s, value-and-grad {grad_times[True][0]:.6f} s "
         f"({launches_grad['bicgstab_solve']} K1); pol N=256 direct {steady_direct:.6f} s against "
         f"Krylov {steady_krylov:.6f} s, error {err_direct!r}; batched pol ladder "
-        f"{bl['steady']['batched']:.6f} s against serial {bl['steady']['serial']:.6f} s "
+        f"{bl['steady']['batched']:.6f} s "
         f"({bl['per_step']:.0f} launches a step, idle {bl['idle']:.2f} %); batched eta sweep "
-        f"{be['steady']['batched']:.6f} s against serial {be['steady']['serial']:.6f} s; "
-        f"batched 3-D ladder {bl3['steady']['batched']:.6f} s against serial "
-        f"{bl3['steady']['serial']:.6f} s ({bl3['per_step']:.0f} launches a step, idle "
+        f"{be['steady']['batched']:.6f} s; "
+        f"batched 3-D ladder {bl3['steady']['batched']:.6f} s "
+        f"({bl3['per_step']:.0f} launches a step, idle "
         f"{bl3['idle']:.2f} %); 3-D eta sweep {be3['wall']:.6f} s; probed planes "
         f"{pr['steady']['probe']:.6f} s against analytic {pr['steady']['analytic']:.6f} s; while "
         f"form {wf['steady']['while']:.6f} s; matrix-free N=64 {mf['steady']['matrix_free']:.6f} "
@@ -4460,8 +4811,11 @@ def main(argv=None) -> int:
         f"mixed {bm['2d']['steady']['mixed']:.6f} s / {bm['3d']['steady']['mixed']:.6f} s; "
         f"fused batched ladder {ba['steady']['fused']:.6f} s against per-solve "
         f"{ba['steady']['per_solve']:.6f} s, fused eta sweep {ba['steady']['fused eta']:.6f} s "
-        f"against {ba['steady']['per_solve eta']:.6f} s; "
-        f"total {time.perf_counter() - t_all:.1f} s")
+        f"against {ba['steady']['per_solve eta']:.6f} s; sharded N={PAR_N} level "
+        f"{par['level_wall']:.6f} s on {PAR_WORLD} ranks of one card against "
+        f"{par['local_wall']:.6f} s locally; ensemble "
+        + ", ".join(f"B={B} {t:.6f} s ({r:.3f} sims/s)" for B, (t, r) in par["ensemble"].items())
+        + f"; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -71,6 +71,16 @@ Each Newton solve is then one launch of the batched kernel for all B
 systems, and a fused sweep one launch of the batched triple solve (each
 system with its own dt, scalars and verdicts).
 
+Every backend's ``solve`` takes the step's ops provider, which owns what
+differs under domain decomposition (``ops.sharded``: one rank's block, the
+provider a ``HaloOps``/``HaloOps3``): there the Krylov solves become the
+all-reduced Jacobi-BiCGStab of :func:`~na_dd_tpu_torch.ops.linsolve.bicgstab_ops`
+(its matvec ``ops.matvec``, K2/K6 on the halo-padded block; no single
+kernel can hold a sum across ranks), the direct solves the replicated ones,
+every verdict an all-reduced sum; the fused triple solve stays local-only,
+as in the JAX package, so analytic couplings solve one system at a time
+there.
+
 The step is dimension-agnostic: the
 3-D integrators (:mod:`na_dd_tpu_torch.three_d.integrator`) override only
 :meth:`PCTrapezoidalBase._newton_planes` and the ops provider of the eager
@@ -94,6 +104,7 @@ from na_dd_tpu_torch.ops.grid import Grid
 from na_dd_tpu_torch.ops.shifts import LOCAL_OPS, Ops
 from na_dd_tpu_torch.three_d import direct_solve as direct_solve3
 from na_dd_tpu_torch.three_d.diffusion import Stencil7
+from na_dd_tpu_torch.three_d.shifts import LOCAL_OPS3
 
 
 class HCsCorrectorPositivityError(ValueError):
@@ -149,7 +160,9 @@ class KrylovBackend:
     :class:`~na_dd_tpu_torch.three_d.diffusion.Stencil7`.  Each launches its
     Hopper kernel for CUDA tensors and runs its plain twin for CPU tensors;
     the diagonal of the planes (``c0``) is exact, so the Jacobi
-    preconditioner is ``1/c0`` on the interior and 0 elsewhere.
+    preconditioner is ``1/c0`` on the interior and 0 elsewhere.  On a
+    sharded block (``ops.sharded``) the solve is
+    :func:`~na_dd_tpu_torch.ops.linsolve.bicgstab_ops` with the same budget.
     """
 
     def __init__(self, *, iters: int, tol: float | None = None):
@@ -171,10 +184,17 @@ class KrylovBackend:
             return kernels.bicgstab_solve3, kernels.stencil7_apply
         return kernels.bicgstab_solve, kernels.stencil5_apply
 
-    def solve(self, st, rhs, mask, noise_sq=0.0):
-        """``st·x = rhs·mask`` on the interior; returns ``(x, info)``.
-        ``noise_sq`` (the rhs's squared rounding floor) is for the backends
-        that judge a true residual; this one's kernel judges its own."""
+    def solve(self, st, rhs, mask, noise_sq=0.0, ops=None):
+        """``st·x = rhs·mask`` on the interior of the arrays of ``ops`` (None:
+        the local provider of the stencil's dimension); returns ``(x,
+        info)``.  ``noise_sq`` (the rhs's squared rounding floor) is for the
+        backends that judge a true residual; this one's solve judges its
+        own."""
+        if ops is not None and ops.sharded:
+            return linsolve.bicgstab_ops(
+                ops, st, rhs * mask, self._inv_diag(st, mask), mask,
+                tol=self.tol_of(rhs.dtype), iters=self.iters,
+            )
         bicgstab, _ = self._kernels(st)
         st, rhs, mask = _one_shape(st, rhs, mask)
         x, info = bicgstab(
@@ -247,25 +267,42 @@ def _triple_info(info3, k, keys=("iters", "resnorm_sq", "converged")):
     return out
 
 
-def _true_verdict(r, b, iters, noise_sq, nd=2, tol=None):
+def _true_verdict(r, b, iters, noise_sq, nd=2, tol=None, total=None):
     """The verdict of a solve judged by its true residual ``r = (b − A·x)·m``
     (``nd`` spatial dimensions; per system of a batch):
     ``resnorm_sq ≤ max(tol²·‖b‖², noise_sq)`` with tol (None: the dtype's
     :func:`default_krylov_tol`) and ``noise_sq`` the rhs's squared rounding
-    floor."""
-    rsq = kernels.system_sum(r * r, nd)
+    floor.  ``total`` sums over a system (default: over the array, or each
+    system of a stack; ``ops.asum`` on a sharded block)."""
+    if total is None:
+        total = lambda u: kernels.system_sum(u, nd)  # noqa: E731
+    rsq = total(r * r)
     tol = default_krylov_tol(b.dtype) if tol is None else tol
-    floor = torch.clamp_min(tol * tol * kernels.system_sum(b * b, nd), noise_sq)
+    floor = torch.clamp_min(tol * tol * total(b * b), noise_sq)
     return {"iters": iters, "resnorm_sq": rsq, "converged": rsq <= floor}
 
 
-def _direct(st):
-    """(exact solve, apply) of the stencil's dimension: block cyclic
-    reduction over row blocks and K2 (2-D), over x-plane blocks and K6
-    (3-D)."""
+def _ops_of(ops, st):
+    """``ops``, or for None the local provider of the stencil's dimension."""
+    if ops is not None:
+        return ops
+    return LOCAL_OPS3 if isinstance(st, Stencil7) else LOCAL_OPS
+
+
+def _total(ops):
+    """The per-system sum of a true-residual verdict: all-reduced on a
+    sharded block, else over each system (None)."""
+    return ops.asum if ops.sharded else None
+
+
+def _direct_ops(st):
+    """The exact solve ``(ops, st, b, mask) -> x`` of the stencil's
+    dimension: block cyclic reduction over row blocks (2-D) or x-plane
+    blocks (3-D); on the local ops that solve, on a sharded block the
+    replicated one."""
     if isinstance(st, Stencil7):
-        return direct_solve3.stencil7_solve_direct, kernels.stencil7_apply
-    return direct_solve.stencil5_solve_direct, kernels.stencil5_apply
+        return direct_solve3.stencil7_solve_direct_ops
+    return direct_solve.stencil5_solve_direct_ops
 
 
 class DirectBackend:
@@ -277,20 +314,22 @@ class DirectBackend:
     :func:`kernels.stencil5_apply` / :func:`kernels.stencil7_apply` (K2/K6 on
     CUDA tensors), as the JAX package's ``solve_direct`` gives it, to ``tol``
     (None: the dtype's default).  ``info["iters"]`` is 1.  One system: a
-    batch takes the Krylov solver."""
+    batch takes the Krylov solver.  On a sharded block the solve is the
+    replicated one and the verdict's apply and sums those of ``ops``."""
 
     def __init__(self, *, tol: float | None = None):
         self.tol = tol
 
-    def solve(self, st, rhs, mask, noise_sq=0.0):
+    def solve(self, st, rhs, mask, noise_sq=0.0, ops=None):
+        ops = _ops_of(ops, st)
         b = rhs * mask
         nd = _ndim(st)
         if b.dim() != nd:
             raise ValueError("DirectBackend: one system; a batch takes the Krylov solver")
-        solve, apply = _direct(st)
-        x = solve(st, b, mask)
+        x = _direct_ops(st)(ops, st, b, mask)
         one = torch.ones((), dtype=torch.int32, device=b.device)
-        return x, _true_verdict((b - apply(st, x)) * mask, b, one, noise_sq, nd, self.tol)
+        r = (b - ops.matvec(st)(x)) * mask
+        return x, _true_verdict(r, b, one, noise_sq, nd, self.tol, _total(ops))
 
 
 class MixedBackend(KrylovBackend):
@@ -320,22 +359,30 @@ class MixedBackend(KrylovBackend):
     def _f32(st):
         return type(st)(*(p.to(torch.float32) for p in st))
 
-    def _inner(self, bicgstab, st32, r32, inv32, mask32):
+    def _inner(self, st32, r32, inv32, mask32, ops):
+        """One float32 inner solve: the stencil's solve kernel, or on a
+        sharded block the all-reduced BiCGStab."""
+        if ops.sharded:
+            return linsolve.bicgstab_ops(ops, st32, r32, inv32, mask32, tol=MIXED_INNER_TOL,
+                                         iters=self.iters)
+        bicgstab = self._kernels(st32)[0]
         return bicgstab(st32, r32, inv32, mask32, tol=MIXED_INNER_TOL, iters=self.iters)
 
-    def solve(self, st, rhs, mask, noise_sq=0.0):
-        bicgstab, apply = self._kernels(st)
-        st, rhs, mask = _one_shape(st, rhs, mask)
+    def solve(self, st, rhs, mask, noise_sq=0.0, ops=None):
+        ops = _ops_of(ops, st)
+        if not ops.sharded:
+            st, rhs, mask = _one_shape(st, rhs, mask)
         f32 = torch.float32
         st32 = self._f32(st)
         # the f64 inverse diagonal, downcast (not the inverse of the f32 planes)
         inv32 = self._inv_diag(st, mask).to(f32)
         mask32 = mask.to(f32)
+        apply, total = ops.matvec(st), _total(ops)
         b = rhs * mask
         x = torch.zeros_like(b)
         for k in range(self.refine + 1):
-            r = b if k == 0 else (b - apply(st, x)) * mask
-            e32, info = self._inner(bicgstab, st32, r.to(f32), inv32, mask32)
+            r = b if k == 0 else (b - apply(x)) * mask
+            e32, info = self._inner(st32, r.to(f32), inv32, mask32, ops)
             x = x + e32.to(b.dtype) * mask
             iters = info["iters"] if k == 0 else iters + info["iters"]
         if not self.final_check:
@@ -344,7 +391,8 @@ class MixedBackend(KrylovBackend):
                 "resnorm_sq": info["resnorm_sq"].to(b.dtype),
                 "converged": info["converged"],
             }
-        return x, _true_verdict((b - apply(st, x)) * mask, b, iters, noise_sq, _ndim(st), self.tol)
+        return x, _true_verdict((b - apply(x)) * mask, b, iters, noise_sq, _ndim(st), self.tol,
+                                total)
 
     def solve_triple(
         self, J_T, J_cl, J_cd, C_clT, C_cdT, d_cdcl, rhs_T, base_cl, base_cd, mask, dt,
@@ -414,8 +462,8 @@ class DirectMixedBackend(MixedBackend):
     epsilon a pass with no iteration budget; its own verdict is "converged"
     with 1 iteration, as in the JAX package."""
 
-    def _inner(self, bicgstab, st32, r32, inv32, mask32):
-        x32 = _direct(st32)[0](st32, r32, mask32)
+    def _inner(self, st32, r32, inv32, mask32, ops):
+        x32 = _direct_ops(st32)(ops, st32, r32, mask32)
         return x32, {
             "iters": torch.ones((), dtype=torch.int32, device=r32.device),
             "resnorm_sq": torch.zeros((), dtype=r32.dtype, device=r32.device),
@@ -613,7 +661,7 @@ class PCTrapezoidalBase:
         plane adjoint, whose transposed solve runs on the probed planes."""
         mask = g.interior_mask
         if self.assemble_stencil:
-            return self._solve(self._probe_stencil(matvec, g), rhs, mask, noise_sq)
+            return self._solve(ops, self._probe_stencil(matvec, g), rhs, mask, noise_sq)
         red, black = linsolve.checkerboard_masks(g)
         inv_diag = linsolve.jacobi_from_diag(
             linsolve.probe_diag(matvec, red * mask, black * mask), mask
@@ -635,19 +683,23 @@ class PCTrapezoidalBase:
             return x * mask, info
         x, info = adjoint.plane_solve(
             lambda _st, bb: run(bb), self._probe_stencil(matvec, g), b, mask,
-            transpose_solver=lambda st_T, bb: self.solver.solve(st_T, bb, mask, noise_sq),
+            transpose_solver=self._backend_solve(ops, mask, noise_sq), ops=ops,
         )
         return x * mask, info
 
-    def _solve(self, st, rhs, mask, noise_sq):
+    def _backend_solve(self, ops, mask, noise_sq):
+        """``(stencil, rhs) -> (x, info)`` through the backend on the arrays
+        of ``ops``."""
+        return lambda st, b: self.solver.solve(st, b, mask, noise_sq, ops)
+
+    def _solve(self, ops, st, rhs, mask, noise_sq):
         """One Newton solve through the backend; with ``differentiable`` its
         IFT adjoint wraps it (the backend also solves the transposed
         system)."""
+        solve = self._backend_solve(ops, mask, noise_sq)
         if not self.differentiable:
-            return self.solver.solve(st, rhs, mask, noise_sq)
-        x, info = adjoint.plane_solve(
-            lambda stx, b: self.solver.solve(stx, b, mask, noise_sq), st, rhs * mask, mask
-        )
+            return solve(st, rhs)
+        x, info = adjoint.plane_solve(solve, st, rhs * mask, mask, ops=ops)
         return x * mask, info
 
     def _noise_floors(self, ops, s, Y):
@@ -684,6 +736,7 @@ class PCTrapezoidalBase:
             and not self.differentiable
             and isinstance(J_T, linsolve.Stencil5)
             and self.krylov_unroll is not None
+            and not ops.sharded
         ):
             # the whole sweep's linear algebra in one call
             fcl0 = field.Fcl(g, ops, s, t1)
@@ -705,7 +758,7 @@ class PCTrapezoidalBase:
             cd1 = s.cd + dcd
             return self._sweep_tail(g, ops, s, t1, dt, Y, T1, cl1, cd1, *infos)
 
-        dT, info_T = solve(J_T, rhs_T, mask, noise[0])
+        dT, info_T = solve(ops, J_T, rhs_T, mask, noise[0])
         T1 = s.T * mask + dT  # boundary re-zeroed, as in the reference
 
         # cl: the primal and the T-coupling, a closed-form plane apply or
@@ -720,7 +773,7 @@ class PCTrapezoidalBase:
             )
         J_cl = self._newton_planes(g, ops, field.stencil_dFcl_dcl(g, ops, s), dt)
         rhs_cl = Ycl0 - 2.0 * s.cl + dt * fcl0 + dt * jvp_cl_T
-        dcl, info_cl = solve(J_cl, rhs_cl, mask, noise[1])
+        dcl, info_cl = solve(ops, J_cl, rhs_cl, mask, noise[1])
         cl1 = s.cl + dcl  # boundary kept, as in the reference
 
         # cd: the primal and the (T, cl)-coupling, likewise
@@ -739,7 +792,7 @@ class PCTrapezoidalBase:
             )
         J_cd = self._newton_planes(g, ops, field.stencil_dFcd_dcd(g, ops, s), dt)
         rhs_cd = Ycd0 - 2.0 * s.cd + dt * fcd0 + dt * jvp_cd_Tcl
-        dcd, info_cd = solve(J_cd, rhs_cd, mask, noise[2])
+        dcd, info_cd = solve(ops, J_cd, rhs_cd, mask, noise[2])
         cd1 = s.cd + dcd
 
         return self._sweep_tail(

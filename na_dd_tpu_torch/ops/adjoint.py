@@ -23,6 +23,10 @@ those of the non-differentiable path.  The diagnostics of the transposed
 solve are discarded, as the JAX package discards them: an adjoint that
 misses its tolerance is not reported (the forward's verdict is the guard,
 the two systems sharing their spectrum).
+
+On a block of a sharded grid the caller passes its halo-exchange ``ops``:
+the transposed planes and the shifted ``x`` then take their neighbours'
+lines, and the solver is the sharded one.
 """
 
 from __future__ import annotations
@@ -50,16 +54,18 @@ def _neighbours(ops, x, nplanes):
 
 
 class _PlaneSolve(torch.autograd.Function):
-    """``(solver, transpose_solver, mask, b, *planes) -> (x, iters,
+    """``(solver, transpose_solver, ops, mask, b, *planes) -> (x, iters,
     resnorm_sq, converged)`` with ``solver(stencil, b) -> (x, info)``; the
-    three diagnostics are non-differentiable outputs."""
+    three diagnostics are non-differentiable outputs.  ``ops`` (None: the
+    local ops of the planes' dimension) shifts in the backward."""
 
     @staticmethod
-    def forward(ctx, solver, transpose_solver, mask, b, *planes):
+    def forward(ctx, solver, transpose_solver, ops, mask, b, *planes):
         planes = tuple(p.detach() for p in planes)
-        stencil, _ops = _kind(planes)
+        stencil, local_ops = _kind(planes)
         x, info = solver(stencil(*planes), b.detach())
         ctx.solver = transpose_solver or solver
+        ctx.ops = local_ops if ops is None else ops
         ctx.save_for_backward(mask, x, *planes)
         diags = (info["iters"], info["resnorm_sq"], info["converged"])
         ctx.mark_non_differentiable(*diags)
@@ -69,23 +75,26 @@ class _PlaneSolve(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, gx, *_diag_grads):
         mask, x, *planes = ctx.saved_tensors
-        stencil, ops = _kind(planes)
+        stencil, ops = _kind(planes)[0], ctx.ops
         y, _info = ctx.solver(stencil(*planes).transpose(ops), (gx * mask).contiguous())
         y = y * mask
         need = ctx.needs_input_grad
-        grad_b = y if need[3] else None
+        grad_b = y if need[4] else None
         grad_planes = tuple(
-            -y * xk if need[4 + k] else None
+            -y * xk if need[5 + k] else None
             for k, xk in enumerate(_neighbours(ops, x, len(planes)))
         )
-        return (None, None, None, grad_b, *grad_planes)
+        return (None, None, None, None, grad_b, *grad_planes)
 
 
-def plane_solve(solver, st, b, mask, transpose_solver=None):
+def plane_solve(solver, st, b, mask, transpose_solver=None, ops=None):
     """``x = solver(st, b)[0]`` with the IFT adjoint as its gradient in
     ``b`` and in every plane of ``st`` (a Stencil5 or a Stencil7); the
     transposed system goes to ``transpose_solver`` (``solver`` by default).
-    Returns ``(x, info)`` as the solver does; ``info``'s tensors carry no
-    gradient."""
-    x, iters, resnorm_sq, converged = _PlaneSolve.apply(solver, transpose_solver, mask, b, *st)
+    ``ops``: the shift provider of the transposed planes (None: the local
+    one; a halo-exchange provider on a sharded block).  Returns ``(x,
+    info)`` as the solver does; ``info``'s tensors carry no gradient."""
+    x, iters, resnorm_sq, converged = _PlaneSolve.apply(
+        solver, transpose_solver, ops, mask, b, *st
+    )
     return x, {"iters": iters, "resnorm_sq": resnorm_sq, "converged": converged}

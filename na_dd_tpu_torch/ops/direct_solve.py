@@ -30,9 +30,15 @@ Dead rows (``mask == 0``: the boundary frame and any masked interior node)
 become identity equations with a zero rhs, so the solve is well-posed for
 any masked stencil and ``x`` is exactly 0 there.
 
+Under domain decomposition BCR cannot run on a block: it addresses whole
+grid rows.  :func:`stencil5_solve_direct_ops` replicates it, as the JAX
+package does: gather the planes, rhs and mask of every rank
+(``ops.gather_full``), solve the full grid on every rank, and keep this
+rank's block (``ops.local_slice``); the gathered system is bitwise the
+single-device one, so the sharded solve is the local solve.
+
 Not ported: ``inv_gauss_jordan``/``_inv`` (the JAX package's LU-free inverse
-for the TPU, which has no f64 LU) and the sharded
-``stencil5_solve_direct_ops``.
+for the TPU, which has no f64 LU).
 """
 
 from __future__ import annotations
@@ -138,3 +144,13 @@ def stencil5_solve_direct(st: Stencil5, b, mask):
     n_int = st.c0.shape[0] - 2
     x_int = block_tridiag_solve_bcr(A, B, C, rhs)[:n_int]
     return F.pad(x_int, (1, 1, 1, 1)) * mask
+
+
+def stencil5_solve_direct_ops(ops, st: Stencil5, b, mask):
+    """:func:`stencil5_solve_direct` through an ops provider: on the local
+    ops exactly that solve, on a halo-exchange provider the replicated one
+    (gather everything, solve the full grid on every rank, slice this
+    rank's block back out)."""
+    st_full = Stencil5(*(ops.gather_full(p) for p in st))
+    x_full = stencil5_solve_direct(st_full, ops.gather_full(b), ops.gather_full(mask))
+    return ops.local_slice(x_full)

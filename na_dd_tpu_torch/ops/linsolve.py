@@ -9,6 +9,9 @@ that the hand-written solve kernel (:mod:`na_dd_tpu_torch.ops.kernels`) and
 its plain twin reproduce; :func:`bicgstab` is the while form, whose early
 exit is a true one (one host read an iteration), and the solve of the
 matrix-free Newton route (:func:`newton_inner_solve`), which has no kernel.
+:func:`bicgstab_ops` is the solve of one rank's block of a sharded system
+(the JAX package's jnp solve under ``shard_map``, which its sharded path
+runs): no single kernel can hold a dot product summed across ranks.
 
 Not ported: ``probe_stencil_vmapped`` and ``bicgstab_scanned``, which exist
 for the size and compile time of XLA programs.
@@ -267,6 +270,20 @@ def bicgstab(
     ones kept as they are."""
     return _bicgstab(matvec, b, x0, dot=dot, minv=minv, tol=tol, atol=atol, iters=maxiter,
                      host_exit=True)
+
+
+def bicgstab_ops(ops, st, b, inv_diag, mask, *, tol: float, iters: int):
+    """Jacobi-BiCGStab of ``st·x = b`` from x0 = 0 on the arrays of ``ops``
+    (one rank's block under a halo-exchange provider): the matvec
+    ``ops.matvec(st)``, the dots ``ops.asum(u·v)`` (all-reduced there), at
+    most ``iters`` iterations of the while form (its exit reads the
+    all-reduced verdict, the same on every rank); returns ``(x·mask,
+    info)``."""
+    x, info = bicgstab(
+        ops.matvec(st), b, torch.zeros_like(b), dot=lambda u, v: ops.asum(u * v),
+        minv=lambda r: r * inv_diag, tol=tol, maxiter=iters,
+    )
+    return x * mask, info
 
 
 def linearized(fn, *primals):

@@ -13,7 +13,13 @@ shifts plane by plane and nothing crosses from one plane to the next.
 :class:`BatchedOps` reduces each plane of such a stack on its own, to a
 (B, 1, 1) tensor that broadcasts against the stack where ``jax.vmap`` would
 broadcast a scalar.  Every discrete operator of the port is written through
-these, so a sharded provider can later take the place of :class:`LocalOps`.
+these, so the sharded provider
+(:class:`na_dd_tpu_torch.parallel.halo.HaloOps`) takes the place of
+:class:`LocalOps` under domain decomposition.  The provider also owns what
+differs there: ``sharded`` (False here), ``matvec`` (the stencil apply of
+the Newton solves: K2 here, a halo exchange and K2 on the padded block
+there), and ``gather_full`` / ``local_slice``, the whole-array access of
+the replicated direct solve (identities on one device).
 """
 
 from __future__ import annotations
@@ -23,6 +29,17 @@ import torch
 
 class Ops:
     """Protocol for shift/reduction providers (duck-typed)."""
+
+    #: True for a halo-exchange provider (one rank's block of a grid)
+    sharded = False
+
+    def matvec(self, st):
+        """``w ↦ st·w`` for a Stencil5 ``st`` on the arrays this provider
+        shifts: :func:`~na_dd_tpu_torch.ops.kernels.stencil5_apply` (K2 on
+        CUDA tensors, its plain twin on CPU ones)."""
+        from na_dd_tpu_torch.ops import kernels
+
+        return lambda w: kernels.stencil5_apply(st, w)
 
     def shift_xm(self, u):  # pragma: no cover - interface
         raise NotImplementedError
@@ -40,6 +57,16 @@ class Ops:
         raise NotImplementedError
 
     def amax(self, u):  # pragma: no cover - interface
+        raise NotImplementedError
+
+    # abstract like the shifts: a provider that forgot them would otherwise
+    # make the sharded direct solve factorize its block against zero halos
+    def gather_full(self, u):  # pragma: no cover - interface
+        """The full global array (identity on one device)."""
+        raise NotImplementedError
+
+    def local_slice(self, u_full):  # pragma: no cover - interface
+        """This rank's block of a full global array (identity locally)."""
         raise NotImplementedError
 
 
@@ -64,6 +91,12 @@ class LocalOps(Ops):
 
     def amax(self, u):
         return torch.amax(u)
+
+    def gather_full(self, u):
+        return u
+
+    def local_slice(self, u_full):
+        return u_full
 
 
 class BatchedOps(LocalOps):

@@ -20,7 +20,7 @@ import importlib
 
 _EXPORTS = {
     "grid": ("Grid3", "make_grid3", "make_uniform_grid3"),
-    "shifts": ("BATCHED_OPS3", "BatchedOps3", "LOCAL_OPS3", "LocalOps3", "Ops3"),
+    "shifts": ("BATCHED_OPS3", "BatchedOps3", "HaloOps3", "LOCAL_OPS3", "LocalOps3", "Ops3"),
     "stencils": ("Dx_reg3", "Dx_star3", "Dy_reg3", "Dy_star3", "Dz_reg3", "Dz_star3",
                  "Mx3", "My3", "Mz3", "grad_H3"),
     "inner_products": ("inner_H3", "inner_p3", "norm_H3", "norm_p3"),

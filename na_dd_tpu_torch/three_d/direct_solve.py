@@ -15,8 +15,11 @@ padding solve it unchanged: they see only dense (n, m, m) blocks.
 Cost: O(N·m³) = O(N⁷) operations and three (n, m, m) block arrays: at N=32
 (31, 961, 961), ~230 MB each in float64; at N=64 ~7.9 GB each.  Like the 2-D
 direct mode it is the exact, stiffness-independent backstop of
-``linear_solver="direct"``, not the default.  Not ported: the sharded
-``stencil7_solve_direct_ops``.
+``linear_solver="direct"``, not the default.  Under domain decomposition
+:func:`stencil7_solve_direct_ops` replicates the solve, as the 2-D one does:
+gather every rank's volumes (x-planes over the mesh's x axis, y-planes over
+y; z is never sharded), solve the full grid on every rank, keep this rank's
+block.
 """
 
 from __future__ import annotations
@@ -78,3 +81,11 @@ def stencil7_solve_direct(st: Stencil7, b, mask):
     x_int = block_tridiag_solve_bcr(A, B, C, rhs)[:n_int]
     x_int = x_int.reshape(n_int, b.shape[1] - 2, b.shape[2] - 2)
     return F.pad(x_int, (1, 1, 1, 1, 1, 1)) * mask
+
+
+def stencil7_solve_direct_ops(ops, st: Stencil7, b, mask):
+    """:func:`stencil7_solve_direct` through an ops provider: the local solve
+    on the local ops, the replicated one on ``HaloOps3``."""
+    st_full = Stencil7(*(ops.gather_full(p) for p in st))
+    x_full = stencil7_solve_direct(st_full, ops.gather_full(b), ops.gather_full(mask))
+    return ops.local_slice(x_full)

@@ -16,13 +16,15 @@ from na_dd_tpu_torch import config
 from na_dd_tpu_torch.convert import grid3_from_nodes, grid_from_nodes, state_from_numpy, tensor_from_numpy
 from na_dd_tpu_torch.harness import studies
 from na_dd_tpu_torch.harness.batched_ladder import run_spatial_ladder_batched
-from na_dd_tpu_torch.harness.checkpoint import load_state
+from na_dd_tpu_torch.harness.checkpoint import load_state, load_state_sharded
+from na_dd_tpu_torch.harness.ensemble import simulate_ensemble
 from na_dd_tpu_torch.harness.legacy import run_convergence_studies
 from na_dd_tpu_torch.mms.cases import MMSCasePol
 from na_dd_tpu_torch.models.coefficients import Model02
 from na_dd_tpu_torch.models.consts import STUDY_MODEL_CONSTS
 from na_dd_tpu_torch.ops import kernels
 from na_dd_tpu_torch.ops.grid import make_grid, make_uniform_grid
+from na_dd_tpu_torch.parallel import dryrun_multichip, run_ranks
 from na_dd_tpu_torch.three_d.batched_ladder import run_spatial_ladder3_batched
 from na_dd_tpu_torch.three_d.diffusion import heat_mms_error
 from na_dd_tpu_torch.three_d.grid import make_grid3, make_uniform_grid3
@@ -68,6 +70,13 @@ def test_no_jax_import(path):
         assert root not in FORBIDDEN, f"{path.name} imports {module}"
 
 
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_orbax_import(path):
+    """orbax imports JAX: the port's sharded checkpoints are its own."""
+    for module in _imported_modules(path):
+        assert module.split(".")[0] != "orbax", f"{path.name} imports {module}"
+
+
 CSRC = REPO / "na_dd_tpu_torch" / "csrc"
 TOOLKIT_HEADERS = {"cuda_runtime.h", "cooperative_groups.h"}
 CUDA_SOURCES = ["stencil5.cu", "bicgstab.cu", "stencil7.cu", "bicgstab3.cu", "triple_solve.cu",
@@ -94,10 +103,10 @@ def test_cuda_source_includes_only_its_own_and_toolkit_headers(name):
 
 JAX_PACKAGE = REPO / "na_dd_tpu"
 #: names of the JAX package's ``__all__`` that the port leaves out on
-#: purpose: the x64 set-up (torch needs none) and, until the parallel slice,
-#: the sharded 3-D ops and the ``parallel`` and ``utils`` packages
-NOT_PORTED = {"setup_x64", "HaloOps3"}
-NOT_PORTED_PACKAGES = {"parallel", "utils"}
+#: purpose: the x64 set-up (torch needs none) and, until its slice, the
+#: ``utils`` package
+NOT_PORTED = {"setup_x64"}
+NOT_PORTED_PACKAGES = {"utils"}
 
 
 def _jax_exports():
@@ -121,7 +130,7 @@ JAX_EXPORTS = list(_jax_exports())
 def test_jax_exports_were_found():
     packages = {pkg for pkg, _ in JAX_EXPORTS}
     assert {"na_dd_tpu_torch.ops", "na_dd_tpu_torch.models", "na_dd_tpu_torch.integrators",
-            "na_dd_tpu_torch.three_d"} <= packages
+            "na_dd_tpu_torch.three_d", "na_dd_tpu_torch.parallel"} <= packages
     assert len(JAX_EXPORTS) >= 100
 
 
@@ -203,6 +212,10 @@ def no_card(monkeypatch):
         lambda: run_spatial_ladder_batched("pol", levels=1, precision="mixed", verbose=False),
         lambda: run_spatial_ladder3_batched(MMSCaseExpSin3, model=Model02(STUDY_MODEL_CONSTS),
                                             levels=1, precision="mixed", verbose=False),
+        lambda: simulate_ensemble([50.0], N=4, Tf=0.01, dt=0.01),
+        lambda: run_ranks(print, 2, backend="gloo"),
+        lambda: dryrun_multichip(2, backend="gloo"),
+        lambda: load_state_sharded("never-read"),
     ],
 )
 def test_entry_points_without_a_card_raise(no_card, entry):
