@@ -73,7 +73,13 @@ version on the card, and drives the port's paths:
   mixed, direct, value-and-grad and 2 steps of ExpSin3 N=31 (K6 on
   halo-padded volumes), each against the local run on the card; a sharded
   checkpoint saved by 4 ranks restored on 2 and on 1; the ensemble at
-  B = 1, 8, 32 (batched K1/K2) and dp=2 against dp=1.
+  B = 1, 8, 32 (batched K1/K2) and dp=2 against dp=1;
+* the user entry points (``na_dd_tpu_torch.studies``), each run as a user runs
+  it, in a process of its own: the six-notebook reproduction of the pol
+  study in its fast mode (``run_all --only pol``: the batched mixed ladder,
+  the mixed temporal ladder and the mixed eta sweep, every level held to
+  CPU-x64 and the report's rows read PASS) and the study CLI on the ExpSin
+  spatial ladder (``run_study``, every level to the notebook).
 
 It checks the errors against the reference values and the launch counts of
 each path's main level (counts set to 0 just before it, read just after),
@@ -4545,6 +4551,100 @@ def phase_parallel(device):
     )
 
 
+STUDIES_TIMEOUT_S = 600  # an entry point that takes longer fails the phase
+
+
+def run_entry_point(label, module, args):
+    """``python -m module args`` from the repo root, as a user runs it (the
+    kernels are built already, so the child loads them); returns its
+    wall-clock.  A non-zero exit or a time-out fails the phase."""
+    cmd = [sys.executable, "-m", module, *args]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                              timeout=STUDIES_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        out = e.stdout.decode(errors="replace") if isinstance(e.stdout, bytes) else e.stdout
+        log(f"[studies] {label}: timed out after {STUDIES_TIMEOUT_S} s; output tail:\n"
+            f"{(out or '')[-3000:]}")
+        raise CheckFailed(f"{label} timed out") from None
+    wall = time.perf_counter() - t0
+    log(f"[studies] {label}: `{' '.join(cmd[1:])}` exited {proc.returncode} in {wall:.1f} s wall")
+    for line in proc.stdout.splitlines():
+        if "[adjudicate]" in line or "##########" in line or "saved ->" in line:
+            log(f"[studies]   {line.strip()}")
+    if proc.returncode != 0:
+        log(f"[studies] {label} stdout tail:\n{proc.stdout[-3000:]}\nstderr tail:\n"
+            f"{proc.stderr[-3000:]}")
+        raise CheckFailed(f"{label} exited {proc.returncode}")
+    return wall
+
+
+def check_study_levels(label, result, refs, keys, what="CPU-x64"):
+    """Each level of ``result`` (an entry point's JSON) at ``PARITY_RTOL`` to its
+    value in ``refs`` (``what``), looked up by ``keys``; and the run went
+    through the card's K1 and K2."""
+    check(len(result["errors"]) == len(keys), f"{label}: {len(result['errors'])} levels")
+    for key, err in zip(keys, result["errors"]):
+        rel = abs(err - refs[key]) / refs[key]
+        log(f"[studies] {label} {key}: error {err!r}, {what} {refs[key]!r}, rel {rel:.3e}")
+        check(math.isfinite(err) and rel <= PARITY_RTOL, f"{label} {key} off {what}")
+    log(f"[studies] {label} on {result['device']}: kernel launches {result['kernel_launches']}")
+    for name in ("bicgstab_solve", "stencil5_apply"):
+        check(result["kernel_launches"][name] > 0, f"{label} launched no {name}")
+
+
+def phase_studies(device):
+    """The port's user entry points as a user runs them, each in a process of its
+    own: the six-notebook reproduction for the pol study in its fast mode
+    (``run_all --only pol``: the batched mixed ladder, the mixed temporal
+    ladder, the mixed eta sweep, each over-gate level adjudicated against the
+    CPU-x64 record), every level held here to the JAX package's CPU-x64
+    values and the report's three pol rows read PASS; and the study CLI on
+    the ExpSin spatial ladder (``run_study --study expsin --kind spatial
+    --levels 8``), every level to the notebook and N=256 to CPU-x64."""
+    import glob
+    import tempfile
+
+    del device  # the entry points run on the card by default
+    walls = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_studies_") as tmp:
+        out = Path(tmp) / "run_all"
+        walls["run_all --only pol"] = run_entry_point(
+            "run_all --only pol", "na_dd_tpu_torch.studies.run_all",
+            ["--only", "pol", "--results-dir", str(out)])
+        runs = {kind: json.loads((out / f"pol_{kind}.json").read_text())
+                for kind in ("spatial", "temporal", "eta_batched")}
+        for kind, res in runs.items():
+            check(res["device"] != "cpu" and res["precision"] == "mixed",
+                  f"pol {kind} ran as {res['precision']} on {res['device']}")
+        check_study_levels("pol spatial (batched mixed)", runs["spatial"], POL_SPATIAL_CPU_X64,
+                           runs["spatial"]["Ns"])
+        check_study_levels("pol temporal (mixed)", runs["temporal"], POL_TEMPORAL_CPU_X64,
+                           runs["temporal"]["dts"])
+        check_study_levels("pol eta (batched mixed)", runs["eta_batched"],
+                           dict(enumerate(ETA_BATCHED_CPU_X64)), range(len(ETA_BATCHED_CPU_X64)))
+        report = (out / "REPRODUCTION.md").read_text()
+        for kind in ("spatial", "temporal", "eta"):
+            row = next(line for line in report.splitlines() if line.startswith(f"| pol | {kind} |"))
+            log(f"[studies] report row: {row}")
+            check(" PASS |" in row, f"the report's pol {kind} row does not read PASS")
+
+        out = Path(tmp) / "run_study"
+        walls["run_study expsin spatial"] = run_entry_point(
+            "run_study expsin spatial", "na_dd_tpu_torch.studies.run_study",
+            ["--study", "expsin", "--kind", "spatial", "--levels", "8", "--results-dir", str(out)])
+        (path,) = glob.glob(str(out / "expsin_spatial_*.json"))
+        res = json.loads(Path(path).read_text())
+        check_study_levels("expsin spatial (CLI)", res, EXPSIN_REFERENCE, res["Ns"], "notebook")
+        rel = abs(res["errors"][-1] - EXPSIN_N256_CPU_X64) / EXPSIN_N256_CPU_X64
+        log(f"[studies] expsin spatial (CLI) N=256 vs CPU-x64 {EXPSIN_N256_CPU_X64!r}: rel {rel:.3e}")
+        check(rel <= PARITY_RTOL, "the CLI's ExpSin N=256 off CPU-x64")
+    log("[studies] entry-point wall-clock: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+        + f"; {sum(walls.values()):.1f} s in all")
+    return walls
+
+
 def ptxas_rows(text: str):
     """(kernel, registers, stack frame bytes, spill store bytes, spill load
     bytes) of each entry function in nvcc's ``-Xptxas -v`` report."""
@@ -4581,7 +4681,7 @@ PHASES = ("k2", "k1", "k3", "k4", "slice", "f32", "analytic", "scale", "timings"
           "variants3", "production", "mixed3", "timings_mixed", "simulate", "adaptive",
           "checkpoint", "gradients", "direct", "fit", "batched", "eta_batched", "batched3",
           "eta3", "probe", "while_form", "matrix_free", "probe3", "direct3", "heat3", "gradients3",
-          "batched_mixed", "batched_analytic", "parallel")
+          "batched_mixed", "batched_analytic", "parallel", "studies")
 
 
 def main(argv=None) -> int:
@@ -4679,6 +4779,7 @@ def main(argv=None) -> int:
           done["batched"]["errors"] if "batched" in done else None,
           done["eta_batched"]["errors"] if "eta_batched" in done else None)
     phase("parallel", phase_parallel, device)
+    phase("studies", phase_studies, device)
     if set(only) != set(PHASES):
         log(f"[done] phases {only}; total {time.perf_counter() - t_all:.1f} s (no result line)")
         return 0
@@ -4700,7 +4801,7 @@ def main(argv=None) -> int:
     bl, be, bl3, be3 = done["batched"], done["eta_batched"], done["batched3"], done["eta3"]
     pr, wf, mf, p3 = done["probe"], done["while_form"], done["matrix_free"], done["probe3"]
     d3, h3, g3, bm = done["direct3"], done["heat3"], done["gradients3"], done["batched_mixed"]
-    ba, par = done["batched_analytic"], done["parallel"]
+    ba, par, study_walls = done["batched_analytic"], done["parallel"], done["studies"]
     pk = "na_dd_tpu/ops/pallas_kernels.py"
     entries = []
     # (wrapper, source, TPU kernel, shape, error against the plain version,
@@ -4815,6 +4916,7 @@ def main(argv=None) -> int:
         f"{par['level_wall']:.6f} s on {PAR_WORLD} ranks of one card against "
         f"{par['local_wall']:.6f} s locally; ensemble "
         + ", ".join(f"B={B} {t:.6f} s ({r:.3f} sims/s)" for B, (t, r) in par["ensemble"].items())
+        + "; study entry points " + ", ".join(f"{k} {v:.1f} s" for k, v in study_walls.items())
         + f"; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(nvidia_smi_line())

@@ -172,13 +172,18 @@ def run_spatial_study(
     eta: float = DEFAULT_ETA,
     verbose: bool = True,
     measure_steady: bool = False,
+    precision: str = "full",
+    coupling_source: str = "jvp",
     dtype=None,
     device=None,
 ) -> dict:
     """Notebook cell 9: N = base_N·2^k ladder with dt = h^1.5.
 
     measure_steady: run each level once more after the timed run and report
-    that run's wall-clock as ``steady_s``."""
+    that run's wall-clock as ``steady_s``.  ``precision`` ("full" or
+    "mixed") and ``coupling_source`` ("jvp" or "analytic") are the
+    integrator's, which the JAX function reads from ``NA_DD_TPU_PRECISION``
+    and ``NA_DD_TPU_COUPLING``."""
     cfg = STUDIES[study]
     mc = study_consts(study)
     Tf = cfg["spatial_Tf"]
@@ -193,6 +198,7 @@ def run_spatial_study(
         trial = _make_trial(
             cfg["case_cls"], N, eta, mc=mc, dtype=dtype, device=device,
             krylov_unroll=_study_unroll(cfg, N, dt, mc, num_steps=nsteps),
+            precision=precision, coupling_source=coupling_source,
         )
         t0 = time.perf_counter()
         summary = trial.run_for_errors(Tf=Tf, dt=dt)
@@ -229,6 +235,8 @@ def run_temporal_study(
     eta: float = DEFAULT_ETA,
     verbose: bool = True,
     measure_steady: bool = False,
+    precision: str = "full",
+    coupling_source: str = "jvp",
     dtype=None,
     device=None,
 ) -> dict:
@@ -236,7 +244,8 @@ def run_temporal_study(
 
     The grid is fixed (``N``) for five studies; the peaks study recomputes
     it per level from dt (``N_of_dt``, :func:`_peaks_temporal_N`).  Levels
-    of one grid size and budget share one trial."""
+    of one grid size and budget share one trial.  ``precision`` and
+    ``coupling_source`` as in :func:`run_spatial_study`."""
     cfg = STUDIES[study]
     mc = study_consts(study)
     tcfg = cfg["temporal"]
@@ -268,7 +277,8 @@ def run_temporal_study(
         trial = trials.get((N, unroll))
         if trial is None:
             trial = trials[(N, unroll)] = _make_trial(
-                cfg["case_cls"], N, eta, mc=mc, krylov_unroll=unroll, dtype=dtype, device=device
+                cfg["case_cls"], N, eta, mc=mc, krylov_unroll=unroll, dtype=dtype, device=device,
+                precision=precision, coupling_source=coupling_source,
             )
         t0 = time.perf_counter()
         summary = trial.run_for_errors(Tf=Tf, dt=dt)
@@ -307,10 +317,13 @@ def run_eta_study(
     Tf: float = 0.01,
     etas: Optional[List[float]] = None,
     verbose: bool = True,
+    precision: str = "full",
+    coupling_source: str = "jvp",
     dtype=None,
     device=None,
 ) -> dict:
-    """Notebook cell 13: regularization-factor sweep at fixed N and dt."""
+    """Notebook cell 13: regularization-factor sweep at fixed N and dt.
+    ``precision`` and ``coupling_source`` as in :func:`run_spatial_study`."""
     cfg = STUDIES[study]
     mc = study_consts(study)
     etas = etas or ETA_LADDER
@@ -321,6 +334,7 @@ def run_eta_study(
         trial = _make_trial(
             cfg["case_cls"], N, eta, mc=mc, dtype=dtype, device=device,
             krylov_unroll=_study_unroll(cfg, N, dt, mc, num_steps=nsteps),
+            precision=precision, coupling_source=coupling_source,
         )
         t0 = time.perf_counter()
         summary = trial.run_for_errors(Tf=Tf, dt=dt)

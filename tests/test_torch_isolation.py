@@ -25,6 +25,7 @@ from na_dd_tpu_torch.models.consts import STUDY_MODEL_CONSTS
 from na_dd_tpu_torch.ops import kernels
 from na_dd_tpu_torch.ops.grid import make_grid, make_uniform_grid
 from na_dd_tpu_torch.parallel import dryrun_multichip, run_ranks
+from na_dd_tpu_torch.studies import run_all, run_study
 from na_dd_tpu_torch.three_d.batched_ladder import run_spatial_ladder3_batched
 from na_dd_tpu_torch.three_d.diffusion import heat_mms_error
 from na_dd_tpu_torch.three_d.grid import make_grid3, make_uniform_grid3
@@ -33,7 +34,7 @@ from na_dd_tpu_torch.three_d.mms import MMSCaseCsZeroCrossing3, MMSCaseExpSin3, 
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "na_dd_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "na_dd_tpu")
+FORBIDDEN = ("jax", "jaxlib", "na_dd_tpu", "studies")
 
 
 def _imported_modules(path):
@@ -61,6 +62,10 @@ def test_port_files_were_found():
     assert "na_dd_tpu_torch/ops/adjoint.py" in names
     for module in ("harness/batched_ladder", "three_d/batched_ladder"):
         assert f"na_dd_tpu_torch/{module}.py" in names
+    for module in ("studies/__init__", "studies/reference_values", "studies/run_study",
+                   "studies/run_all", "studies/write_reproduction", "harness/plotting",
+                   "utils/__init__", "utils/testing", "utils/timing"):
+        assert f"na_dd_tpu_torch/{module}.py" in names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -68,6 +73,42 @@ def test_no_jax_import(path):
     for module in _imported_modules(path):
         root = module.split(".")[0]
         assert root not in FORBIDDEN, f"{path.name} imports {module}"
+
+
+#: what runs on the card's machine, which may lack matplotlib: the entry points
+#: and the smoke script import it nowhere at module level
+ENTRY_POINT_FILES = sorted((REPO / "na_dd_tpu_torch" / "studies").glob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", ENTRY_POINT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_entry_points_import_no_matplotlib_at_module_level(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] != "matplotlib", f"{path.name} imports {name}"
+            assert name != "na_dd_tpu_torch.harness.plotting", f"{path.name} imports {name}"
+
+
+def test_the_entry_points_load_without_matplotlib():
+    """Importing every entry-point module pulls in neither matplotlib, the
+    plotting module, JAX nor the JAX package's study scripts (checked in a fresh
+    interpreter)."""
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "import na_dd_tpu_torch.studies.run_all, na_dd_tpu_torch.studies.run_study\n"
+            "import na_dd_tpu_torch.studies.write_reproduction, na_dd_tpu_torch.utils\n"
+            "bad = [m for m in sys.modules if m == 'na_dd_tpu_torch.harness.plotting'\n"
+            "       or m.split('.')[0] in ('matplotlib', 'jax', 'na_dd_tpu', 'studies')]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=300)
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -103,10 +144,9 @@ def test_cuda_source_includes_only_its_own_and_toolkit_headers(name):
 
 JAX_PACKAGE = REPO / "na_dd_tpu"
 #: names of the JAX package's ``__all__`` that the port leaves out on
-#: purpose: the x64 set-up (torch needs none) and, until its slice, the
-#: ``utils`` package
+#: purpose: the x64 set-up (torch needs none)
 NOT_PORTED = {"setup_x64"}
-NOT_PORTED_PACKAGES = {"utils"}
+NOT_PORTED_PACKAGES = set()
 
 
 def _jax_exports():
@@ -130,7 +170,7 @@ JAX_EXPORTS = list(_jax_exports())
 def test_jax_exports_were_found():
     packages = {pkg for pkg, _ in JAX_EXPORTS}
     assert {"na_dd_tpu_torch.ops", "na_dd_tpu_torch.models", "na_dd_tpu_torch.integrators",
-            "na_dd_tpu_torch.three_d", "na_dd_tpu_torch.parallel"} <= packages
+            "na_dd_tpu_torch.three_d", "na_dd_tpu_torch.parallel", "na_dd_tpu_torch.utils"} <= packages
     assert len(JAX_EXPORTS) >= 100
 
 
@@ -216,6 +256,8 @@ def no_card(monkeypatch):
         lambda: run_ranks(print, 2, backend="gloo"),
         lambda: dryrun_multichip(2, backend="gloo"),
         lambda: load_state_sharded("never-read"),
+        lambda: run_study.main(["--study", "pol", "--levels", "1"]),
+        lambda: run_all.main(["--only", "pol", "eta"]),
     ],
 )
 def test_entry_points_without_a_card_raise(no_card, entry):

@@ -10,7 +10,14 @@ through ``kernels.triple_solve``; and per-solve, ``fused_triple=False``).
 Tolerances: each stepped field within 1e-12 relative to its max-norm with the
 same Krylov iteration total; each combined error within 1e-10 relative of
 the JAX value and within 1e-5 of the reference notebook's 6-digit value;
-the analytic routes also within 1e-10 of the JAX package's CPU-x64 values."""
+the analytic routes also within 1e-10 of the JAX package's CPU-x64 values.
+
+The port's user entry points (the study CLI, the six-notebook reproduction and
+its report), the plotting helpers and utils are held to the JAX package's
+harness functions, its CPU-x64 records, its report writer and its twins."""
+
+import json
+import pathlib
 
 import jax
 import numpy as np
@@ -442,3 +449,373 @@ def test_study_registry_and_budget_match_jax():
             assert studies._study_unroll(studies.STUDIES[name], N, dt, mc) == j_studies._study_unroll(
                 j_studies.STUDIES[name], N, dt, j_studies.study_consts(name))
     assert choose_krylov_unroll is studies.choose_krylov_unroll
+
+
+# ---------------------------------------------------------------------------
+# the port's user entry points (na_dd_tpu_torch.studies): the study CLI, the
+# six-notebook reproduction and its report, against the JAX package's
+# harness functions, its CPU-x64 records and its report writer; the plotting
+# helpers and utils against their JAX twins
+# ---------------------------------------------------------------------------
+REPO = pathlib.Path(__file__).resolve().parent.parent
+RESULTS = REPO / "studies" / "results"
+#: keys of the JAX harness's result dicts that are XLA's (compile sharing)
+XLA_ONLY_KEYS = {"parallel_compile_s", "shared_compile"}
+#: what the port's entry points add to a result: where it ran
+PROVENANCE_KEYS = {"kernel_launches", "device"}
+#: Absolute floor of an error norm's agreement with the JAX package.  The
+#: port's exact solutions (SymPy lambdified to torch) differ from the JAX
+#: package's (lambdified to jax.numpy) by one ulp at 10-68 % of the nodes
+#: (ExpSin, N=32, t=0.01: 2.2e-16 on the O(1) fields), because torch's and
+#: XLA's exp and sin round differently; an error norm of ~1e-7 built from
+#: such fields then moves by ~1e-17 absolute (the ExpSin temporal level
+#: dt=1e-2 is 4.8e-17, 4.6e-10 relative, from JAX, while the JAX package's
+#: own routes, which share XLA's functions, agree to 1.7e-15 relative).
+ULP_FLOOR = 1e-16
+
+
+def _close_to_jax(err, ref, rtol=1e-10):
+    return abs(err - ref) <= max(rtol * abs(ref), ULP_FLOOR)
+
+
+def _outputs_snapshot():
+    """Every file under the entry points' default and the JAX study scripts' output
+    places, with its modification time."""
+    places = [REPO / "studies" / "results_torch", RESULTS]
+    files = {p: p.stat().st_mtime_ns for d in places if d.exists() for p in d.rglob("*")}
+    root = REPO / "REPRODUCTION.md"
+    files[root] = root.stat().st_mtime_ns
+    return files
+
+
+@pytest.fixture(scope="module")
+def jax_pol_spatial3():
+    """The JAX CLI's spatial study, pol N=2..8 (what run_study.py calls)."""
+    from na_dd_tpu.harness.studies import run_spatial_study as j_run
+
+    return j_run("pol", levels=3, verbose=False)
+
+
+def _saved(tmp_path, pattern):
+    (path,) = tmp_path.glob(pattern)
+    return json.loads(path.read_text())
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["serial", "batched"])
+def test_run_study_cli_spatial_matches_jax(jax_pol_spatial3, tmp_path, batched):
+    from na_dd_tpu_torch.studies import run_study
+
+    before = _outputs_snapshot()
+    (res,) = run_study.main(["--study", "pol", "--kind", "spatial", "--levels", "3",
+                             "--device", "cpu", "--results-dir", str(tmp_path)]
+                            + (["--batched"] if batched else []))
+    assert _outputs_snapshot() == before  # nothing written outside tmp_path
+    ref = jax_pol_spatial3
+    assert res["Ns"] == ref["Ns"] == [2, 4, 8]
+    for err, j_err in zip(res["errors"], ref["errors"]):
+        assert abs(err - j_err) <= 1e-10 * j_err
+    assert res["kernel_launches"]["bicgstab_solve"] == 0 and res["device"] == "cpu"
+    numbers = res["errors"] + res["rates"] + res["wallclock_s"] + (res["steady_s"] or [])
+    assert len(numbers) >= 5 and all(type(x) is float for x in numbers)  # what json.dump takes
+    saved = _saved(tmp_path, "pol_spatial_batched_*.json" if batched else "pol_spatial_[0-9]*.json")
+    assert saved == json.loads(json.dumps(res))
+    if batched:  # the keys of the JAX run_spatial_ladder_batched's dict
+        assert set(saved) == {"study", "kind", "Ns", "Tf", "eta", "errors", "wallclock_s",
+                              "steady_s", "compile_plus_run_s", "krylov_unroll", "rates",
+                              "statuses"} | PROVENANCE_KEYS
+    else:
+        assert set(saved) == (set(ref) - XLA_ONLY_KEYS) | PROVENANCE_KEYS
+
+
+def test_run_study_cli_temporal_matches_jax(tmp_path):
+    from na_dd_tpu.harness.studies import run_temporal_study as j_run
+    from na_dd_tpu_torch.studies import run_study
+
+    ref = j_run("expsin", levels=2, verbose=False)
+    (res,) = run_study.main(["--study", "expsin", "--kind", "temporal", "--levels", "2",
+                             "--device", "cpu", "--results-dir", str(tmp_path)])
+    assert res["dts"] == ref["dts"] and res["N"] == ref["N"] == 32
+    for err, j_err in zip(res["errors"], ref["errors"]):
+        assert _close_to_jax(err, j_err)
+    saved = _saved(tmp_path, "expsin_temporal_*.json")
+    assert set(saved) == (set(ref) - XLA_ONLY_KEYS) | PROVENANCE_KEYS
+
+
+def test_run_all_pol_eta_matches_the_cpu_x64_record(tmp_path):
+    """The fast mode (precision="mixed", the sweep as one batch) against the
+    JAX run_eta_study_batched on CPU x64 (studies/results/batched_cpu_x64.json)."""
+    from na_dd_tpu_torch.studies import run_all
+
+    before = _outputs_snapshot()
+    assert run_all.main(["--only", "pol", "eta", "--cpu", "--results-dir", str(tmp_path)]) == 0
+    assert _outputs_snapshot() == before
+    ref = json.loads((RESULTS / "batched_cpu_x64.json").read_text())["eta_batched"]["errors"]
+    res = json.loads((tmp_path / "pol_eta_batched.json").read_text())
+    assert len(res["errors"]) == 7
+    for err, x64 in zip(res["errors"], ref):
+        assert abs(err - x64) <= 1e-10 * x64
+    assert res["precision"] == "mixed" and res["device"] == "cpu"
+    # the 6-digit notebook is over the gate: every level adjudicated, passed
+    adj = res["adjudication"]
+    assert adj["status"] == "ok" and adj["passed"] and len(adj["gated_levels"]) == 7
+    assert {"errors", "wallclock_s", "steady_s", "reference_errors",
+            "max_rel_dev_vs_reference", "precision", "total_wallclock_s"} <= set(res)
+    row = next(line for line in (tmp_path / "REPRODUCTION.md").read_text().splitlines()
+               if line.startswith("| pol | eta |"))
+    assert " PASS |" in row
+
+
+def test_run_all_expsin_temporal_f64_matches_the_cpu_x64_record(tmp_path):
+    from na_dd_tpu_torch.studies import run_all
+    from na_dd_tpu_torch.studies.reference_values import CPU_X64_ERRORS
+
+    assert run_all.main(["--only", "expsin", "temporal", "--f64", "--cpu",
+                         "--results-dir", str(tmp_path)]) == 0
+    res = json.loads((tmp_path / "expsin_temporal.json").read_text())
+    x64 = CPU_X64_ERRORS[("expsin", "temporal")]
+    assert res["precision"] == "full" and len(res["errors"]) == len(x64) == 6
+    for k, err in enumerate(res["errors"]):
+        assert _close_to_jax(err, x64[k])
+    assert "f64_spotcheck" not in res and len(res["steady_s"]) == 6
+
+
+def _synthetic_archive(path):
+    """Archived runs in the JAX script's format: one adjudicated, one within
+    the gate, one skipped over budget; the rest MISSING."""
+    runs = {
+        "pol_spatial": {
+            "study": "pol", "kind": "spatial",
+            "errors": [4.93452e-05, 1.59616e-05, 4.38284e-09], "rates": [1.99],
+            "steady_s": [0.1, 0.1, 0.5], "wallclock_s": [1.0, 1.0, 2.0],
+            "max_rel_dev_vs_reference": 1.9e-6, "precision": "mixed", "batched": True,
+            "f64_spotcheck": {"level": 2, "N": 256, "f64_error": 4.38284e-09,
+                              "mixed_error": 4.38284e-09, "mixed_vs_f64_rel": 3.2e-12,
+                              "wallclock_s": 12.0},
+            "adjudication": {"status": "ok", "level": 1, "cpu_error": 1.59616e-05,
+                             "reference": 1.59616e-05, "cpu_rel_dev": 2.1e-09,
+                             "passed": True, "tpu_rel_dev": 1.9e-6},
+        },
+        "expsin_temporal": {
+            "study": "expsin", "kind": "temporal", "errors": [1.0362e-07, 8.3442e-08, 8.1938e-08],
+            "rates": [float("nan")], "steady_s": None, "wallclock_s": [0.5, 0.5, 0.25],
+            "max_rel_dev_vs_reference": 3e-9, "precision": "full",
+        },
+        "peaks_fast1e1_eta_batched": {
+            "study": "peaks_fast1e1", "kind": "eta_batched", "errors": [7.4984405e-05] * 7,
+            "wallclock_s": [3.0], "steady_s": [0.06], "max_rel_dev_vs_reference": 2e-8,
+            "precision": "mixed",
+            "adjudication": {"status": "skipped_over_budget", "over_gate_levels": [0],
+                             "budget_node_steps": 5e7},
+        },
+        "nfsp_cpcsH1_TclcdH2_spatial": {
+            "study": "nfsp_cpcsH1_TclcdH2", "kind": "spatial", "errors": [1e-5, 2e-6, 5e-7, 1e-7],
+            "rates": [2.3, 2.1], "steady_s": [1.0, 2.0, 4.0, 8.0], "wallclock_s": [1, 2, 4, 8],
+            "max_rel_dev_vs_reference": 0.5, "precision": "full",
+            "adjudication": {"status": "ok", "level": 3, "cpu_error": 1e-7, "reference": 2e-7,
+                             "cpu_rel_dev": 0.5, "passed": False},
+        },
+    }
+    path.mkdir()
+    for name, payload in runs.items():
+        (path / f"{name}.json").write_text(json.dumps(payload))
+
+
+def _table(text):
+    """{(study, kind): columns} of the report's table."""
+    rows = [line.split("|")[1:-1] for line in text.splitlines() if line.startswith("| ")]
+    return {(c[0].strip(), c[1].strip()): [x.strip() for x in c] for c in rows[1:]}
+
+
+def test_report_rows_equal_the_jax_report(tmp_path):
+    from na_dd_tpu_torch.studies.write_reproduction import write_report
+    from studies.write_reproduction import write_report as j_write_report
+
+    _synthetic_archive(tmp_path / "results")
+    ours = _table(open(write_report(device="NVIDIA H100 80GB HBM3, 700.00 W",
+                                    results_dir=str(tmp_path / "results"))).read())
+    theirs = _table(open(j_write_report(device="test", results_dir=str(tmp_path / "results"),
+                                        out_path=str(tmp_path / "JAX.md"))).read())
+    assert len(ours) == len(theirs) == 18 and list(ours) == list(theirs)
+    timing = slice(0, -2)  # every column but "finest steady vs ref" and "speedup"
+    for key in theirs:
+        assert ours[key][timing] == theirs[key][timing], key
+    assert sum(row[2] == "MISSING" for row in ours.values()) == 14
+    assert ours[("pol", "spatial")][7] == "L1 cpu-x64 2.1e-09 PASS"
+    assert ours[("nfsp_cpcsH1_TclcdH2", "spatial")][7] == "L3 cpu-x64 5.0e-01 **FAIL**"
+    # the report lands beside the results, never on the JAX study scripts' files
+    assert (tmp_path / "results" / "REPRODUCTION.md").is_file()
+    with pytest.raises(ValueError, match="JAX study scripts"):
+        write_report(results_dir=str(tmp_path / "results"), out_path=str(REPO / "REPRODUCTION.md"))
+
+
+def test_adjudication_gates_levels_and_lists_those_without_a_record():
+    from na_dd_tpu_torch.studies.run_all import adjudicate
+
+    ref = [1.0e-5, 2.0e-6, 4.0e-7]
+    res = dict(study="pol", kind="spatial", errors=[1.0e-5, 2.00001e-6, 4.00001e-7])
+    # level 0 within the gate; 1 and 2 over it, only 1 with a CPU-x64 value
+    adj = adjudicate(res, ref, cpu_x64={1: 2.00001e-6 * (1 + 5e-9)})
+    assert adj["status"] == "ok" and adj["passed"] and adj["level"] == 1
+    assert adj["skipped_over_budget_levels"] == [2]
+    assert [row["level"] for row in adj["gated_levels"]] == [1]
+    assert {"status", "level", "cpu_error", "reference", "cpu_rel_dev", "passed"} <= set(adj)
+    assert adjudicate(res, ref, cpu_x64={}) == {
+        "status": "skipped_over_budget", "over_gate_levels": [1, 2], "budget_node_steps": 5e7}
+    failed = adjudicate(res, ref, cpu_x64={1: 2.00001e-6, 2: 4.1e-7})
+    assert failed["status"] == "ok" and not failed["passed"] and failed["level"] == 2
+
+
+def test_a_failed_gate_or_a_raising_run_makes_run_all_exit_nonzero(monkeypatch, tmp_path, capsys):
+    from na_dd_tpu_torch.studies import run_all
+
+    sweep = dict(study="expsin", kind="eta_batched", N=32, dt=5e-4, Tf=0.01,
+                 etas=list(range(7)), errors=[8.2e-08] * 7, wallclock_s=[0.1], steady_s=[0.1])
+    monkeypatch.setattr(run_all, "run_one", lambda *a, **k: dict(sweep))
+    monkeypatch.setitem(run_all.CPU_X64_ERRORS, ("expsin", "eta"), dict.fromkeys(range(7), 8.1e-8))
+    assert run_all.main(["--only", "expsin", "eta", "--cpu", "--results-dir", str(tmp_path)]) == 1
+    assert "FAIL" in capsys.readouterr().out
+    assert "**FAIL**" in (tmp_path / "REPRODUCTION.md").read_text()
+
+    def raising(*a, **k):
+        raise FloatingPointError("a run that raises")
+
+    monkeypatch.setattr(run_all, "run_one", raising)
+    assert run_all.main(["--only", "pol", "temporal", "--cpu", "--results-dir", str(tmp_path)]) == 1
+    with pytest.raises(SystemExit, match="matches nothing"):
+        run_all.main(["--only", "nosuch", "--cpu", "--results-dir", str(tmp_path)])
+    with pytest.raises(ValueError, match="JAX study scripts"):
+        run_all.main(["--only", "pol", "--cpu", "--results-dir", str(RESULTS)])
+
+
+def _ast_value(path, name):
+    import ast
+
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Assign) and getattr(node.targets[0], "id", None) == name:
+            return eval(compile(ast.Expression(node.value), str(path), "eval"), {"dict": dict})
+    raise AssertionError(f"no {name} in {path}")
+
+
+def test_plan_and_reference_tables_equal_the_jax_scripts():
+    from na_dd_tpu_torch.studies import reference_values as ours
+    from na_dd_tpu_torch.studies.run_all import PLAN
+    from na_dd_tpu_torch.studies.write_reproduction import ORDER
+    from studies import reference_values as theirs
+    from studies.write_reproduction import ORDER as J_ORDER
+
+    assert PLAN == _ast_value(REPO / "studies" / "run_all_tpu.py", "PLAN")
+    assert ORDER == J_ORDER
+    assert ours.REFERENCE_ERRORS == theirs.REFERENCE_ERRORS
+    assert ours.REFERENCE_FINAL_RATE == theirs.REFERENCE_FINAL_RATE
+    assert ours.REFERENCE_FINEST_WALLCLOCK == theirs.REFERENCE_FINEST_WALLCLOCK
+    assert ours.PARITY_GATE == 1e-8
+
+
+def test_cpu_x64_errors_are_the_record():
+    """CPU_X64_ERRORS is studies/results/reproduction_cpu_x64.json, whose pol
+    spatial ladder is pol_cpu_x64.json's and eta sweep batched_cpu_x64.json's;
+    each of the 18 runs has its levels up to the budget."""
+    from na_dd_tpu_torch.studies.reference_values import CPU_X64_ERRORS
+
+    record = json.loads((RESULTS / "reproduction_cpu_x64.json").read_text())
+    assert record["budget_node_steps"] == 5e7 and len(record["runs"]) == 18
+    copied = {tuple(key.split("/")): dict(enumerate(run["errors"]))
+              for key, run in record["runs"].items()}
+    assert CPU_X64_ERRORS == copied
+    pol = json.loads((RESULTS / "pol_cpu_x64.json").read_text())
+    assert list(CPU_X64_ERRORS[("pol", "spatial")].values()) == pol["spatial"]["errors"]
+    assert list(CPU_X64_ERRORS[("pol", "temporal")].values()) == pol["temporal"]["errors"]
+    eta = json.loads((RESULTS / "batched_cpu_x64.json").read_text())["eta_batched"]["errors"]
+    assert list(CPU_X64_ERRORS[("pol", "eta")].values()) == eta
+    for study in ("nfsp_cpcsH2_TclcdH3", "nfsp_cpcsH2_TclcdH2", "nfsp_cpcsH1_TclcdH2",
+                  "peaks_fast1e1"):
+        assert sorted(CPU_X64_ERRORS[(study, "spatial")]) == list(range(7))  # N=2..128
+
+
+def test_guide_exponent_matches_jax():
+    from na_dd_tpu.harness.plotting import guide_exponent as j_guide
+    from na_dd_tpu_torch.harness.plotting import guide_exponent
+
+    for xs, es in (([4, 8, 16], [1e-3, 2.5e-4, 6e-5]),
+                   ([1e-2, 5e-3, 2.5e-3], [1e-4, 2.5e-5, 6e-6]),
+                   ([1.0, 0.5, 0.25, 0.125, 0.0625], [0.0, 0.0, 0.71, 0.32, 0.085]),
+                   ([1.0, 2.0], [0.0, 0.0])):
+        assert guide_exponent(xs, es, 2.0) == j_guide(xs, es, 2.0)
+
+
+def _drawn(fig):
+    """Every array a figure draws: line data and mesh values, axis by axis."""
+    out = []
+    for ax in fig.axes:
+        out += [np.asarray(line.get_xydata(), dtype=float) for line in ax.lines]
+        out += [np.asarray(c.get_array(), dtype=float) for c in ax.collections
+                if c.get_array() is not None]
+    return out
+
+
+def test_plots_draw_the_jax_plots_arrays():
+    pytest.importorskip("matplotlib")
+    import matplotlib.pyplot as plt
+
+    from na_dd_tpu.harness.plotting import plot_errors_and_rates as j_plot
+    from na_dd_tpu.harness.plotting import visualize_mms_solution as j_vis
+    from na_dd_tpu.mms.cases import MMSCasePol as JPol
+    from na_dd_tpu.models import default_model_consts as j_consts
+    from na_dd_tpu_torch.harness.plotting import plot_errors_and_rates, visualize_mms_solution
+    from na_dd_tpu_torch.models.consts import default_model_consts
+
+    kw = dict(errors=[1e-3, 2.5e-4, 6e-5, 1.6e-5], rates=[2.0, 1.9], x_values=[4, 8, 16, 32],
+              x_label="N", title="demo", expected_rate=2.0)
+    figs = [(plot_errors_and_rates(**kw), j_plot(**kw))]
+    case = TCase(grid=t_make_uniform_grid(8, 8, device="cpu"),
+                 model=TModel02(consts_from_dict(j_consts._asdict())))
+    j_case = JPol(j_make_uniform_grid(8, 8), model=JModel02(j_consts))
+    assert default_model_consts._asdict() == j_consts._asdict()
+    figs.append((visualize_mms_solution(case, time_point=0.1), j_vis(j_case, time_point=0.1)))
+    for ours, theirs in figs:
+        a, b = _drawn(ours), _drawn(theirs)
+        assert len(a) == len(b) > 0
+        for x, y in zip(a, b):
+            np.testing.assert_allclose(x, y, rtol=0, atol=1e-13 * max(1.0, np.abs(y).max()))
+        plt.close(ours)
+        plt.close(theirs)
+
+
+def test_newton_step_helper_matches_jax():
+    from na_dd_tpu.utils import solve_newton_step_Fx_eq_C as j_step
+    from na_dd_tpu_torch.utils import solve_newton_step_Fx_eq_C
+
+    rng = np.random.default_rng(14)
+    J = rng.standard_normal((6, 6)) + 6 * np.eye(6)
+    x0, Fx0, C = (rng.standard_normal(6) for _ in range(3))
+    ref = j_step(x0=x0, Fx0=Fx0, JacFx0=J, C=C)
+    np.testing.assert_array_equal(solve_newton_step_Fx_eq_C(x0=x0, Fx0=Fx0, JacFx0=J, C=C), ref)
+    np.testing.assert_array_equal(solve_newton_step_Fx_eq_C(
+        x0=torch.from_numpy(x0), Fx0=torch.from_numpy(Fx0), JacFx0=torch.from_numpy(J),
+        C=torch.from_numpy(C)), ref)
+    for bad in (dict(x0=x0[None], Fx0=Fx0, JacFx0=J, C=C), dict(x0=x0, Fx0=Fx0[:5], JacFx0=J, C=C),
+                dict(x0=x0, Fx0=Fx0, JacFx0=np.zeros((6, 6)), C=C)):
+        with pytest.raises(Exception) as ours:
+            solve_newton_step_Fx_eq_C(**bad)
+        with pytest.raises(Exception) as theirs:
+            j_step(**bad)
+        assert type(ours.value) is type(theirs.value) and str(ours.value) == str(theirs.value)
+
+
+def test_timing_helpers_on_the_cpu(tmp_path):
+    import na_dd_tpu.utils as j_utils
+    import na_dd_tpu_torch.utils as utils
+
+    assert set(j_utils.__all__) <= set(utils.__all__)
+    record = {}
+    x = torch.ones(64, dtype=torch.float64)
+    for _ in range(2):
+        with utils.timed_block(record, "sum", sync=x):
+            x.sum()
+    assert record["sum"] > 0 and list(record) == ["sum"]
+    first, best, out = utils.time_compile_and_run(lambda a: a * 2, x, reps=2)
+    assert 0 < best and 0 < first and torch.equal(out, 2 * x)
+    assert utils.xla_trace is utils.device_trace
+    with utils.device_trace(str(tmp_path / "trace")):
+        (x @ x).item()
+    assert list((tmp_path / "trace").glob("*.json"))
