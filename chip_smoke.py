@@ -16,12 +16,13 @@ version on the card, and drives the port's paths:
 * 2-D, large grid: the scale_probe protocol (pol, N=1024, dt = 0.25/N, 5
   steps), where the 5-point apply runs at 1025 x 1025 (the TPU's K3);
 * 3-D: the three_d_study protocol (MMSCaseExpSin3, RegHCs, eta = 50,
-  Tf = 0.02, two Newton sweeps, dt = 1e-2/2^k), N=4..64 and N=128 in float64
-  and N=32 in float32, through ``make_setup3`` and ``run_trial3`` (kernels K5
+  Tf = 0.02, two Newton sweeps, dt = 1e-2/2^k), N=64 and N=128 in float64
+  (N=4..32 through the 3-D study CLI, below) and N=32 in float32,
+  through ``make_setup3`` and ``run_trial3`` (kernels K5
   ``bicgstab_solve3`` and K6/K7 ``stencil7_apply``);
-* 2-D, ExpSin: the ExpSin notebook's spatial study, N=2..256, on the jvp
-  route (K1/K2) and the N=256 level also fused through K4, held to the
-  notebook and to CPU-x64;
+* 2-D, ExpSin: the ExpSin notebook's N=256 level on the jvp route (K1/K2)
+  and fused through K4, held to the notebook and to CPU-x64 (the ladder
+  below it and its rate are the study CLI's run, below);
 * the goldens: every case of ``tests/test_parity_golden.py`` (the Cs, HCs,
   RegHCs and forward-Euler variants, the case families, a non-uniform grid)
   at that file's tolerances; and the 3-D Cs/HCs/RegHCs variants on
@@ -45,7 +46,8 @@ version on the card, and drives the port's paths:
   padded to 257^2 (``run_spatial_ladder_batched``), the notebook's eta sweep
   as one batch of 7 (``run_eta_study_batched``), the 3-D ladder N=4..64 as
   one batch of 5 volumes padded to 65^3 (``run_spatial_ladder3_batched``)
-  and the 3-D eta sweep at N=32 (``run_eta_sweep3``), each against CPU-x64
+  and the 3-D eta sweep at N=32 (``run_eta_sweep3``, through the 3-D study
+  CLI below), each against CPU-x64
   and, where it has one, the serial path on the card, with the batched
   K1/K2/K5/K6 (one launch a stack) against their batched plain versions
   and against the unbatched kernels system by system;
@@ -73,20 +75,23 @@ version on the card, and drives the port's paths:
   mixed, direct, value-and-grad and 2 steps of ExpSin3 N=31 (K6 on
   halo-padded volumes), each against the local run on the card; a sharded
   checkpoint saved by 4 ranks restored on 2 and on 1; the ensemble at
-  B = 1, 8, 32 (batched K1/K2) and dp=2 against dp=1;
+  B = 8, 32 and 128 (batched K1/K2; 128 in four parts), every member to
+  CPU-x64, and dp=2 against dp=1;
 * the user entry points (``na_dd_tpu_torch.studies``), each run as a user runs
   it, in a process of its own: the six-notebook reproduction of the pol
   study in its fast mode (``run_all --only pol``: the batched mixed ladder,
   the mixed temporal ladder and the mixed eta sweep, every level held to
   CPU-x64 and the report's rows read PASS) and the study CLI on the ExpSin
-  spatial ladder (``run_study``, every level to the notebook).
+  spatial ladder (``run_study``, every level to the notebook, and its rate);
+* the other study CLIs, called in process: the 3-D study's ladder
+  N=4..32 and its eta sweep at N=32 (K5/K6), the eta-gradient study at N=16
+  (K1 forward and on transposed planes) and the ensemble screen at B = 1
+  and 32 (batched K1/K2), each held to the JAX package's CPU-x64 values.
 
 It checks the errors against the reference values and the launch counts of
 each path's main level (counts set to 0 just before it, read just after),
 times the kernels (torch.profiler and CUDA events; K4 also beside the
-per-solve route on the same systems; K1/K4/K5 also at 1 and 2 blocks a SM
-beside their grid rule, and capped at 1, 2, 4, 8 iterations for their fixed
-and per-iteration cost), prints each kernel's registers and spills from
+per-solve route on the same systems), prints each kernel's registers and spills from
 ptxas, profiles five steps of each main level, and prints
 one JSON line with every kernel's numbers, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -688,7 +693,9 @@ def steady_in_turns(routes, dt, repeats=1, cold=()):
 def phase_analytic(device, jvp_iters=None):
     """The pol study with analytic couplings: the ladder and the main level
     through K4 (one launch a step), the main level through three K1 solves a
-    step (``fused_triple=False``), in float32, and on the CPU plain versions.
+    step (``fused_triple=False``) and in float32; the level is held to the
+    jvp route's value, which the ``slice`` phase holds to CPU-x64 and to the
+    CPU plain versions, and K4 to its plain version in ``k4``.
     ``jvp_iters``: the per-step Krylov iterations of the jvp route's main
     level (run here when not given)."""
     import torch
@@ -765,15 +772,6 @@ def phase_analytic(device, jvp_iters=None):
         f"{bool(s32.series.krylov_converged.all())}")
     check(math.isfinite(err32) and rel32 <= 1e-2, "analytic N=256 f32 off its error floor")
     check(kernels.LAUNCHES["triple_solve"] == nsteps, "analytic f32: expected one K4 launch a step")
-
-    # the same level through the plain versions on this machine's CPU
-    t0 = time.perf_counter()
-    _, _, s_cpu = run_level(MAIN_N, torch.float64, "cpu", coupling_source="analytic")
-    err_cpu = s_cpu.overall_combined_error
-    rel_cpu = abs(err - err_cpu) / err_cpu
-    log(f"[analytic] N=256 on the CPU (plain versions): error {err_cpu!r}, card vs CPU rel "
-        f"{rel_cpu:.3e} ({time.perf_counter() - t0:.1f} s)")
-    check(rel_cpu <= 1e-8, "analytic N=256: the card and the CPU disagree")
     return launches, steady, err, steady_ps
 
 
@@ -917,38 +915,16 @@ def expsin_main_level(device, route, **integrator_kw):
 
 
 def phase_expsin(device):
-    """The ExpSin notebook's spatial ladder N=2..256 (cell 9) on the card:
-    every level to the notebook at 1e-8, N=256 also to CPU-x64, the observed
-    rate against the notebook's; then the N=256 level through the fused
-    analytic route (one K4 launch a step); both routes' steady wall-clock in
-    turns, and five jvp steps under the profiler."""
-    import torch
-
-    from na_dd_tpu_torch.harness import calculate_observed_rates
-
-    errors = []
-    for N in (2, 4, 8, 16, 32, 64, 128):
-        trial, dt = make_expsin_trial(N, torch.float64, device)
-        s = trial.run_for_errors(Tf=TF, dt=dt)
-        err = s.overall_combined_error
-        rel = abs(err - EXPSIN_REFERENCE[N]) / EXPSIN_REFERENCE[N]
-        log(f"[expsin] N={N}: error {err!r}, vs notebook {EXPSIN_REFERENCE[N]!r} rel {rel:.3e}")
-        check(math.isfinite(err) and rel <= PARITY_RTOL, f"ExpSin N={N} off the notebook")
-        check(bool(s.series.krylov_converged.all()), f"ExpSin N={N}: a solve did not converge")
-        errors.append(err)
-
+    """The ExpSin notebook's N=256 level (cell 9) on the card, to the notebook
+    at 1e-8 and to CPU-x64 (the ladder below it and its rate are the
+    ``studies`` phase's CLI run); then through the fused analytic route (one
+    K4 launch a step); both routes' steady wall-clock in turns, and five jvp
+    steps under the profiler."""
     trial, dt, err, launches, nsteps = expsin_main_level(device, "jvp")
-    errors.append(err)
     for name in ("bicgstab_solve", "stencil5_apply"):
         check(launches[name] == 3 * nsteps,
               f"ExpSin N=256: {name} launched {launches[name]} times, expected {3 * nsteps}")
     check(launches["triple_solve"] == 0, "ExpSin N=256 jvp launched K4")
-
-    rate = calculate_observed_rates(errors)[-1][0]
-    rate_ref = calculate_observed_rates(list(EXPSIN_REFERENCE.values()))[-1][0]
-    log(f"[expsin] observed rate (3-point, N=64,128,256) {rate!r}, the notebook's {rate_ref!r}, "
-        f"difference {abs(rate - rate_ref):.3e} (limit 1e-6)")
-    check(abs(rate - rate_ref) <= 1e-6, "ExpSin observed rate off the notebook's")
 
     trial_an, _, err_an, launches_an, _ = expsin_main_level(
         device, "analytic fused", coupling_source="analytic")
@@ -1166,9 +1142,9 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profile_device(fn):
-    """Run ``fn`` under torch.profiler; return (wall_s, {kernel name:
-    (calls, device_us)}) over the device kernels it launched."""
+def traced(fn):
+    """Run ``fn`` once as a warm-up, then once under torch.profiler; return
+    (wall_s, the profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1179,12 +1155,28 @@ def profile_device(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return wall, prof
+
+
+def device_kernels(prof):
+    """{kernel name: (calls, device_us)} of a trace, read from the
+    profiler's raw events: ``prof.events()`` builds the host operator tree
+    too, at ~70 us an event, seconds for a traced run of tens of thousands
+    of launches (``phase_profile`` holds this reader to it)."""
     kernels = {}
-    for evt in prof.events():
-        if str(evt.device_type).endswith("CUDA") and evt.device_time_total > 0:
-            calls, us = kernels.get(evt.name, (0, 0.0))
-            kernels[evt.name] = (calls + 1, us + evt.device_time_total)
-    return wall, kernels
+    for evt in prof.profiler.kineto_results.events():
+        if (str(evt.device_type()).endswith("CUDA") and not evt.is_async()
+                and evt.duration_ns() > 0):
+            calls, us = kernels.get(evt.name(), (0, 0.0))
+            kernels[evt.name()] = (calls + 1, us + evt.duration_ns() / 1e3)
+    return kernels
+
+
+def profile_device(fn):
+    """Run ``fn`` under torch.profiler; return (wall_s, {kernel name:
+    (calls, device_us)}) over the device kernels it launched."""
+    wall, prof = traced(fn)
+    return wall, device_kernels(prof)
 
 
 def kernel_device_ms(fn, reps: int, name: str):
@@ -1262,84 +1254,14 @@ def launch_event_ms(fn, reps: int, name: str):
 # Arrays a solve touches per pass sweep (csrc/bicgstab.cu, bicgstab3.cu):
 # iteration 0 and each later iteration, planes (2-D) or volumes (3-D).
 PASSES = {2: (27, 32), 3: (31, 36)}
-BARRIERS_PER_ITERATION = 3
-
-
-def solve_of(b):
-    """(K1 or K5 wrapper, its library prefix) for a plane or a volume."""
-    from na_dd_tpu_torch.ops import kernels
-
-    if b.dim() == 2:
-        return kernels.bicgstab_solve, "bicgstab"
-    return kernels.bicgstab_solve3, "bicgstab3"
-
-
-def solve_costs(st, b, inv, mask, label, reps):
-    """Fixed and per-iteration device time of K1/K5 on one random dominant
-    system: solves capped at 1, 2, 4 and 8 iterations (tol 1e-13, so each
-    runs its whole budget), the least-squares line through them, and the
-    slope less the streaming time of one iteration at the HBM rate, divided
-    by the barriers an iteration makes."""
-    solve, _ = solve_of(b)
-    caps = (1, 2, 4, 8)
-    us = []
-    for cap in caps:
-        used = int(solve(st, b, inv, mask, tol=1e-13, iters=cap)[1]["iters"])
-        check(used == cap, f"{label}: a solve capped at {cap} took {used} iterations")
-        ms = kernel_device_ms(lambda: solve(st, b, inv, mask, tol=1e-13, iters=cap), reps,
-                              "bicgstab_kernel")
-        check(ms is not None, f"{label}: no device time for the solve kernel")
-        us.append(ms * 1e3)
-    slope, intercept = (float(v) for v in np.polyfit(caps, us, 1))
-    stream = PASSES[b.dim()][1] * b.numel() * b.element_size() / HBM_BYTES_PER_S * 1e6
-    per_barrier = (slope - stream) / BARRIERS_PER_ITERATION
-    log(f"[cost] {label}: capped at {caps} iterations " + ", ".join(f"{u:.2f}" for u in us)
-        + f" us; fixed {intercept:.2f} us, per iteration {slope:.2f} us, of which streaming "
-        f"{stream:.2f} us ({PASSES[b.dim()][1]} arrays at the HBM rate); per barrier "
-        f"{per_barrier:.2f} us")
-
-
-def grid_table(st, b, inv, mask, iters, label, reps):
-    """Device time of one K1/K5 solve of a main-path system at a grid of 1
-    and of 2 blocks a SM and at the grid rule's own (the occupancy limit,
-    capped by the blocks the points need), in float64 and float32."""
-    import torch
-
-    from na_dd_tpu_torch.integrators.pc_trapezoidal import default_krylov_tol
-    from na_dd_tpu_torch.ops import kernels
-
-    solve, prefix = solve_of(b)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    need = -(-b.numel() // 256)
-    for dtype in (torch.float64, torch.float32):
-        st_d = type(st)(*(c.to(dtype) for c in st))
-        b_d, inv_d, mask_d = (t.to(dtype) for t in (b, inv, mask))
-        tol = default_krylov_tol(dtype)
-
-        def run():
-            return solve(st_d, b_d, inv_d, mask_d, tol=tol, iters=iters)
-
-        run()
-        key = (prefix, dtype, b.numel())
-        rule = kernels._BLOCKS[key]
-        for name, blocks in (("rule", rule), ("1/SM", min(need, sms)), ("2/SM", min(need, 2 * sms))):
-            kernels._BLOCKS[key] = blocks
-            used = int(run()[1]["iters"])
-            ms = kernel_device_ms(run, reps, "bicgstab_kernel")
-            check(ms is not None, f"{label}: no device time for the solve kernel")
-            log(f"[grid] {label} {str(dtype)[6:]}: {name} {blocks} blocks "
-                f"({blocks / sms:.2f} a SM): {ms * 1e3:.2f} us, {used} iterations")
-        kernels._BLOCKS[key] = rule
 
 
 def timings_k1_1025(device):
     """K1 at 1025 x 1025 on the step-1 T system of the large-grid level
-    (pol N=1024, dt = 0.25/N), with its grid table, and the fixed and
-    per-iteration cost on a random dominant system of that size.  float64."""
+    (pol N=1024, dt = 0.25/N).  float64."""
     import torch
 
     from na_dd_tpu_torch.ops import kernels
-    from na_dd_tpu_torch.ops.grid import make_uniform_grid
 
     systems, solver = step1_systems(torch.float64, device, SCALE_N, 0.25 / SCALE_N)
     st, b, mask = systems[0]
@@ -1359,13 +1281,6 @@ def timings_k1_1025(device):
             st, b, inv, mask, tol=tol, iters=solver.iters), 5),
         nbytes=9 * n * item, ops=(2 * 9 + 6 * 2 + 14) * n * max(iters, 1))
     row["max_abs_err"] = err
-    grid_table(st, b, inv, mask, solver.iters, "K1 1025x1025 step-1 T", 10)
-    grid_mask = make_uniform_grid(SCALE_N, SCALE_N, dtype=b.dtype, device=device).interior_mask
-    st_r, b_r = random_planes(np.random.default_rng(1025), tuple(b.shape), b.dtype, device,
-                              dominant=True)
-    st_r = type(st_r)(*(c * grid_mask for c in st_r))
-    solve_costs(st_r, b_r * grid_mask, jacobi(st_r, grid_mask), grid_mask,
-                "K1 1025x1025 random dominant", 5)
     return row
 
 
@@ -1423,12 +1338,7 @@ def phase_timings(device):
         check(ms is not None and ms > 0, f"CUDA events saw no launch of {name}")
         log(f"[time] {name} {label} by CUDA events around its launches: {ms * 1e3:.2f} us "
             f"(its timing row's {res[row]['ms'] * 1e3:.2f} us)")
-    grid_table(st, b, inv, mask, solver.iters, "K1 257x257 step-1 T", 50)
-    st_r, b_r = random_planes(np.random.default_rng(257), tuple(b.shape), b.dtype, device,
-                              dominant=True)
-    st_r = type(st_r)(*(c * mask for c in st_r))
-    solve_costs(st_r, b_r * mask, jacobi(st_r, mask), mask, "K1 257x257 random dominant", 50)
-    del systems, st, b, mask, inv, st_r, b_r
+    del systems, st, b, mask, inv
     res["bicgstab_solve_1025"] = timings_k1_1025(device)
     torch.cuda.empty_cache()
     res.update(timings_k4_k3(device))
@@ -1460,74 +1370,9 @@ def cast_triple(operands, dtype):
         for o in operands)
 
 
-def triple_costs(operands, label, reps):
-    """Fixed and per-iteration device time of K4 on one set of random
-    dominant operands: every solve capped at 1, 2, 4 and 8 iterations (tol
-    1e-13, so each runs its whole budget), the least-squares line through
-    them; per iteration = the slope over the three solves, per barrier = that
-    less the streaming of one iteration at the HBM rate, over the three
-    barriers an iteration makes."""
-    from na_dd_tpu_torch.ops import kernels
-
-    caps = (1, 2, 4, 8)
-    us = []
-    for cap in caps:
-        used = kernels.triple_solve(*operands, tol=1e-13, iters=cap)[3]["iters"].tolist()
-        check(used == [cap] * 3, f"{label}: solves capped at {cap} took {used} iterations")
-        ms = kernel_device_ms(lambda: kernels.triple_solve(*operands, tol=1e-13, iters=cap),
-                              reps, "triple_solve_kernel")
-        check(ms is not None, f"{label}: no device time for K4")
-        us.append(ms * 1e3)
-    slope, intercept = (float(v) for v in np.polyfit(caps, us, 1))
-    rhs = operands[6]
-    stream = PASSES[2][1] * rhs.numel() * rhs.element_size() / HBM_BYTES_PER_S * 1e6
-    per_iteration = slope / 3
-    per_barrier = (per_iteration - stream) / BARRIERS_PER_ITERATION
-    log(f"[cost] {label}: solves capped at {caps} iterations " + ", ".join(f"{u:.2f}" for u in us)
-        + f" us; fixed {intercept:.2f} us, per iteration of a solve {per_iteration:.2f} us, of "
-        f"which streaming {stream:.2f} us ({PASSES[2][1]} planes at the HBM rate); per barrier "
-        f"{per_barrier:.2f} us")
-    return {"us": us, "fixed": intercept, "per_iteration": per_iteration,
-            "per_barrier": per_barrier}
-
-
-def triple_grid_table(operands, iters, label, reps):
-    """K4's device time on one set of operands at its grid rule (two points
-    a thread, capped by what is co-resident) and at a grid of half a block,
-    1 and 2 blocks a SM, in float64 and float32."""
-    import torch
-
-    from na_dd_tpu_torch.integrators.pc_trapezoidal import default_krylov_tol
-    from na_dd_tpu_torch.ops import kernels
-
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    n = operands[6].numel()
-    need = -(-n // 256)
-    for dtype in (torch.float64, torch.float32):
-        ops_d = cast_triple(operands, dtype)
-        tol = default_krylov_tol(dtype)
-
-        def run():
-            return kernels.triple_solve(*ops_d, tol=tol, iters=iters)
-
-        run()
-        key = ("triple_solve", dtype, n)
-        rule = kernels._BLOCKS[key]
-        for name, blocks in (("rule", rule), ("1/2 a SM", min(need, sms // 2)),
-                             ("1/SM", min(need, sms)), ("2/SM", min(need, 2 * sms))):
-            kernels._BLOCKS[key] = blocks
-            used = run()[3]["iters"].tolist()
-            ms = kernel_device_ms(run, reps, "triple_solve_kernel")
-            check(ms is not None, f"{label}: no device time for K4")
-            log(f"[grid] {label} {str(dtype)[6:]}: {name} {blocks} blocks "
-                f"({blocks / sms:.2f} a SM): {ms * 1e3:.2f} us, iterations {used}")
-        kernels._BLOCKS[key] = rule
-
-
 def timings_k4_k3(device):
     """K4 on the step-1 systems of the N=256 level and on random systems at
-    1025 x 1025, each beside the per-solve route on the same operands, with
-    its grid table and its fixed and per-iteration cost at both sizes; K3 (the
+    1025 x 1025, each beside the per-solve route on the same operands; K3 (the
     5-point apply) at 1025 x 1025.  float64."""
     import torch
 
@@ -1569,11 +1414,6 @@ def timings_k4_k3(device):
             f"{route_ms / res[key]['wrapper_ms']:.2f}x the K4 wrapper call; cooperative grid "
             f"{blocks} blocks of 256 threads; {res[key]['ms'] * 1e3 / max(sum(its), 1):.2f} us "
             "an iteration")
-    triple_grid_table(step1, solver.iters, f"K4 {MAIN_N + 1}x{MAIN_N + 1} step-1", 20)
-    triple_costs(random_triple(np.random.default_rng(257), (MAIN_N + 1, MAIN_N + 1),
-                               torch.float64, device),
-                 f"K4 {MAIN_N + 1}x{MAIN_N + 1} random dominant", 20)
-    triple_costs(big, f"K4 {SCALE_N + 1}x{SCALE_N + 1} random dominant", 2)
     del big, step1, operands, fused, k4_out
 
     st, u = random_planes(np.random.default_rng(33), (SCALE_N + 1, SCALE_N + 1), torch.float64,
@@ -1599,7 +1439,9 @@ def timings_k4_k3(device):
 
 def phase_profile(device):
     """Where a main-level step's time goes: 5 steps of the f64 N=256 level
-    under torch.profiler — device busy share and the busiest kernels."""
+    under torch.profiler — device busy share and the busiest kernels; and
+    the script's trace reader (:func:`device_kernels`) held to
+    ``prof.events()`` on one step."""
     import torch
 
     trial, dt = make_trial(MAIN_N, torch.float64, device)
@@ -1614,6 +1456,27 @@ def phase_profile(device):
     top = sorted(found.items(), key=lambda kv: -kv[1][1])[:6]
     for name, (calls, us) in top:
         log(f"[profile]   {us / 1e3:9.3f} ms in {calls:6d} calls: {name[:90]}")
+
+    # the raw reader held to the profiler's own event list, on a one-step trace
+    _, prof = traced(lambda: trial.run_for_errors(Tf=dt, dt=dt))
+    t0 = time.perf_counter()
+    raw = device_kernels(prof)
+    t_raw = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    listed = {}
+    for evt in prof.events():
+        if str(evt.device_type).endswith("CUDA") and evt.device_time_total > 0:
+            calls, us = listed.get(evt.name, (0, 0.0))
+            listed[evt.name] = (calls + 1, us + evt.device_time_total)
+    t_listed = time.perf_counter() - t0
+    busy_raw = sum(us for _, us in raw.values())
+    busy_listed = sum(us for _, us in listed.values())
+    log(f"[profile] one step read raw: {sum(c for c, _ in raw.values())} kernel launches, "
+        f"{busy_raw:.3f} us busy, in {t_raw:.3f} s; by prof.events(): "
+        f"{sum(c for c, _ in listed.values())} launches, {busy_listed:.3f} us, in {t_listed:.3f} s")
+    check({k: c for k, (c, _) in raw.items()} == {k: c for k, (c, _) in listed.items()}
+          and abs(busy_raw - busy_listed) <= 1e-9 * busy_listed,
+          "the raw trace reader disagrees with prof.events()")
 
     from na_dd_tpu_torch.harness.trial import _collect_errors
 
@@ -1781,19 +1644,12 @@ def phase_k5(device):
 
 
 def phase_three_d_f64(device):
+    """The 3-D study's N=64 level (the ladder N=4..32 below it is the
+    ``drivers`` phase's 3-D study run, each level held to CPU-x64 there)."""
     import torch
 
     from na_dd_tpu_torch.ops import kernels
     from na_dd_tpu_torch.three_d.harness import run_trial3
-
-    for N in (4, 8, 16, 32):
-        r, tally = run_level3(N, torch.float64, device)
-        ref = THREE_D_CPU_X64[N]
-        rel = abs(r["error"] - ref) / ref
-        log(f"[3d f64] N={N}: error {r['error']!r}, vs CPU-x64 {ref!r} rel {rel:.3e}; "
-            f"{tally.summary()}")
-        check(math.isfinite(r["error"]) and rel <= 1e-8, f"3-D N={N} off the CPU-x64 value")
-        check(r["krylov_converged"], f"3-D N={N}: a solve did not converge")
 
     # the 3-D main path: counts set to 0 just before, read just after
     N, dt = MAIN_N3, dt3(MAIN_N3)
@@ -1948,7 +1804,6 @@ def phase_timings3(device):
         if ms_r is not None:
             log(f"[time] bicgstab_solve3 {label} random dominant system: {it_r} iterations in "
                 f"{ms_r * 1e3:.2f} us on the device, {ms_r * 1e3 / it_r:.2f} us an iteration")
-        solve_costs(st_r, b_r, inv_r, mask, f"K5 {label} random dominant", 20 // reps)
         del st_r, b_r, inv_r
         first, later = PASSES[3]
         passes = (first + later * (max(iters, 1) - 1)) * n * item
@@ -1958,7 +1813,6 @@ def phase_timings3(device):
             f"{later} x {max(iters, 1) - 1} volumes = {passes / 1e6:.1f} MB, "
             f"{passes / HBM_BYTES_PER_S * 1e6:.1f} us at the HBM rate; measured "
             f"{res[N]['bicgstab_solve3']['ms'] * 1e3:.1f} us")
-        grid_table(st, b, inv, mask, solver.iters, f"K5 {label} step-1 T", 20 // reps)
         del st, b, mask, inv
         torch.cuda.empty_cache()
     return res
@@ -3281,41 +3135,6 @@ def phase_batched3(device):
                 err_solve=err_solve, err_apply=err_apply, per_step=per_step, idle=idle)
 
 
-def phase_eta3(device):
-    """The 3-D study's eta sweep (studies/three_d_study.py --eta-sweep) at the
-    ladder's N=32 step, 7 eta in ONE batch (run_eta_sweep3): every eta
-    against CPU-x64 (1e-8), every solve converged; 16 steps of one Newton
-    sweep, 48 K5 and 48 K6 launches."""
-    import torch
-
-    from na_dd_tpu_torch.models.coefficients import Model02
-    from na_dd_tpu_torch.models.consts import default_model_consts
-    from na_dd_tpu_torch.ops import kernels
-    from na_dd_tpu_torch.three_d.harness import run_eta_sweep3
-    from na_dd_tpu_torch.three_d.mms import MMSCaseExpSin3
-
-    model = Model02(default_model_consts._replace(**THREE_D_CONSTS))
-    etas = [float(e) for e in np.logspace(1, 3, 7)]
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = run_eta_sweep3(MMSCaseExpSin3, model=model, etas=etas, device=device, **ETA3)
-    wall = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    nsteps = round(ETA3["Tf"] / ETA3["dt"])
-    log(f"[eta3] {len(etas)} eta at N={ETA3['N']} in one batch: {nsteps} steps in {wall:.3f} s, "
-        f"launches {launches}")
-    for name in ("bicgstab_solve3", "stencil7_apply"):
-        check(launches[name] == 3 * nsteps,
-              f"{name} launched {launches[name]} times, expected {3 * nsteps}")
-    check(all(res["converged"]), f"eta3: a solve did not converge {res['converged']}")
-    for eta, err, ref in zip(res["etas"], res["errors"], ETA3_CPU_X64):
-        rel = abs(err - ref) / ref
-        log(f"[eta3] eta={eta:g}: error {err!r}, vs CPU-x64 rel {rel:.3e} (limit 1e-8)")
-        check(math.isfinite(err) and rel <= 1e-8, f"eta3 eta={eta} off the CPU-x64 value")
-    return dict(launches=launches, wall=wall, errors=res["errors"])
-
-
 # ---------------------------------------------------------------------------
 # the solver options: probed planes, the while form, matrix-free, and in 3-D
 # probing, the direct solve, the Crank-Nicolson heat solve, gradients; the
@@ -4203,9 +4022,16 @@ def phase_batched_analytic(device, per_solve=None, eta_per_solve=None):
 PAR_N, PAR_STEPS, PAR_WORLD = 255, 5, 4
 PAR_SMALL_N, PAR_N3 = 15, 31
 PAR_ENSEMBLE = dict(study="pol", N=64, Tf=0.01, dt=5e-4)  # the JAX study's defaults
-PAR_BATCHES = (1, 8, 32, 128)  # the JAX study's batches; 128 runs as 4 parts of 32
 PAR_K1_B = 32  # the batch whose step-1 T stack the kernels line times (one K1 launch)
-PAR_DP_B = 8
+PAR_DP_B = 8  # the batch dp=2 is held to dp=1 at
+PAR_PARTS_B = 128  # a batch build_ensemble splits into parts of kernels.MAX_BATCH
+# an ensemble member's final-field H-norms² against the CPU-x64 record (they
+# are O(1e-3), summed in another order)
+ENSEMBLE_RTOL = 1e-10
+
+
+def rel_to(value, ref):
+    return abs(value - ref) / abs(ref)
 
 
 def par_gathered(ops, state):
@@ -4378,9 +4204,9 @@ def phase_parallel(device):
     value-and-grad (N=15) and 2 steps of ExpSin3 N=31 (K6 on halo-padded
     volumes), each against its local run on the card; the sharded
     checkpoint saved by 4 ranks and restored on 2 and on 1 (bit for bit);
-    the ensemble at the JAX study's defaults, B = 1, 8, 32 (batched K1/K2;
-    a first run and one warm run each), and dp=2 (ranks 0 and 1) against
-    dp=1 at B = 8 (1e-13, equal iterations)."""
+    the ensemble at the JAX study's defaults, B = 8 and 32 (batched K1/K2;
+    one run each: the ``drivers`` phase times the study's batches), and dp=2
+    (ranks 0 and 1) against dp=1 at B = 8 (1e-13, equal iterations)."""
     import shutil
     import tempfile
 
@@ -4392,7 +4218,10 @@ def phase_parallel(device):
     from na_dd_tpu_torch.integrators.pc_trapezoidal import _one_shape
     from na_dd_tpu_torch.ops.shifts import BATCHED_OPS, LOCAL_OPS
     from na_dd_tpu_torch.parallel import run_ranks
+    from na_dd_tpu_torch.ops import kernels
     from na_dd_tpu_torch.parallel.step import simulate_with_errors
+    from na_dd_tpu_torch.studies.ensemble_throughput import final_norms
+    from na_dd_tpu_torch.studies.reference_values import ENSEMBLE_NORMS_CPU_X64
     from na_dd_tpu_torch.three_d.harness import run_trial3
 
     f64 = torch.float64
@@ -4484,25 +4313,35 @@ def phase_parallel(device):
           "checkpoint restored on one rank is not the saved state")
     log("[parallel] checkpoint saved by 4 ranks restored bit for bit on 2 and on 1")
 
-    # the ensemble at the JAX study's defaults
+    # the ensemble at the JAX study's defaults, dp=1, one untimed run each
+    # (the drivers phase times the JAX study's batches through its CLI): B=8
+    # for dp=2 to be held to, B=32 for the kernels line, B=128 in the
+    # ceil(B / MAX_BATCH) parts build_ensemble splits it into; every member
+    # to the CPU-x64 record
     ens_rows, dp1 = {}, None
-    for B in PAR_BATCHES:
+    for B in (PAR_DP_B, PAR_K1_B, PAR_PARTS_B):
         build = build_ensemble(np.linspace(20.0, 200.0, B).tolist(), device=device,
                                **PAR_ENSEMBLE)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         (s_e, it_e), launches_e, _ = counted(build["run"])
         first = time.perf_counter() - t0
-        steady = turns({"run": build["run"]})[0]["run"]
         check(all(bool(v.isfinite().all()) for v in s_e), f"ensemble B={B}: non-finite state")
         n_parts = len(build["parts"])
+        check(n_parts == -(-B // kernels.MAX_BATCH),
+              f"ensemble B={B}: {n_parts} parts of at most {kernels.MAX_BATCH}")
         check(launches_e["bicgstab_solve"] == 3 * build["num_steps"] * n_parts,
               f"ensemble B={B}: {launches_e['bicgstab_solve']} K1 launches, expected one a "
               f"solve of each of its {n_parts} parts")
-        ens_rows[B] = dict(first=first, steady=steady, launches=launches_e, build=build)
+        worst = max(rel_to(a, b) for got, want in
+                    zip(final_norms(build["grid"], s_e), ENSEMBLE_NORMS_CPU_X64[B], strict=True)
+                    for a, b in zip(got, want, strict=True))
+        check(worst <= ENSEMBLE_RTOL, f"ensemble B={B}: members off the CPU-x64 record")
+        ens_rows[B] = dict(launches=launches_e, build=build)
         log(f"[ensemble] pol N={PAR_ENSEMBLE['N']} steps={build['num_steps']} budget "
-            f"{build['budget']} B={B:3d}: steady {steady:.6f} s, {B / steady:.3f} sims/s, per-sim "
-            f"{1e3 * steady / B:.3f} ms (first run {first:.6f} s; launches {launches_e})")
+            f"{build['budget']} B={B:3d} in {n_parts} parts: first run {first:.6f} s (launches "
+            f"{launches_e}); members' final-field H-norms² max rel to CPU-x64 {worst:.3e} "
+            f"(limit {ENSEMBLE_RTOL:g})")
         if B == PAR_DP_B:
             dp1 = (s_e, it_e)
     s_dp, it_dp = r0["ensemble"]
@@ -4547,7 +4386,6 @@ def phase_parallel(device):
                       k6={"stencil7_apply": total["stencil7_apply"]},
                       k1=ens_rows[PAR_K1_B]["launches"]),
         level_wall=level["wall_warm"], local_wall=t_warm, per_step=per_step,
-        ensemble={B: (r["steady"], B / r["steady"]) for B, r in ens_rows.items()},
     )
 
 
@@ -4606,6 +4444,8 @@ def phase_studies(device):
     import glob
     import tempfile
 
+    from na_dd_tpu_torch.harness import calculate_observed_rates
+
     del device  # the entry points run on the card by default
     walls = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_studies_") as tmp:
@@ -4640,9 +4480,123 @@ def phase_studies(device):
         rel = abs(res["errors"][-1] - EXPSIN_N256_CPU_X64) / EXPSIN_N256_CPU_X64
         log(f"[studies] expsin spatial (CLI) N=256 vs CPU-x64 {EXPSIN_N256_CPU_X64!r}: rel {rel:.3e}")
         check(rel <= PARITY_RTOL, "the CLI's ExpSin N=256 off CPU-x64")
+        rate = calculate_observed_rates(res["errors"])[-1][0]
+        rate_ref = calculate_observed_rates(list(EXPSIN_REFERENCE.values()))[-1][0]
+        log(f"[studies] expsin spatial (CLI) observed rate (3-point, N=64,128,256) {rate!r}, the "
+            f"notebook's {rate_ref!r}, difference {abs(rate - rate_ref):.3e} (limit 1e-6)")
+        check(abs(rate - rate_ref) <= 1e-6, "the CLI's ExpSin observed rate off the notebook's")
     log("[studies] entry-point wall-clock: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
         + f"; {sum(walls.values()):.1f} s in all")
     return walls
+
+
+ENSEMBLE_BATCHES = (1, 32)  # the drivers phase's batches of the ensemble CLI
+
+
+def phase_drivers(device):
+    """The port's other study CLIs, each called in this process as a user's
+    ``main(argv)`` on the card, writing to a temporary directory (the
+    ``studies`` phase proves the entry points as processes): the 3-D study's
+    spatial ladder N=4..32 (every level to CPU-x64 at 1e-8 and its own
+    adjudication passed), its eta sweep at N=32 (7 eta in one batch, to
+    ``ETA3_CPU_X64`` at 1e-8; 16 steps of one Newton sweep, so exactly 48 K5
+    and 48 K6 launches), the eta-gradient study at N=16 (every row's Obs and
+    dObs/deta to the JAX study's CPU-x64 run at 1e-8, the central
+    differences at 1e-4) and the ensemble screen at B = 1 and 32 (every
+    member's final-field H-norms² to the CPU-x64 record at 1e-10).  A
+    nonzero return fails the phase; the 3-D calls must launch K5/K6, the 2-D
+    ones K1/K2."""
+    import tempfile
+
+    import torch
+
+    from na_dd_tpu_torch.ops import kernels
+    from na_dd_tpu_torch.studies import ensemble_throughput, eta_gradient_study, three_d_study
+    from na_dd_tpu_torch.studies.reference_values import (
+        ENSEMBLE_NORMS_CPU_X64,
+        ETA_GRADIENT_CPU_X64,
+    )
+
+    del device  # the CLIs run on the card by default
+    walls, counts = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_drivers_") as tmp:
+
+        def call(label, module, argv, name, kernel_names):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = module.main([*argv, "--results-dir", tmp])
+            torch.cuda.synchronize()
+            walls[label] = time.perf_counter() - t0
+            launches = counts[label] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            log(f"[drivers] {label}: main({' '.join(argv)}) returned {rc} in {walls[label]:.1f} s "
+                f"wall; launches {launches}")
+            check(rc == 0, f"{label} returned {rc}")
+            for kernel in kernel_names:
+                check(launches.get(kernel, 0) > 0, f"{label} launched no {kernel}")
+            res = json.loads((Path(tmp) / name).read_text())
+            check(res["device"] != "cpu", f"{label} ran on {res['device']}")
+            return res
+
+        res = call("three_d_study spatial", three_d_study, ["--levels", "4", "--n0", "4"],
+                   "three_d_study.json", ("bicgstab_solve3", "stencil7_apply"))
+        for lv in res["levels"]:
+            rel = rel_to(lv["error"], THREE_D_CPU_X64[lv["N"]])
+            log(f"[drivers] 3-D N={lv['N']}: error {lv['error']!r}, CPU-x64 "
+                f"{THREE_D_CPU_X64[lv['N']]!r}, rel {rel:.3e}; cold {lv['cold_s']:.3f} s, warm "
+                f"{lv['warm_s']:.6f} s ({1e3 * lv['warm_per_step_s']:.3f} ms a step)")
+            check(rel <= PARITY_RTOL and lv["converged"], f"3-D study N={lv['N']} off CPU-x64")
+        adj = res["adjudication"]
+        check(adj["passed"] is True and len(adj["gated_levels"]) == 4,
+              f"the 3-D study's own adjudication: {adj['passed']}, "
+              f"{len(adj['gated_levels'])} levels gated")
+
+        res = call("three_d_study eta sweep", three_d_study,
+                   ["--eta-sweep", "--n0", str(ETA3["N"]), "--dt0", repr(ETA3["dt"])],
+                   "three_d_eta_sweep.json", ("bicgstab_solve3", "stencil7_apply"))
+        worst = max(rel_to(e, r) for e, r in zip(res["errors"], ETA3_CPU_X64))
+        log(f"[drivers] 3-D eta sweep N={ETA3['N']}: max rel to ETA3_CPU_X64 {worst:.3e} "
+            f"(limit {PARITY_RTOL:g}); sweep {res['wallclock_s']:.3f} s")
+        check(len(res["errors"]) == len(ETA3_CPU_X64) and worst <= PARITY_RTOL
+              and all(res["converged"]), "the 3-D study's eta sweep off CPU-x64")
+        eta3_wall = res["wallclock_s"]
+        nsteps = round(ETA3["Tf"] / ETA3["dt"])
+        check(counts["three_d_study eta sweep"] == {"bicgstab_solve3": 3 * nsteps,
+                                                    "stencil7_apply": 3 * nsteps},
+              f"the 3-D eta sweep: expected {3 * nsteps} K5 and K6 launches, one a solve")
+
+        res = call("eta_gradient_study", eta_gradient_study,
+                   ["--n", str(ETA_GRADIENT_CPU_X64["N"])], "eta_gradient_study.json",
+                   ("bicgstab_solve", "stencil5_apply"))
+        worst = 0.0
+        for row, ref in zip(res["rows"], ETA_GRADIENT_CPU_X64["rows"], strict=True):
+            check(row["eta"] == ref["eta"], f"eta-gradient row at eta {row['eta']}")
+            worst = max(worst, rel_to(row["obs"], ref["obs"]),
+                        rel_to(row["dobs_deta"], ref["dobs_deta"]))
+        fd = max(c["rel_dev"] for c in res["fd_checks"])
+        log(f"[drivers] eta gradient N={res['N']}: max rel of Obs and dObs/deta to the CPU-x64 "
+            f"run {worst:.3e} (limit {PARITY_RTOL:g}); adjoint against central differences "
+            f"{fd:.3e} (limit 1e-4)")
+        check(worst <= PARITY_RTOL and fd <= 1e-4, "the eta gradient off CPU-x64")
+
+        res = call("ensemble_throughput", ensemble_throughput,
+                   ["--batches", ",".join(map(str, ENSEMBLE_BATCHES))], "ensemble_throughput.json",
+                   ("bicgstab_solve", "stencil5_apply"))
+        sims = {}
+        for B in ENSEMBLE_BATCHES:
+            row = res["batches"][str(B)]
+            ref = ENSEMBLE_NORMS_CPU_X64[B]
+            check(len(row["final_norms"]) == len(ref) == B, f"ensemble B={B}: member count")
+            worst = max(rel_to(a, b) for got, want in zip(row["final_norms"], ref)
+                        for a, b in zip(got, want, strict=True))
+            sims[B] = row["sims_per_s"]
+            log(f"[drivers] ensemble B={B}: {row['sims_per_s']:.3f} sims/s, steady "
+                f"{row['batch_s']:.6f} s (first {row['first_s']:.6f} s); members' final-field "
+                f"H-norms² max rel to CPU-x64 {worst:.3e} (limit {ENSEMBLE_RTOL:g})")
+            check(worst <= ENSEMBLE_RTOL, f"ensemble B={B} off CPU-x64")
+    log("[drivers] wall-clock: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+        + f"; {sum(walls.values()):.1f} s in all")
+    return dict(walls=walls, sims=sims, eta3_wall=eta3_wall)
 
 
 def ptxas_rows(text: str):
@@ -4680,8 +4634,8 @@ PHASES = ("k2", "k1", "k3", "k4", "slice", "f32", "analytic", "scale", "timings"
           "k6", "k5", "3d", "3d128", "3d_f32", "timings3", "profile3", "expsin", "golden",
           "variants3", "production", "mixed3", "timings_mixed", "simulate", "adaptive",
           "checkpoint", "gradients", "direct", "fit", "batched", "eta_batched", "batched3",
-          "eta3", "probe", "while_form", "matrix_free", "probe3", "direct3", "heat3", "gradients3",
-          "batched_mixed", "batched_analytic", "parallel", "studies")
+          "probe", "while_form", "matrix_free", "probe3", "direct3", "heat3", "gradients3",
+          "batched_mixed", "batched_analytic", "parallel", "studies", "drivers")
 
 
 def main(argv=None) -> int:
@@ -4764,7 +4718,6 @@ def main(argv=None) -> int:
     phase("batched", phase_batched, device)
     phase("eta_batched", phase_eta_batched, device)
     phase("batched3", phase_batched3, device)
-    phase("eta3", phase_eta3, device)
     phase("probe", phase_probe, device)
     phase("while_form", phase_while_form, device)
     phase("matrix_free", phase_matrix_free, device)
@@ -4780,6 +4733,7 @@ def main(argv=None) -> int:
           done["eta_batched"]["errors"] if "eta_batched" in done else None)
     phase("parallel", phase_parallel, device)
     phase("studies", phase_studies, device)
+    phase("drivers", phase_drivers, device)
     if set(only) != set(PHASES):
         log(f"[done] phases {only}; total {time.perf_counter() - t_all:.1f} s (no result line)")
         return 0
@@ -4798,10 +4752,11 @@ def main(argv=None) -> int:
     _, steady_ad = done["adaptive"]
     launches_grad, launches_grad32, grad_times, fwd_time, adjoint_rows = done["gradients"]
     _, steady_direct, steady_krylov, err_direct = done["direct"]
-    bl, be, bl3, be3 = done["batched"], done["eta_batched"], done["batched3"], done["eta3"]
+    bl, be, bl3 = done["batched"], done["eta_batched"], done["batched3"]
     pr, wf, mf, p3 = done["probe"], done["while_form"], done["matrix_free"], done["probe3"]
     d3, h3, g3, bm = done["direct3"], done["heat3"], done["gradients3"], done["batched_mixed"]
     ba, par, study_walls = done["batched_analytic"], done["parallel"], done["studies"]
+    drivers = done["drivers"]
     pk = "na_dd_tpu/ops/pallas_kernels.py"
     entries = []
     # (wrapper, source, TPU kernel, shape, error against the plain version,
@@ -4903,7 +4858,7 @@ def main(argv=None) -> int:
         f"{be['steady']['batched']:.6f} s; "
         f"batched 3-D ladder {bl3['steady']['batched']:.6f} s "
         f"({bl3['per_step']:.0f} launches a step, idle "
-        f"{bl3['idle']:.2f} %); 3-D eta sweep {be3['wall']:.6f} s; probed planes "
+        f"{bl3['idle']:.2f} %); 3-D eta sweep {drivers['eta3_wall']:.6f} s; probed planes "
         f"{pr['steady']['probe']:.6f} s against analytic {pr['steady']['analytic']:.6f} s; while "
         f"form {wf['steady']['while']:.6f} s; matrix-free N=64 {mf['steady']['matrix_free']:.6f} "
         f"s; 3-D probe {p3['steady']['probe']:.6f} s; 3-D direct N=32 {d3['steady']['direct']:.6f} "
@@ -4914,9 +4869,10 @@ def main(argv=None) -> int:
         f"{ba['steady']['per_solve']:.6f} s, fused eta sweep {ba['steady']['fused eta']:.6f} s "
         f"against {ba['steady']['per_solve eta']:.6f} s; sharded N={PAR_N} level "
         f"{par['level_wall']:.6f} s on {PAR_WORLD} ranks of one card against "
-        f"{par['local_wall']:.6f} s locally; ensemble "
-        + ", ".join(f"B={B} {t:.6f} s ({r:.3f} sims/s)" for B, (t, r) in par["ensemble"].items())
+        f"{par['local_wall']:.6f} s locally; ensemble CLI "
+        + ", ".join(f"B={B} {r:.3f} sims/s" for B, r in drivers["sims"].items())
         + "; study entry points " + ", ".join(f"{k} {v:.1f} s" for k, v in study_walls.items())
+        + "; the other CLIs in process " + ", ".join(f"{k} {v:.1f} s" for k, v in drivers["walls"].items())
         + f"; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(nvidia_smi_line())

@@ -9,12 +9,22 @@ of the port.
   ``studies/run_all_tpu.py``, every over-gate level held to the JAX
   package's CPU-x64 record;
 * :mod:`na_dd_tpu_torch.studies.write_reproduction` — its report;
+* :mod:`na_dd_tpu_torch.studies.three_d_study` — the 3-D study
+  (``python -m na_dd_tpu_torch.studies.three_d_study``), twin of
+  ``studies/three_d_study.py``;
+* :mod:`na_dd_tpu_torch.studies.eta_gradient_study` — dObs/dη through the
+  adjoints, twin of ``studies/eta_gradient_study.py``;
+* :mod:`na_dd_tpu_torch.studies.ensemble_throughput` — the ensemble screen's
+  throughput, twin of ``studies/ensemble_throughput.py``;
+* :mod:`na_dd_tpu_torch.studies.make_notebook` — the notebooks, twin of
+  ``studies/make_notebook.py``;
 * :mod:`na_dd_tpu_torch.studies.reference_values` — the notebooks' saved
-  outputs and the CPU-x64 record.
+  outputs and the CPU-x64 records.
 
-The entry points write only to their own directory, ``studies/results_torch/``
-at the repo root, or to ``--results-dir``; never to ``studies/results/`` or
-the root ``REPRODUCTION.md``.
+The entry points write only to their own directories, ``studies/results_torch/``
+and ``studies/notebooks_torch/`` at the repo root, or to the directory they
+are given; never to ``studies/results/``, ``studies/notebooks/`` or the root
+``REPRODUCTION.md``.
 """
 
 import subprocess
@@ -25,6 +35,7 @@ RESULTS_DIR = Path(__file__).resolve().parents[2] / "studies" / "results_torch"
 #: The JAX study scripts' outputs, which the port's entry points never write.
 _JAX_OUTPUTS = (
     Path(__file__).resolve().parents[2] / "studies" / "results",
+    Path(__file__).resolve().parents[2] / "studies" / "notebooks",
     Path(__file__).resolve().parents[2] / "REPRODUCTION.md",
 )
 

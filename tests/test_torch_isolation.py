@@ -25,7 +25,13 @@ from na_dd_tpu_torch.models.consts import STUDY_MODEL_CONSTS
 from na_dd_tpu_torch.ops import kernels
 from na_dd_tpu_torch.ops.grid import make_grid, make_uniform_grid
 from na_dd_tpu_torch.parallel import dryrun_multichip, run_ranks
-from na_dd_tpu_torch.studies import run_all, run_study
+from na_dd_tpu_torch.studies import (
+    ensemble_throughput,
+    eta_gradient_study,
+    run_all,
+    run_study,
+    three_d_study,
+)
 from na_dd_tpu_torch.three_d.batched_ladder import run_spatial_ladder3_batched
 from na_dd_tpu_torch.three_d.diffusion import heat_mms_error
 from na_dd_tpu_torch.three_d.grid import make_grid3, make_uniform_grid3
@@ -64,8 +70,13 @@ def test_port_files_were_found():
         assert f"na_dd_tpu_torch/{module}.py" in names
     for module in ("studies/__init__", "studies/reference_values", "studies/run_study",
                    "studies/run_all", "studies/write_reproduction", "harness/plotting",
-                   "utils/__init__", "utils/testing", "utils/timing"):
+                   "utils/__init__", "utils/testing", "utils/timing",
+                   "studies/three_d_study", "studies/eta_gradient_study",
+                   "studies/ensemble_throughput", "studies/make_notebook"):
         assert f"na_dd_tpu_torch/{module}.py" in names
+        if module.startswith("studies/"):
+            # each entry point is among the files held to no module-level matplotlib
+            assert REPO / f"na_dd_tpu_torch/{module}.py" in ENTRY_POINT_FILES
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -105,6 +116,8 @@ def test_the_entry_points_load_without_matplotlib():
     code = ("import sys\n"
             "import na_dd_tpu_torch.studies.run_all, na_dd_tpu_torch.studies.run_study\n"
             "import na_dd_tpu_torch.studies.write_reproduction, na_dd_tpu_torch.utils\n"
+            "import na_dd_tpu_torch.studies.three_d_study, na_dd_tpu_torch.studies.eta_gradient_study\n"
+            "import na_dd_tpu_torch.studies.ensemble_throughput, na_dd_tpu_torch.studies.make_notebook\n"
             "bad = [m for m in sys.modules if m == 'na_dd_tpu_torch.harness.plotting'\n"
             "       or m.split('.')[0] in ('matplotlib', 'jax', 'na_dd_tpu', 'studies')]\n"
             "assert not bad, bad\n")
@@ -258,6 +271,12 @@ def no_card(monkeypatch):
         lambda: load_state_sharded("never-read"),
         lambda: run_study.main(["--study", "pol", "--levels", "1"]),
         lambda: run_all.main(["--only", "pol", "eta"]),
+        lambda: three_d_study.main(["--levels", "1"]),
+        lambda: three_d_study.main(["--eta-sweep"]),
+        lambda: eta_gradient_study.main(["--n", "4"]),
+        lambda: eta_gradient_study.run([50.0], N=4),
+        lambda: ensemble_throughput.main(["--batches", "1", "--n", "4"]),
+        lambda: ensemble_throughput.main(["--batches", "2", "--n", "4", "--dp", "2"]),
     ],
 )
 def test_entry_points_without_a_card_raise(no_card, entry):

@@ -373,6 +373,42 @@ def test_ensemble_matches_jax_vmap(ensemble_dp1, jax_ensemble):
         assert d <= 1e-12, f"{v}: {d}"
 
 
+#: the JAX study's JSON keys, and each batch size's
+JAX_ENSEMBLE_KEYS = {"study", "N", "Tf", "dt", "num_steps", "x64", "backend", "dp",
+                     "krylov_unroll", "batches", "timestamp"}
+JAX_BATCH_KEYS = {"batch_s", "first_s", "sims_per_s", "per_sim_s", "efficiency_vs_B1"}
+
+
+def test_ensemble_throughput_cli_matches_jax_vmap(tmp_path, jax_ensemble):
+    """``ensemble_throughput.main`` at the test's size, B = 1 and 8, in one
+    process and over 2 gloo CPU ranks: each member's final-field H-norms² ≤1e-12
+    relative to the JAX study's ``vmap(simulate_one)`` (B=1's member is eta=20,
+    the first of B=8's), dp=2 bit for bit dp=0, the JAX study's keys plus
+    ``final_norms`` and ``device``."""
+    import json
+
+    from na_dd_tpu.ops import make_uniform_grid as j_make_uniform_grid
+    from na_dd_tpu.ops.inner_products import inner_H as j_inner_H
+    from na_dd_tpu_torch.studies import ensemble_throughput
+
+    args = ["--n", str(R.ENSEMBLE["N"]), "--tf", repr(R.ENSEMBLE["Tf"]), "--dt",
+            repr(R.ENSEMBLE["dt"]), "--batches", "1,8", "--device", "cpu"]
+    assert ensemble_throughput.main([*args, "--out", str(tmp_path / "dp0.json")]) == 0
+    assert ensemble_throughput.main([*args, "--dp", "2", "--out", str(tmp_path / "dp2.json")]) == 0
+    dp0, dp2 = (json.loads((tmp_path / f"{n}.json").read_text()) for n in ("dp0", "dp2"))
+    jg = j_make_uniform_grid(R.ENSEMBLE["N"], R.ENSEMBLE["N"])
+    ref = np.asarray([[float(j_inner_H(J_LOCAL_OPS, jg, getattr(jax_ensemble, v)[m],
+                                       getattr(jax_ensemble, v)[m])) for v in FIELDS]
+                      for m in range(len(R.ENSEMBLE["etas"]))])
+    assert set(dp0) == set(dp2) == JAX_ENSEMBLE_KEYS | {"device"}
+    assert (dp0["dp"], dp2["dp"], dp0["device"]) == (0, 2, "cpu")
+    for B in (1, 8):
+        row = dp0["batches"][str(B)]
+        assert set(row) == JAX_BATCH_KEYS | {"final_norms"}
+        np.testing.assert_allclose(np.asarray(row["final_norms"]), ref[:B], rtol=1e-12, atol=0)
+        assert dp2["batches"][str(B)]["final_norms"] == row["final_norms"]
+
+
 def test_ensemble_runs_in_parts_of_one_launch(ensemble_dp1):
     """More members than one batched K1 launch holds run as parts of
     ``kernels.MAX_BATCH``; each member equals its run in a batch of its

@@ -909,3 +909,27 @@ def test_grad_works_with_while_loop_solver(blob):
     (got,) = torch.autograd.grad(energy(g, sim(params, s0)), [params["Dl_max"]])
     assert np.isfinite(float(got)) and float(got) != 0.0
     assert rel(got, ref) <= 1e-8
+
+
+# ---------------------------------------------------------------------------
+# the eta-gradient study (studies/eta_gradient_study.py)
+# ---------------------------------------------------------------------------
+def test_eta_gradient_study_matches_jax(monkeypatch):
+    """``eta_gradient_study.run`` at N=8 on two eta against the JAX study's
+    ``make_loss`` at N=8 (its module's ``N`` global, read at call time):
+    Obs and dObs/deta ≤1e-10 relative to ``jax.value_and_grad``; the port's
+    adjoint against its central differences ≤1e-4, as the study gates."""
+    import studies.eta_gradient_study as j_study
+    from na_dd_tpu_torch.studies.eta_gradient_study import run
+
+    etas = [float(x) for x in np.logspace(1, 3, 7)][2::4]  # 46.4 and 1000, the FD points
+    monkeypatch.setattr(j_study, "N", 8)
+    j_val_grad = jax.jit(jax.value_and_grad(j_study.make_loss()))
+    res = run(etas, N=8, device=CPU, fd_etas=etas, verbose=False)
+    assert [row["eta"] for row in res["rows"]] == etas
+    for row in res["rows"]:
+        obs, grad = j_val_grad(jnp.asarray(row["eta"]))
+        assert rel(row["obs"], obs) <= 1e-10
+        assert rel(row["dobs_deta"], grad) <= 1e-10
+    assert [c["eta"] for c in res["fd_checks"]] == etas
+    assert all(c["rel_dev"] <= 1e-4 for c in res["fd_checks"])

@@ -18,6 +18,7 @@ harness functions, its CPU-x64 records, its report writer and its twins."""
 
 import json
 import pathlib
+import re
 
 import jax
 import numpy as np
@@ -819,3 +820,124 @@ def test_timing_helpers_on_the_cpu(tmp_path):
     with utils.device_trace(str(tmp_path / "trace")):
         (x @ x).item()
     assert list((tmp_path / "trace").glob("*.json"))
+
+
+def test_study_records_are_the_jax_runs():
+    """reference_values' 3-D, ensemble and eta-gradient values are
+    studies/results/drivers_cpu_x64.json and eta_gradient_study.json; its
+    3-D RegHCs levels N=4..64 and its N=32 eta sweep agree with
+    chip_smoke.py's THREE_D_CPU_X64 and ETA3_CPU_X64 (≤1e-12)."""
+    from na_dd_tpu_torch.studies import reference_values as rv
+
+    rec = json.loads((RESULTS / "drivers_cpu_x64.json").read_text())
+    assert rec["command"] == "JAX_PLATFORMS=cpu python studies/drivers_cpu_x64.py"
+    assert rv.DRIVERS_CPU_X64_RECORD == "studies/results/drivers_cpu_x64.json"
+    assert rv.THREE_D_CONSTS == rec["consts"] == _ast_value(REPO / "chip_smoke.py", "THREE_D_CONSTS")
+    assert (rv.THREE_D_TF, rv.THREE_D_ETA) == (rec["spatial"]["Tf"], rec["spatial"]["eta"])
+    levels = {(variant, r["N"], r["dt"]): r["error"]
+              for variant, rows in rec["spatial"]["variants"].items() for r in rows}
+    self_ref = {}
+    for ladder in rec["temporal"]["ladders"]:
+        for r in ladder["levels"]:
+            assert levels.setdefault(("reghcs", r["N"], r["dt"]), r["error"]) == r["error"]
+            self_ref[("reghcs", r["N"], r["dt"], ladder["dt_ref"])] = r["self_ref_error"]
+    assert rv.THREE_D_LEVELS_CPU_X64 == levels
+    assert rv.THREE_D_SELF_REF_CPU_X64 == self_ref
+    batched = rec["batched"]
+    assert rv.THREE_D_BATCHED_CPU_X64 == {
+        (N, batched["dt0"] / 2**k): e for k, (N, e) in enumerate(zip(batched["Ns"], batched["errors"]))}
+    assert rv.ETA3_SWEEPS_CPU_X64 == {(sw["N"], sw["dt"]): sw["errors"] for sw in rec["eta3"]["sweeps"]}
+    ens = rec["ensemble"]
+    assert rv.ENSEMBLE_CPU_X64 == {k: ens[k] for k in ("study", "N", "Tf", "dt")}
+    assert rv.ENSEMBLE_NORMS_CPU_X64 == {int(B): row["final_norms"] for B, row in ens["batches"].items()}
+    for B, row in ens["batches"].items():
+        assert row["etas"] == np.linspace(20.0, 200.0, int(B)).tolist()
+    eg = json.loads((RESULTS / "eta_gradient_study.json").read_text())
+    assert rv.ETA_GRADIENT_CPU_X64 == {k: eg[k] for k in ("N", "dt", "num_steps", "Kd", "rows",
+                                                          "fd_checks")}
+    assert eg["backend"] == "cpu"
+
+    smoke_3d = _ast_value(REPO / "chip_smoke.py", "THREE_D_CPU_X64")
+    assert sorted(smoke_3d) == [4, 8, 16, 32, 64]
+    for N, ref in smoke_3d.items():
+        assert abs(rv.THREE_D_LEVELS_CPU_X64[("reghcs", N, 1e-2 / (N // 4))] - ref) <= 1e-12 * ref
+    smoke_eta3 = _ast_value(REPO / "chip_smoke.py", "ETA3_CPU_X64")
+    for got, ref in zip(rv.ETA3_SWEEPS_CPU_X64[(32, 1.25e-3)], smoke_eta3, strict=True):
+        assert abs(got - ref) <= 1e-12 * ref
+
+
+_ERR = re.compile(r"err=([-+0-9.e]+)")
+
+
+def _stream_errors(cell):
+    """The err= numbers of a code cell's saved stream outputs, as printed."""
+    text = "".join("".join(o["text"]) for o in cell["outputs"] if o["output_type"] == "stream")
+    return _ERR.findall(text)
+
+
+def _printed(errors):
+    return [f"{e:.6e}" for e in errors]
+
+
+def test_notebooks_mirror_the_jax_notebooks(tmp_path, monkeypatch):
+    """make_notebook builds the seven notebooks from the committed
+    studies/results_torch/: the JAX notebooks' cells in number, kind and
+    order; code cells that compile and whose port imports resolve; no JAX,
+    no JAX package, no TPU; the saved errors those of the archived runs.
+    One rate plot is drawn for real (its arrays are the JAX plot's, tested
+    above); the others are stubbed, to keep the test's time down."""
+    import ast
+    import importlib
+    import importlib.util
+
+    from na_dd_tpu_torch.studies import make_notebook
+    from studies import make_notebook as j_make_notebook
+
+    assert make_notebook.STUDY_KEYS == j_make_notebook.STUDY_KEYS
+    pol = json.loads((REPO / "studies" / "results_torch" / "pol_spatial.json").read_text())
+    if importlib.util.find_spec("matplotlib") is not None:
+        png = make_notebook._rate_plot_png(pol, "Ns", "N", "pol spatial")
+        assert png.startswith(b"\x89PNG")
+    monkeypatch.setattr(make_notebook, "_rate_plot_png", lambda *a: b"\x89PNG stub")
+    assert make_notebook.main(["--all", "--three-d", "--outdir", str(tmp_path)]) == 0
+    names = sorted(p.name for p in tmp_path.glob("*.ipynb"))
+    assert names == sorted(p.name for p in (REPO / "studies" / "notebooks").glob("*.ipynb"))
+    assert len(names) == 7
+    archive = REPO / "studies" / "results_torch"
+    for name in names:
+        nb = json.loads((tmp_path / name).read_text())
+        study = name.split("_reghcstriple_")[0]
+        if name.startswith("three_d"):
+            ref = j_make_notebook.build_three_d_notebook(embed_results=False)
+        else:
+            ref = j_make_notebook.build_notebook(study, embed_results=False)
+        assert [c["cell_type"] for c in nb["cells"]] == [c["cell_type"] for c in ref["cells"]]
+        for cell in nb["cells"]:
+            src = "".join(cell["source"])
+            assert not re.search(r"\bjax\b", src) and "na_dd_tpu." not in src
+            assert "TPU v5e" not in src and "TPU" not in src
+            if cell["cell_type"] != "code":
+                continue
+            for node in ast.walk(ast.parse(compile(src, name, "exec", ast.PyCF_ONLY_AST))):
+                if isinstance(node, ast.ImportFrom) and node.module.startswith("na_dd_tpu_torch"):
+                    module = importlib.import_module(node.module)
+                    for alias in node.names:
+                        assert hasattr(module, alias.name), f"{node.module}.{alias.name}"
+        code = [c for c in nb["cells"] if c["cell_type"] == "code"]
+        if name.startswith("three_d"):
+            errors = []
+            for fname, _label in make_notebook.THREE_D_RESULTS:
+                if (archive / fname).exists():
+                    res = json.loads((archive / fname).read_text())
+                    errors += [lv["error"] for lv in res["levels"]] if "levels" in res else res["errors"]
+            assert errors and _stream_errors(code[-1]) == _printed(errors)
+            ladder = json.loads((archive / "three_d_study.json").read_text())
+            assert ladder["device"] in "".join(nb["cells"][0]["source"])
+            continue
+        runs = [json.loads((archive / f"{study}_{kind}.json").read_text())
+                for kind in ("spatial", "temporal", "eta_batched")]
+        for cell, run in zip(code[-3:], runs, strict=True):
+            assert _stream_errors(cell) == _printed(run["errors"])
+        assert runs[0]["device"] in "".join(nb["cells"][0]["source"])
+    with pytest.raises(ValueError, match="JAX study scripts"):
+        make_notebook.main(["--study", "pol", "--outdir", str(REPO / "studies" / "notebooks")])

@@ -17,6 +17,13 @@ package (na_dd_tpu.three_d) on CPU float64, fed the same numpy inputs:
 * ``run_trial3`` at N=4 and N=8 (the three_d_study protocol: Tf=0.02, two
   Newton sweeps, dt = 1e-2/2^k): ≤1e-10 relative to the JAX trial and to the
   CPU-x64 values of the JAX package;
+* the 3-D study CLI ``na_dd_tpu_torch.studies.three_d_study`` on the CPU
+  at two levels: the RegHCs ladder against the JAX trials above; the Cs
+  and HCs ladders, the temporal ladder with its self-reference errors, the
+  batched ladder and the eta sweep against the JAX package's CPU-x64 record
+  of the same calls (``studies/drivers_cpu_x64.py``; one compile a level
+  would cost ~10 s here); each ≤1e-10 relative; the JSON's keys against the
+  JAX script's; a level off its record fails the CLI;
 * the solver options: 7-colour probed planes against the JAX package's
   probes and the closed-form planes (≤1e-12); ``Stencil7.transpose``
   against ``jax.linear_transpose`` of ``Stencil7.apply`` (≤1e-14); the
@@ -27,6 +34,7 @@ package (na_dd_tpu.three_d) on CPU float64, fed the same numpy inputs:
   and the modes the JAX 3-D integrators cannot run refused alike."""
 
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -376,13 +384,30 @@ def test_analytic_step_takes_the_per_solve_route(analytic_step):
     assert bool(t_diag.krylov_converged) and bool(j_diag.krylov_converged)
 
 
+@pytest.fixture(scope="module")
+def jax_trial3():
+    """``trial(N, dt)``: (grid, result) of the JAX package's ``run_trial3`` on
+    the three_d_study protocol (RegHCs, MMSCaseExpSin3, STUDY_CONSTS, eta=50,
+    Tf=0.02, two Newton sweeps), each (N, dt) run once for the module."""
+    jm, _tm = _models()
+    done = {}
+
+    def trial(N, dt):
+        if (N, dt) not in done:
+            jg, jcase, _, jinteg = j_make_setup3(JCase, N=N, model=jm, eta=ETA,
+                                                 integrator_params=dict(num_newton_steps=2))
+            done[(N, dt)] = jg, j_run_trial3(jg, jcase, jinteg, Tf=0.02, dt=dt)
+        return done[(N, dt)]
+
+    return trial
+
+
 @pytest.mark.parametrize("N", [4, 8])
-def test_run_trial3_matches_jax_and_cpu_x64(N):
+def test_run_trial3_matches_jax_and_cpu_x64(N, jax_trial3):
     jm, tm = _models()
     dt = 1e-2 / (N // 4)
     params = dict(num_newton_steps=2)
-    jg, jcase, _, jinteg = j_make_setup3(JCase, N=N, model=jm, eta=ETA, integrator_params=params)
-    ref = j_run_trial3(jg, jcase, jinteg, Tf=0.02, dt=dt)
+    ref = jax_trial3(N, dt)[1]
     tg, tcase, _, tinteg = t_make_setup3(TCase, N=N, model=tm, eta=ETA, integrator_params=params, device="cpu")
     port = t_run_trial3(tg, tcase, tinteg, Tf=0.02, dt=dt)
     assert port["krylov_converged"] and ref["krylov_converged"]
@@ -639,3 +664,110 @@ def test_differentiable_3d_refuses_what_jax_cannot_run(kw):
     tg = t_grid.make_uniform_grid3(4, 4, 4, device="cpu")
     with pytest.raises(AttributeError, match="transpose"):
         t_make_integrator3(tg, tm, differentiable=True, **kw)
+
+
+# ---------------------------------------------------------------------------
+# the 3-D study CLI
+# ---------------------------------------------------------------------------
+#: the JAX script's JSON keys: the serial ladders', and those it adds to the
+#: batched ladder's and the eta sweep's result dicts
+JAX_LADDER_KEYS = {"backend", "x64", "variant", "kind", "precision", "Tf", "eta", "levels",
+                   "rates", "self_reference_rates", "adjudication", "timestamp"}
+JAX_BATCHED_KEYS = {"kind", "Ns", "Tf", "eta", "errors", "converged", "compile_plus_run_s",
+                    "steady_s", "krylov_unroll", "rates", "statuses", "backend", "x64",
+                    "timestamp"}
+JAX_SWEEP_KEYS = {"etas", "errors", "converged", "backend", "x64", "N", "Tf", "dt",
+                  "wallclock_s", "timestamp"}
+
+
+def _study(tmp_path, *argv):
+    """``three_d_study.main`` on the CPU into ``tmp_path``: (rc, its JSON)."""
+    from na_dd_tpu_torch.studies import three_d_study
+
+    rc = three_d_study.main([*argv, "--device", "cpu", "--results-dir", str(tmp_path)])
+    (path,) = tmp_path.glob("*.json")
+    return rc, json.loads(path.read_text())
+
+
+def _rel(a, b):
+    return abs(a - b) / abs(b)
+
+
+def _assert_adjudicated(res, gated):
+    adj = res["adjudication"]
+    assert {"passed", "cpu_error", "rel_dev", "tol", "gated_levels", "skipped_no_record"} <= set(adj)
+    assert adj["passed"] is True and adj["tol"] == 1e-8
+    assert len(adj["gated_levels"]) == gated
+
+
+@pytest.mark.parametrize("variant", ["reghcs", "cs", "hcs"])
+def test_three_d_study_ladder_matches_jax(tmp_path, jax_trial3, variant):
+    from na_dd_tpu_torch.studies.reference_values import THREE_D_LEVELS_CPU_X64
+
+    rc, res = _study(tmp_path, "--levels", "2", "--n0", "4", "--variant", variant)
+    assert rc == 0 and set(res) == JAX_LADDER_KEYS | {"device"}
+    assert (res["variant"], res["kind"], res["device"], res["x64"]) == (variant, "spatial", "cpu", True)
+    for k, lv in enumerate(res["levels"]):
+        N, dt = 4 * 2**k, 1e-2 / 2**k
+        assert (lv["N"], lv["dt"], lv["converged"]) == (N, dt, True)
+        if variant == "reghcs":
+            ref = jax_trial3(N, dt)[1]["error"]
+        else:
+            ref = THREE_D_LEVELS_CPU_X64[(variant, N, dt)]
+        assert _rel(lv["error"], ref) <= 1e-10
+        assert lv["cold_s"] > 0 and lv["warm_s"] > 0
+    assert len(res["rates"]) == 1
+    _assert_adjudicated(res, 2)
+
+
+def test_three_d_study_temporal_self_reference_matches_the_jax_record(tmp_path):
+    from na_dd_tpu_torch.studies.reference_values import (
+        THREE_D_LEVELS_CPU_X64,
+        THREE_D_SELF_REF_CPU_X64,
+    )
+
+    rc, res = _study(tmp_path, "--temporal", "--self-reference", "--n0", "4", "--levels", "2")
+    assert rc == 0 and res["kind"] == "temporal" and set(res) == JAX_LADDER_KEYS | {"device"}
+    for k, lv in enumerate(res["levels"]):
+        dt = 1e-2 / 2**k
+        assert (lv["N"], lv["dt"]) == (4, dt)
+        assert _rel(lv["error"], THREE_D_LEVELS_CPU_X64[("reghcs", 4, dt)]) <= 1e-10
+        ref = THREE_D_SELF_REF_CPU_X64[("reghcs", 4, dt, 1e-2 / 2**3)]
+        assert _rel(lv["self_ref_error"], ref) <= 1e-10
+    assert len(res["self_reference_rates"]) == 1
+    _assert_adjudicated(res, 4)
+
+
+def test_three_d_study_batched_and_eta_sweep_match_the_jax_record(tmp_path):
+    from na_dd_tpu_torch.studies.reference_values import (
+        ETA3_SWEEPS_CPU_X64,
+        THREE_D_BATCHED_CPU_X64,
+    )
+
+    rc, res = _study(tmp_path / "batched", "--batched", "--levels", "2")
+    assert rc == 0 and set(res) == JAX_BATCHED_KEYS | {"adjudication", "device"}
+    for k, (N, err) in enumerate(zip(res["Ns"], res["errors"])):
+        assert _rel(err, THREE_D_BATCHED_CPU_X64[(N, 1e-2 / 2**k)]) <= 1e-10
+    _assert_adjudicated(res, 2)
+
+    rc, res = _study(tmp_path / "sweep", "--eta-sweep")
+    assert rc == 0 and set(res) == JAX_SWEEP_KEYS | {"adjudication", "device"}
+    assert res["etas"] == [float(x) for x in np.logspace(1, 3, 7)] and all(res["converged"])
+    for err, ref in zip(res["errors"], ETA3_SWEEPS_CPU_X64[(4, 1e-2)], strict=True):
+        assert _rel(err, ref) <= 1e-10
+    _assert_adjudicated(res, 7)
+
+
+def test_three_d_study_level_off_its_record_fails(tmp_path, monkeypatch):
+    from na_dd_tpu_torch.studies import three_d_study
+
+    key = ("reghcs", 4, 1e-2)
+    monkeypatch.setitem(three_d_study.THREE_D_LEVELS_CPU_X64, key,
+                        three_d_study.THREE_D_LEVELS_CPU_X64[key] * (1 + 1e-6))
+    rc, res = _study(tmp_path, "--levels", "1")
+    adj = res["adjudication"]
+    assert rc == 1 and adj["passed"] is False and adj["rel_dev"] > 1e-8
+    # off the record's protocol (another Tf) nothing is gated, nothing fails
+    rc, res = _study(tmp_path, "--levels", "1", "--tf", "0.01")
+    assert rc == 0 and res["adjudication"]["passed"] is None
+    assert len(res["adjudication"]["skipped_no_record"]) == 1
