@@ -116,6 +116,7 @@ def build_spatial_ladder_batched(
     eta: float = 50.0,
     precision: str | None = None,
     coupling_source: str | None = None,
+    mixed_df: bool = False,
     dtype=None,
     device=None,
 ) -> dict:
@@ -161,6 +162,7 @@ def build_spatial_ladder_batched(
     integ = PCTrapezoidalRegHCsTriple(
         field, regularization_factor=eta, track_residuals=False, krylov_unroll=budget,
         precision=precision or "full", coupling_source=coupling_source or "jvp",
+        mixed_df=mixed_df,
     )
 
     padded_grids, padded_states = [], []
@@ -194,6 +196,7 @@ def run_spatial_ladder_batched(
     eta: float = 50.0,
     precision: str | None = None,
     coupling_source: str | None = None,
+    mixed_df: bool = False,
     verbose: bool = True,
     measure_steady: bool = False,
     dtype=None,
@@ -207,8 +210,10 @@ def run_spatial_ladder_batched(
     result dict (``compile_plus_run_s`` is the first run's wall-clock, the
     kernels' build included where it happens).  Runs on the card unless
     ``device="cpu"``.  ``precision="mixed"`` runs every solve as float32
-    batched kernel launches under per-level float64 refinement; None or
-    "full" solves in the grid's dtype.  ``coupling_source="analytic"`` takes
+    batched kernel launches under per-level float64 refinement (with
+    ``mixed_df`` its residuals in double-float), ``"df"`` the double-float
+    step of every level around the same float32 launches; None or "full"
+    solves in the grid's dtype.  ``coupling_source="analytic"`` takes
     the cross couplings as closed-form planes and runs each Newton sweep of
     every level as ONE launch of the batched triple solve (K4, each level
     with its own dt; in ``precision="mixed"`` the float32 K4 under per-level
@@ -219,7 +224,7 @@ def run_spatial_ladder_batched(
     """
     ladder = build_spatial_ladder_batched(
         study, levels=levels, base_N=base_N, eta=eta, precision=precision,
-        coupling_source=coupling_source, dtype=dtype, device=device,
+        coupling_source=coupling_source, mixed_df=mixed_df, dtype=dtype, device=device,
     )
     Ns, dts, nsteps = ladder["Ns"], ladder["dts"], ladder["nsteps"]
 

@@ -174,16 +174,18 @@ def run_spatial_study(
     measure_steady: bool = False,
     precision: str = "full",
     coupling_source: str = "jvp",
+    mixed_df: bool = False,
     dtype=None,
     device=None,
 ) -> dict:
     """Notebook cell 9: N = base_N·2^k ladder with dt = h^1.5.
 
     measure_steady: run each level once more after the timed run and report
-    that run's wall-clock as ``steady_s``.  ``precision`` ("full" or
-    "mixed") and ``coupling_source`` ("jvp" or "analytic") are the
-    integrator's, which the JAX function reads from ``NA_DD_TPU_PRECISION``
-    and ``NA_DD_TPU_COUPLING``."""
+    that run's wall-clock as ``steady_s``.  ``precision`` ("full", "mixed"
+    or "df"), ``mixed_df`` and ``coupling_source`` ("jvp" or "analytic")
+    are the integrator's, which the JAX function reads from
+    ``NA_DD_TPU_PRECISION``, ``NA_DD_TPU_MIXED_DF`` and
+    ``NA_DD_TPU_COUPLING``."""
     cfg = STUDIES[study]
     mc = study_consts(study)
     Tf = cfg["spatial_Tf"]
@@ -198,7 +200,7 @@ def run_spatial_study(
         trial = _make_trial(
             cfg["case_cls"], N, eta, mc=mc, dtype=dtype, device=device,
             krylov_unroll=_study_unroll(cfg, N, dt, mc, num_steps=nsteps),
-            precision=precision, coupling_source=coupling_source,
+            precision=precision, coupling_source=coupling_source, mixed_df=mixed_df,
         )
         t0 = time.perf_counter()
         summary = trial.run_for_errors(Tf=Tf, dt=dt)
@@ -237,6 +239,7 @@ def run_temporal_study(
     measure_steady: bool = False,
     precision: str = "full",
     coupling_source: str = "jvp",
+    mixed_df: bool = False,
     dtype=None,
     device=None,
 ) -> dict:
@@ -244,8 +247,8 @@ def run_temporal_study(
 
     The grid is fixed (``N``) for five studies; the peaks study recomputes
     it per level from dt (``N_of_dt``, :func:`_peaks_temporal_N`).  Levels
-    of one grid size and budget share one trial.  ``precision`` and
-    ``coupling_source`` as in :func:`run_spatial_study`."""
+    of one grid size and budget share one trial.  ``precision``,
+    ``mixed_df`` and ``coupling_source`` as in :func:`run_spatial_study`."""
     cfg = STUDIES[study]
     mc = study_consts(study)
     tcfg = cfg["temporal"]
@@ -278,7 +281,7 @@ def run_temporal_study(
         if trial is None:
             trial = trials[(N, unroll)] = _make_trial(
                 cfg["case_cls"], N, eta, mc=mc, krylov_unroll=unroll, dtype=dtype, device=device,
-                precision=precision, coupling_source=coupling_source,
+                precision=precision, coupling_source=coupling_source, mixed_df=mixed_df,
             )
         t0 = time.perf_counter()
         summary = trial.run_for_errors(Tf=Tf, dt=dt)
@@ -319,11 +322,13 @@ def run_eta_study(
     verbose: bool = True,
     precision: str = "full",
     coupling_source: str = "jvp",
+    mixed_df: bool = False,
     dtype=None,
     device=None,
 ) -> dict:
     """Notebook cell 13: regularization-factor sweep at fixed N and dt.
-    ``precision`` and ``coupling_source`` as in :func:`run_spatial_study`."""
+    ``precision``, ``mixed_df`` and ``coupling_source`` as in
+    :func:`run_spatial_study`."""
     cfg = STUDIES[study]
     mc = study_consts(study)
     etas = etas or ETA_LADDER
@@ -334,7 +339,7 @@ def run_eta_study(
         trial = _make_trial(
             cfg["case_cls"], N, eta, mc=mc, dtype=dtype, device=device,
             krylov_unroll=_study_unroll(cfg, N, dt, mc, num_steps=nsteps),
-            precision=precision, coupling_source=coupling_source,
+            precision=precision, coupling_source=coupling_source, mixed_df=mixed_df,
         )
         t0 = time.perf_counter()
         summary = trial.run_for_errors(Tf=Tf, dt=dt)
@@ -364,19 +369,31 @@ def build_eta_study_batched(
     etas: Optional[List[float]] = None,
     precision: str | None = None,
     coupling_source: str | None = None,
+    mixed_df: bool = False,
     dtype=None,
     device=None,
 ) -> dict:
     """Everything the batched η sweep runs, built once: ``etas``, the
     adjusted ``dt`` and ``num_steps``, the Krylov ``budget``, the shared
-    ``grid``, the stacked initial ``state``, the ``case`` and
-    ``integrator`` (η an (E, 1, 1) tensor), and ``run()``, which runs the
-    whole sweep and returns its norms and diagnostics on the host after the
-    run's one transfer (the packing of
-    :func:`na_dd_tpu_torch.harness.trial._simulate`)."""
+    ``grid``, the ``case``, the ``parts`` and ``run()``, which runs the
+    whole sweep and returns its norms and diagnostics on the host (the
+    packing of :func:`na_dd_tpu_torch.harness.trial._simulate`, one column
+    an η), after one transfer a part.
+
+    A sweep of more than :data:`~na_dd_tpu_torch.ops.kernels.MAX_BATCH` η
+    runs as consecutive parts of at most that many (the batched kernels
+    take no more systems a launch), each a dict of its ``etas``, stacked
+    initial ``state`` and ``integrator`` (η an (E, 1, 1) tensor);
+    ``state`` and ``integrator`` are also the first part's."""
     from na_dd_tpu_torch.harness.batched_ladder import stack_states
-    from na_dd_tpu_torch.harness.trial import ALL_VARIABLES, DEFAULT_INTEGRAL_VARS, _simulate
+    from na_dd_tpu_torch.harness.trial import (
+        ALL_VARIABLES,
+        DEFAULT_INTEGRAL_VARS,
+        _concat_packed,
+        _simulate,
+    )
     from na_dd_tpu_torch.mms.engine import state_from_mms_when
+    from na_dd_tpu_torch.ops import kernels
     from na_dd_tpu_torch.ops.shifts import BATCHED_OPS
 
     cfg = STUDIES[study]
@@ -390,26 +407,37 @@ def build_eta_study_batched(
     dt_adj = Tf / num_steps
     unroll = _study_unroll(cfg, N, dt_adj, mc)
 
-    eta = torch.tensor(etas, dtype=grid.dtype, device=grid.device).reshape(-1, 1, 1)
-    forcing = MMSForcingRegHCsTriple(mms_case=case, model=model, regularization_factor=eta)
-    field = FieldRegHCsTriple(grid=grid, model=model, forcing=forcing, regularization_factor=eta)
-    integ = PCTrapezoidalRegHCsTriple(
-        field, regularization_factor=eta, track_residuals=False, krylov_unroll=unroll,
-        precision=precision or "full", coupling_source=coupling_source or "jvp",
-    )
-    states = stack_states([s0] * len(etas))
+    def part(members):
+        eta = torch.tensor(members, dtype=grid.dtype, device=grid.device).reshape(-1, 1, 1)
+        forcing = MMSForcingRegHCsTriple(mms_case=case, model=model, regularization_factor=eta)
+        field = FieldRegHCsTriple(grid=grid, model=model, forcing=forcing,
+                                  regularization_factor=eta)
+        integ = PCTrapezoidalRegHCsTriple(
+            field, regularization_factor=eta, track_residuals=False, krylov_unroll=unroll,
+            precision=precision or "full", coupling_source=coupling_source or "jvp",
+            mixed_df=mixed_df,
+        )
+        return dict(etas=members, state=stack_states([s0] * len(members)), integrator=integ)
 
-    def run():
-        # the run's only host transfer
+    step = kernels.MAX_BATCH
+    parts = [part(etas[i:i + step]) for i in range(0, len(etas), step)]
+
+    def run_part(p):
+        # the part's only host transfer
         return _simulate(
-            grid=grid, integrator=integ, exact_sol_pack=case, exact_stack=None,
-            initial_state=states, t0=0.0, dt=dt_adj, num_steps=num_steps,
+            grid=grid, integrator=p["integrator"], exact_sol_pack=case, exact_stack=None,
+            initial_state=p["state"], t0=0.0, dt=dt_adj, num_steps=num_steps,
             variable_names=ALL_VARIABLES, integral_vars=DEFAULT_INTEGRAL_VARS,
-            ops=BATCHED_OPS, tail_grid=None, nsys=len(etas),
+            ops=BATCHED_OPS, tail_grid=None, nsys=len(p["etas"]),
         ).cpu().numpy()
 
+    def run():
+        return _concat_packed([run_part(p) for p in parts], len(ALL_VARIABLES), num_steps,
+                              [len(p["etas"]) for p in parts])
+
     return dict(etas=etas, dt=dt_adj, num_steps=num_steps, budget=unroll, grid=grid,
-                state=states, case=case, integrator=integ, run=run)
+                state=parts[0]["state"], case=case, integrator=parts[0]["integrator"],
+                parts=parts, run=run)
 
 
 def run_eta_study_batched(
@@ -421,6 +449,7 @@ def run_eta_study_batched(
     etas: Optional[List[float]] = None,
     precision: str | None = None,
     coupling_source: str | None = None,
+    mixed_df: bool = False,
     verbose: bool = True,
     dtype=None,
     device=None,
@@ -434,12 +463,15 @@ def run_eta_study_batched(
     masked early exits of the solve and of the pointwise Newton make every
     η's run the serial one's up to the order of the kernel's sums.  Runs
     twice, as the JAX function does: ``wallclock_s`` the first run,
-    ``steady_s`` the second.  On the card unless ``device="cpu"``.
-    ``precision`` ("full" or "mixed") and ``coupling_source`` ("jvp" or
-    "analytic", whose every Newton sweep is one launch of the batched triple
-    solve for all η) are the integrator's; None takes "full" and "jvp", the
-    defaults the JAX function reads from ``NA_DD_TPU_PRECISION`` and
-    ``NA_DD_TPU_COUPLING``.
+    ``steady_s`` the second.  More than
+    :data:`~na_dd_tpu_torch.ops.kernels.MAX_BATCH` η run as consecutive
+    batches of at most that many, as the JAX package's one vmap computes
+    them.  On the card unless ``device="cpu"``.
+    ``precision`` ("full", "mixed" or "df"), ``mixed_df`` and
+    ``coupling_source`` ("jvp" or "analytic", whose every Newton sweep is one
+    launch of the batched triple solve for all η) are the integrator's; None
+    takes "full" and "jvp", the defaults the JAX function reads from
+    ``NA_DD_TPU_PRECISION`` and ``NA_DD_TPU_COUPLING``.
     """
     from na_dd_tpu_torch.harness.trial import (
         ALL_VARIABLES,
@@ -451,7 +483,7 @@ def run_eta_study_batched(
 
     sweep = build_eta_study_batched(
         study, N=N, dt=dt, Tf=Tf, etas=etas, precision=precision,
-        coupling_source=coupling_source, dtype=dtype, device=device,
+        coupling_source=coupling_source, mixed_df=mixed_df, dtype=dtype, device=device,
     )
     etas, dt_adj, num_steps = sweep["etas"], sweep["dt"], sweep["num_steps"]
     t0 = time.perf_counter()

@@ -248,6 +248,18 @@ def _unpack(packed: np.ndarray, nv: int, num_steps: int, nsys: int = 1):
     )
 
 
+def _concat_packed(packs, nv: int, num_steps: int, sizes) -> np.ndarray:
+    """One :func:`_simulate` result for the systems of consecutive parts of
+    a batch, from each part's packed result on the host (``sizes`` the
+    parts' system counts): the parts' columns side by side, in order."""
+    if len(packs) == 1:
+        return packs[0]
+    parts = [_unpack(p, nv, num_steps, n) for p, n in zip(packs, sizes)]
+    norms = np.concatenate([m for m, _ in parts], axis=-1)
+    diags = np.concatenate([d for _, d in parts], axis=-1)
+    return np.concatenate([norms.reshape(-1), diags.reshape(-1)])
+
+
 def _error_series(mats, diags, variable_names, t0: float, dt: float) -> ErrorTimeSeries:
     """One system's :class:`ErrorTimeSeries` from its norms (2·nv, K+1) and
     diagnostics (4, K); raises :class:`HCsCorrectorPositivityError` if a

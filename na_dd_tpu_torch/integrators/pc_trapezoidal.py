@@ -81,6 +81,17 @@ every verdict an all-reduced sum; the fused triple solve stays local-only,
 as in the JAX package, so analytic couplings solve one system at a time
 there.
 
+``precision="df"`` is the JAX package's double-float step: the state is
+split into float32 pairs hi + lo (:mod:`~na_dd_tpu_torch.ops.doublefloat`)
+at the step's start and reconstructed at its end, and every field
+evaluation, plane assembly, rhs and corrector in between is the float64 code
+above run on those pairs by :func:`~na_dd_tpu_torch.ops.df_lift.df_call_df`;
+the Newton solves are the mixed refinement with double-float residuals
+around the float32 kernels (K4 a pass on the fused route, K1 or K5 a pass and
+solve on the per-solve route), which only ever see the plain float32 hi
+planes.  ``mixed_df=True`` keeps the float64 step and computes only the
+mixed refinement's residuals in double-float.
+
 The step is dimension-agnostic: the
 3-D integrators (:mod:`na_dd_tpu_torch.three_d.integrator`) override only
 :meth:`PCTrapezoidalBase._newton_planes` and the ops provider of the eager
@@ -100,6 +111,8 @@ import torch
 
 from na_dd_tpu_torch.core.state import State, heaviside_regularized
 from na_dd_tpu_torch.ops import adjoint, direct_solve, kernels, linsolve
+from na_dd_tpu_torch.ops import doublefloat as dfm
+from na_dd_tpu_torch.ops.df_lift import df_call_df
 from na_dd_tpu_torch.ops.grid import Grid
 from na_dd_tpu_torch.ops.shifts import LOCAL_OPS, Ops
 from na_dd_tpu_torch.three_d import direct_solve as direct_solve3
@@ -147,6 +160,10 @@ def default_krylov_unroll() -> int | None:
 #: refinement pass contracts the f64 residual by ~1e-6 and two refinement
 #: passes reach the f64 target.
 MIXED_INNER_TOL = 1e-6
+
+#: The rhs rounding-noise factor of a double-float verdict: 10 DF unit
+#: roundoffs, as the float64 verdicts take 10 float64 epsilons.
+_DF_EPS_B = 10.0 * 2.0 ** -48
 
 
 class KrylovBackend:
@@ -225,6 +242,12 @@ class KrylovBackend:
             mask, dt, tol=self.tol_of(rhs_T.dtype), iters=self.iters,
         )
         return dT, dcl, dcd, tuple(_triple_info(info3, k) for k in range(3))
+
+
+def _df_of(dt, like):
+    """``dt`` (a float, or one value a system) as a DF pair on ``like``'s
+    device."""
+    return dfm.df_split(torch.as_tensor(dt, dtype=torch.float64, device=like.device))
 
 
 def _ndim(st) -> int:
@@ -347,13 +370,23 @@ class MixedBackend(KrylovBackend):
     :func:`default_krylov_tol`.  ``False`` skips it: the solution is the
     same, and the verdict is the last inner solve's own (residual on the
     last pass's rhs).  ``info["iters"]`` sums every pass.
+
+    ``df=True`` is the JAX package's ``mixed_df``: the refinement's true
+    residuals run in double-float (:mod:`~na_dd_tpu_torch.ops.doublefloat`,
+    float32 error-free arithmetic on the planes split into hi + lo) instead
+    of float64, the iterate is a DF pair, and float64 touches only the
+    plane splits and the final reconstruction; the inner solves and the
+    verdicts are those of ``df=False``.  :meth:`solve_df` and
+    :meth:`solve_triple_df` are the same refinements on planes and rhs that
+    are already DF pairs (``precision="df"``).
     """
 
     def __init__(self, *, iters: int, refine: int = 2, final_check: bool = True,
-                 tol: float | None = None):
+                 tol: float | None = None, df: bool = False):
         super().__init__(iters=iters, tol=tol)
         self.refine = int(refine)
         self.final_check = bool(final_check)
+        self.df = bool(df)
 
     @staticmethod
     def _f32(st):
@@ -368,6 +401,21 @@ class MixedBackend(KrylovBackend):
         bicgstab = self._kernels(st32)[0]
         return bicgstab(st32, r32, inv32, mask32, tol=MIXED_INNER_TOL, iters=self.iters)
 
+    def _refine_df(self, st32, st_lo, b_df, inv32, mask32, ops):
+        """``refine + 1`` passes of (DF true residual → float32 inner solve →
+        DF accumulate) from x = 0; returns (x as DF, summed iterations, the
+        last inner solve's info)."""
+        x = dfm.df_zeros_like(b_df.hi)
+        for k in range(self.refine + 1):
+            if k == 0:
+                r32 = b_df.hi
+            else:
+                r32 = dfm.df_sub(b_df, dfm.df_stencil_apply(st32, st_lo, ops, x)).hi * mask32
+            e32, info = self._inner(st32, r32, inv32, mask32, ops)
+            x = dfm.df_add_f32(x, e32 * mask32)
+            iters = info["iters"] if k == 0 else iters + info["iters"]
+        return x, iters, info
+
     def solve(self, st, rhs, mask, noise_sq=0.0, ops=None):
         ops = _ops_of(ops, st)
         if not ops.sharded:
@@ -379,12 +427,17 @@ class MixedBackend(KrylovBackend):
         mask32 = mask.to(f32)
         apply, total = ops.matvec(st), _total(ops)
         b = rhs * mask
-        x = torch.zeros_like(b)
-        for k in range(self.refine + 1):
-            r = b if k == 0 else (b - apply(x)) * mask
-            e32, info = self._inner(st32, r.to(f32), inv32, mask32, ops)
-            x = x + e32.to(b.dtype) * mask
-            iters = info["iters"] if k == 0 else iters + info["iters"]
+        if self.df:
+            st_lo = dfm.df_split_stencil(st, st32)[1]
+            x_df, iters, info = self._refine_df(st32, st_lo, dfm.df_split(b), inv32, mask32, ops)
+            x = dfm.df_to(x_df, b.dtype) * mask
+        else:
+            x = torch.zeros_like(b)
+            for k in range(self.refine + 1):
+                r = b if k == 0 else (b - apply(x)) * mask
+                e32, info = self._inner(st32, r.to(f32), inv32, mask32, ops)
+                x = x + e32.to(b.dtype) * mask
+                iters = info["iters"] if k == 0 else iters + info["iters"]
         if not self.final_check:
             return x, {
                 "iters": iters,
@@ -423,23 +476,34 @@ class MixedBackend(KrylovBackend):
             self._inv_diag(J_T32, mask), self._inv_diag(J_cl32, mask), self._inv_diag(J_cd32, mask)
         )
         wT, wcl, wcd = rhs_T * mask, base_cl * mask, base_cd * mask
-        zT, zcl, zcd = torch.zeros_like(wT), torch.zeros_like(wcl), torch.zeros_like(wcd)
-        for k in range(self.refine + 1):
-            if k == 0:
-                rT, rcl, rcd = wT, wcl, wcd
-            else:
-                rT = wT - apply(J_T, zT)
-                rcl = wcl + dt * apply(C_clT, zT) - apply(J_cl, zcl)
-                rcd = wcd + dt * (apply(C_cdT, zT) + d_cdcl * zcl) - apply(J_cd, zcd)
-            eT, ecl, ecd, info3 = kernels.triple_solve(
-                J_T32, J_cl32, J_cd32, C_clT32, C_cdT32, d32,
-                (rT * mask).to(f32), (rcl * mask).to(f32), (rcd * mask).to(f32),
-                inv_T32, inv_cl32, inv_cd32, m32, dt, tol=MIXED_INNER_TOL, iters=self.iters,
+        planes32 = (J_T32, J_cl32, J_cd32, C_clT32, C_cdT32)
+        if self.df:
+            lo = tuple(dfm.df_split_stencil(st, st32)[1]
+                       for st, st32 in zip((J_T, J_cl, J_cd, C_clT, C_cdT), planes32))
+            z_df, iters3, info3 = self._refine_triple_df(
+                planes32, lo, dfm.df_split_with_hi(d_cdcl, d32), _df_of(dt, wT),
+                tuple(dfm.df_split(w) for w in (wT, wcl, wcd)),
+                (inv_T32, inv_cl32, inv_cd32), m32, dt,
             )
-            zT = zT + eT.to(wT.dtype) * mask
-            zcl = zcl + ecl.to(wT.dtype) * mask
-            zcd = zcd + ecd.to(wT.dtype) * mask
-            iters3 = info3["iters"] if k == 0 else iters3 + info3["iters"]
+            zT, zcl, zcd = (dfm.df_to(z, wT.dtype) * mask for z in z_df)
+        else:
+            zT, zcl, zcd = torch.zeros_like(wT), torch.zeros_like(wcl), torch.zeros_like(wcd)
+            for k in range(self.refine + 1):
+                if k == 0:
+                    rT, rcl, rcd = wT, wcl, wcd
+                else:
+                    rT = wT - apply(J_T, zT)
+                    rcl = wcl + dt * apply(C_clT, zT) - apply(J_cl, zcl)
+                    rcd = wcd + dt * (apply(C_cdT, zT) + d_cdcl * zcl) - apply(J_cd, zcd)
+                eT, ecl, ecd, info3 = kernels.triple_solve(
+                    *planes32, d32,
+                    (rT * mask).to(f32), (rcl * mask).to(f32), (rcd * mask).to(f32),
+                    inv_T32, inv_cl32, inv_cd32, m32, dt, tol=MIXED_INNER_TOL, iters=self.iters,
+                )
+                zT = zT + eT.to(wT.dtype) * mask
+                zcl = zcl + ecl.to(wT.dtype) * mask
+                zcd = zcd + ecd.to(wT.dtype) * mask
+                iters3 = info3["iters"] if k == 0 else iters3 + info3["iters"]
         if self.final_check:
             bcl = wcl + dt * apply(C_clT, zT)
             bcd = wcd + dt * (apply(C_cdT, zT) + d_cdcl * zcl)
@@ -452,6 +516,117 @@ class MixedBackend(KrylovBackend):
             info3 = dict(info3, iters=iters3, resnorm_sq=info3["resnorm_sq"].to(wT.dtype))
             infos = tuple(_triple_info(info3, k) for k in range(3))
         return zT, zcl, zcd, infos
+
+    def _refine_triple_df(self, planes32, planes_lo, d_df, dt_df, w_df, invs, m32, dt):
+        """The block refinement of :meth:`solve_triple` with DF residuals:
+        ``z ← z + triple(w − M z)``, the block residual ``w − M z`` in
+        double-float on the split planes, one float32 triple solve a pass.
+        Returns ((zT, zcl, zcd) as DF, summed (…, 3) iterations, the last
+        pass's info)."""
+        J_T32, J_cl32, J_cd32, C_clT32, C_cdT32 = planes32
+        J_Tlo, J_cllo, J_cdlo, C_clTlo, C_cdTlo = planes_lo
+        wT, wcl, wcd = w_df
+        apply = lambda st32, st_lo, z: dfm.df_stencil_apply(st32, st_lo, LOCAL_OPS, z)  # noqa: E731
+        zT, zcl, zcd = (dfm.df_zeros_like(w.hi) for w in w_df)
+        for k in range(self.refine + 1):
+            if k == 0:
+                rT, rcl, rcd = wT.hi, wcl.hi, wcd.hi
+            else:
+                rT = dfm.df_sub(wT, apply(J_T32, J_Tlo, zT)).hi * m32
+                c_cl = apply(C_clT32, C_clTlo, zT)
+                rcl = dfm.df_sub(dfm.df_add(wcl, dfm.df_mul(dt_df, c_cl)),
+                                 apply(J_cl32, J_cllo, zcl)).hi * m32
+                c_cd = dfm.df_add(apply(C_cdT32, C_cdTlo, zT), dfm.df_mul(d_df, zcl))
+                rcd = dfm.df_sub(dfm.df_add(wcd, dfm.df_mul(dt_df, c_cd)),
+                                 apply(J_cd32, J_cdlo, zcd)).hi * m32
+            eT, ecl, ecd, info3 = kernels.triple_solve(
+                *planes32, d_df.hi, rT, rcl, rcd, *invs, m32, dt,
+                tol=MIXED_INNER_TOL, iters=self.iters,
+            )
+            zT = dfm.df_add_f32(zT, eT * m32)
+            zcl = dfm.df_add_f32(zcl, ecl * m32)
+            zcd = dfm.df_add_f32(zcd, ecd * m32)
+            iters3 = info3["iters"] if k == 0 else iters3 + info3["iters"]
+        return (zT, zcl, zcd), iters3, info3
+
+    def _df_verdict(self, r_df, b_df, m32, iters, nd, total, noise_sq=0.0):
+        """The float64 verdict of a double-float solve from its DF residual
+        ``r`` and rhs ``b`` (reconstructed only for the sums), the rhs noise
+        floor at the DF unit roundoff: of ``b`` itself, or ``noise_sq`` (the
+        floor of the Newton rhs it cancelled from) where that is larger."""
+        f64 = torch.float64
+        r = dfm.df_to(dfm.df_mask(r_df, m32), f64)
+        b = dfm.df_to(b_df, f64)
+        total = total or (lambda u: kernels.system_sum(u, nd))
+        noise = torch.clamp_min(_DF_EPS_B * _DF_EPS_B * total(b * b), noise_sq)
+        return _true_verdict(r, b, iters, noise, nd, self.tol, total)
+
+    def solve_df(self, st_df, b_df, mask, ops=None, noise_sq=0.0):
+        """``precision="df"``: the refinement of :meth:`solve` on planes and
+        rhs that are DF pairs (a stencil of :class:`~na_dd_tpu_torch.ops.
+        doublefloat.DF` planes), from x = 0, the float32 inner solve on the
+        hi planes; returns (x as DF, info).  The verdict: with
+        ``final_check`` the float64 one of the DF true residual (rhs noise
+        floor at the DF unit roundoff, at least ``noise_sq``), else the last
+        inner solve's."""
+        ops = _ops_of(ops, st_df)
+        st32 = type(st_df)(*(p.hi for p in st_df))
+        st_lo = type(st_df)(*(p.lo for p in st_df))
+        m32 = mask.to(torch.float32)
+        if not ops.sharded:
+            (st32, st_lo), (b_hi, b_lo, m32) = _batch_shape(
+                (st32, st_lo), (b_df.hi, b_df.lo, m32), _ndim(st32)
+            )
+            b_df = dfm.DF(b_hi, b_lo)
+        inv32 = linsolve.jacobi_from_diag(st32.c0, m32)
+        b_df = dfm.df_mask(b_df, m32)
+        x, iters, info = self._refine_df(st32, st_lo, b_df, inv32, m32, ops)
+        if self.final_check:
+            r_df = dfm.df_sub(b_df, dfm.df_stencil_apply(st32, st_lo, ops, x))
+            return x, self._df_verdict(r_df, b_df, m32, iters, _ndim(st32), _total(ops),
+                                       noise_sq)
+        return x, {
+            "iters": iters,
+            "resnorm_sq": info["resnorm_sq"].to(torch.float64),
+            "converged": info["converged"],
+        }
+
+    def solve_triple_df(self, J_T, J_cl, J_cd, C_clT, C_cdT, d_cdcl, wT, wcl, wcd, mask, dt,
+                        noise_sq=(0.0, 0.0, 0.0)):
+        """``precision="df"``: the block refinement of :meth:`solve_triple`
+        on DF planes and DF rhs ``w`` (already masked), one float32 triple
+        solve a pass on the hi planes; returns (zT, zcl, zcd as DF, infos),
+        the verdicts as :meth:`solve_df` gives them, each row's rhs being
+        ``w`` plus its DF coupling to the rows above."""
+        stencils = (J_T, J_cl, J_cd, C_clT, C_cdT)
+        m32 = mask.to(torch.float32)
+        hi_lo = [type(st)(*(p.hi for p in st)) for st in stencils] + [
+            type(st)(*(p.lo for p in st)) for st in stencils]
+        hi_lo, planes = _batch_shape(
+            hi_lo, (d_cdcl.hi, d_cdcl.lo, *(v for w in (wT, wcl, wcd) for v in w), m32)
+        )
+        planes32, planes_lo = tuple(hi_lo[:5]), tuple(hi_lo[5:])
+        d_df = dfm.DF(*planes[:2])
+        w_df = tuple(dfm.DF(planes[2 + 2 * k], planes[3 + 2 * k]) for k in range(3))
+        m32 = planes[-1]
+        invs = tuple(linsolve.jacobi_from_diag(st.c0, m32) for st in planes32[:3])
+        dt_df = _df_of(dt, m32)
+        z, iters3, info3 = self._refine_triple_df(planes32, planes_lo, d_df, dt_df, w_df, invs,
+                                                  m32, dt)
+        if not self.final_check:
+            info3 = dict(info3, iters=iters3, resnorm_sq=info3["resnorm_sq"].to(torch.float64))
+            return (*z, tuple(_triple_info(info3, k) for k in range(3)))
+        zT, zcl = z[0], z[1]
+        apply = lambda k, zz: dfm.df_stencil_apply(planes32[k], planes_lo[k], LOCAL_OPS, zz)  # noqa: E731
+        b_cl = dfm.df_add(w_df[1], dfm.df_mul(dt_df, apply(3, zT)))
+        b_cd = dfm.df_add(w_df[2], dfm.df_mul(
+            dt_df, dfm.df_add(apply(4, zT), dfm.df_mul(d_df, zcl))))
+        infos = tuple(
+            self._df_verdict(dfm.df_sub(b, apply(k, z[k])), b, m32, iters3[..., k], 2, None,
+                             noise_sq[k])
+            for k, b in enumerate((w_df[0], b_cl, b_cd))
+        )
+        return (*z, infos)
 
 
 
@@ -493,6 +668,7 @@ class PCTrapezoidalBase:
         precision: str = "full",
         mixed_refine: int = 2,
         mixed_final_check: bool = True,
+        mixed_df: bool = False,
         linear_solver: str = "krylov",
         differentiable: bool = False,
     ):
@@ -532,6 +708,19 @@ class PCTrapezoidalBase:
         with ``mixed_final_check``, one more f64 residual for an honest
         per-solve verdict.  With fused analytic couplings the refinement is
         the block-triangular one around the float32 triple solve.
+        ``mixed_df``: the refinement's residuals in double-float
+        (:class:`MixedBackend` ``df``).  "df" — the double-float step
+        (:meth:`_step_fn_df`): the state carried as DF pairs inside the
+        step and float64 at its boundary, every field evaluation, plane
+        assembly, rhs and corrector run on them by
+        :func:`~na_dd_tpu_torch.ops.df_lift.df_call_df`, the Newton solves
+        the refinement with DF residuals around the float32 kernels (K4 on
+        the fused route, K1/K5 on the per-solve route), with the mixed
+        mode's ``mixed_refine`` and ``mixed_final_check``; it needs a
+        float64 grid, ``assemble_stencil=True`` and
+        ``stencil_source="analytic"``, always takes the analytic
+        couplings, refuses ``differentiable=True`` (the lift has no
+        adjoint) and a sharded ops provider.
 
         linear_solver: "krylov" (the BiCGStab kernels) or "direct" (exact
         block cyclic reduction, :class:`DirectBackend`; in ``precision=
@@ -564,11 +753,26 @@ class PCTrapezoidalBase:
             raise ValueError(
                 f"coupling_source must be 'jvp' or 'analytic', got {coupling_source!r}"
             )
-        if precision not in ("full", "mixed"):
-            raise ValueError(f"precision must be 'full' or 'mixed'; got {precision!r}")
+        if precision not in ("full", "mixed", "df"):
+            raise ValueError(f"precision must be 'full', 'mixed' or 'df'; got {precision!r}")
+        if precision == "df":
+            if not assemble_stencil or stencil_source != "analytic":
+                raise ValueError(
+                    "precision='df' requires assemble_stencil=True and stencil_source='analytic'"
+                )
+            if differentiable:
+                raise ValueError(
+                    "precision='df' does not support differentiable=True (the double-float "
+                    "lift defines no adjoint); use precision='mixed' for adjoint runs"
+                )
         if precision == "mixed" and semi_discrete_field.grid.dtype != torch.float64:
             raise ValueError(
                 "precision='mixed' requires a float64 grid (the refinement residuals are f64)"
+            )
+        if precision == "df" and semi_discrete_field.grid.dtype != torch.float64:
+            raise ValueError(
+                "precision='df' requires a float64 grid (the DF pairs are split from and "
+                "reconstructed to float64 at the step boundary)"
             )
         if int(mixed_refine) < 0:
             raise ValueError(f"mixed_refine must be >= 0; got {mixed_refine!r}")
@@ -586,6 +790,7 @@ class PCTrapezoidalBase:
         self.precision = precision
         self.mixed_refine = int(mixed_refine)
         self.mixed_final_check = bool(mixed_final_check)
+        self.mixed_df = bool(mixed_df)
         self.coupling_source = coupling_source
         self.fused_triple = bool(fused_triple)
         self.semi_discrete_field = semi_discrete_field
@@ -595,11 +800,11 @@ class PCTrapezoidalBase:
         self.track_residuals = bool(track_residuals)
         # the kernels' budget: the unrolled count, or the while form's cap
         budget = self.krylov_maxiter if self.krylov_unroll is None else self.krylov_unroll
-        if precision == "mixed":
+        if precision in ("mixed", "df"):
             backend = DirectMixedBackend if linear_solver == "direct" else MixedBackend
             self.solver = backend(
                 iters=budget, refine=mixed_refine, final_check=mixed_final_check,
-                tol=self.krylov_tol,
+                tol=self.krylov_tol, df=self.mixed_df,
             )
         elif linear_solver == "direct":
             self.solver = DirectBackend(tol=self.krylov_tol)
@@ -861,10 +1066,164 @@ class PCTrapezoidalBase:
         converged = info_T["converged"] & info_cl["converged"] & info_cd["converged"]
         return T1, cl1, cd1, (res_T, res_cl, res_cd), iters, resnorm, converged
 
+    # precision="df": the double-float step
+    def _newton_sweep_df(self, g, ops, s: State, t1, dt, Y):
+        """The DF twin of :meth:`_newton_sweep` (analytic sources only): one
+        lifted evaluation gives the three rhs, the three Newton planes, both
+        coupling planes and the cl→cd diagonal as DF pairs, then the
+        triangular solves run the refinement with DF residuals: on the
+        fused route (2-D, ``fused_triple``, an int budget, the Krylov
+        solver, local ops) one float32 triple solve a pass, else one
+        refinement a system with the couplings applied in DF between them.
+        ``s`` and ``Y`` are DF; returns DF iterates."""
+        field = self.semi_discrete_field
+        mask = g.interior_mask
+        mask32 = mask.to(torch.float32)
+
+        def sources(s_, t1_, dt_, YT_, Ycl_, Ycd_):
+            fT0 = field.FT(g, ops, s_, t1_)
+            fcl0 = field.Fcl(g, ops, s_, t1_)
+            fcd0 = field.Fcd(g, ops, s_, t1_)
+            J_T = self._newton_planes(g, ops, field.stencil_dFT_dT(g, ops, s_), dt_)
+            J_cl = self._newton_planes(g, ops, field.stencil_dFcl_dcl(g, ops, s_), dt_)
+            J_cd = self._newton_planes(g, ops, field.stencil_dFcd_dcd(g, ops, s_), dt_)
+            C_clT = field.stencil_dFcl_dT(g, ops, s_)
+            C_cdT = field.stencil_dFcd_dT(g, ops, s_)
+            d_cdcl = field.diag_dFcd_dcl(g, s_)
+            rhs_T = (YT_ - (2.0 * s_.T - dt_ * fT0)) * mask
+            base_cl = (Ycl_ - 2.0 * s_.cl + dt_ * fcl0) * mask
+            base_cd = (Ycd_ - 2.0 * s_.cd + dt_ * fcd0) * mask
+            return rhs_T, base_cl, base_cd, J_T, J_cl, J_cd, C_clT, C_cdT, d_cdcl
+
+        wT, wcl, wcd, J_T, J_cl, J_cd, C_clT, C_cdT, d_cdcl = df_call_df(
+            sources, s, t1, dt, *Y
+        )
+        # the rhs rounding floors at the DF unit roundoff of the Newton rhs
+        # Y (a later sweep's rhs has cancelled far below it); the JAX
+        # package's df verdict takes each solve's own rhs
+        noise = tuple(
+            _DF_EPS_B * _DF_EPS_B * ops.asum(dfm.df_to(Yv, torch.float64) ** 2) for Yv in Y
+        ) if self.mixed_final_check else (0.0, 0.0, 0.0)
+        if (
+            self.fused_triple
+            and self.linear_solver == "krylov"
+            and type(J_T) is linsolve.Stencil5
+            and self.krylov_unroll is not None
+            and not ops.sharded
+        ):
+            zT, zcl, zcd, (info_T, info_cl, info_cd) = self.solver.solve_triple_df(
+                J_T, J_cl, J_cd, C_clT, C_cdT, d_cdcl, wT, wcl, wcd, mask, dt, noise
+            )
+        else:
+            dt_df = _df_of(dt, mask)
+
+            def coupled(w, c):
+                return dfm.df_add(w, dfm.df_mask(dfm.df_mul(dt_df, c), mask32))
+
+            def apply(st, z):
+                return dfm.df_stencil_apply(type(st)(*(p.hi for p in st)),
+                                            type(st)(*(p.lo for p in st)), ops, z)
+
+            zT, info_T = self.solver.solve_df(J_T, wT, mask, ops, noise[0])
+            zcl, info_cl = self.solver.solve_df(J_cl, coupled(wcl, apply(C_clT, zT)), mask, ops,
+                                                noise[1])
+            c_cd = dfm.df_add(apply(C_cdT, zT), dfm.df_mul(d_cdcl, zcl))
+            zcd, info_cd = self.solver.solve_df(J_cd, coupled(wcd, c_cd), mask, ops, noise[2])
+
+        T1 = dfm.df_add(dfm.df_mask(s.T, mask32), zT)  # boundary re-zeroed
+        cl1 = dfm.df_add(s.cl, zcl)  # boundary kept, as in the reference
+        cd1 = dfm.df_add(s.cd, zcd)
+
+        if self.track_residuals:
+            def resid(s_, T1_, cl1_, cd1_, t1_, dt_, YT_, Ycl_, Ycd_):
+                res_T = 2.0 * T1_ - dt_ * field.FT(g, ops, s_._replace(T=T1_), t1_) - YT_
+                s_cl = s_._replace(T=T1_, cl=cl1_)
+                res_cl = 2.0 * cl1_ - dt_ * field.Fcl(g, ops, s_cl, t1_) - Ycl_
+                s_cd = s_._replace(T=T1_, cl=cl1_, cd=cd1_)
+                res_cd = 2.0 * cd1_ - dt_ * field.Fcd(g, ops, s_cd, t1_) - Ycd_
+                return res_T, res_cl, res_cd
+
+            res = df_call_df(resid, s, T1, cl1, cd1, t1, dt, *Y, out="f64")
+        else:
+            res = (torch.zeros(s.T.hi.shape, dtype=torch.float64, device=mask.device),) * 3
+        resnorm = torch.maximum(
+            torch.maximum(info_T["resnorm_sq"], info_cl["resnorm_sq"]), info_cd["resnorm_sq"]
+        )
+        iters = info_T["iters"] + info_cl["iters"] + info_cd["iters"]
+        converged = info_T["converged"] & info_cl["converged"] & info_cd["converged"]
+        return T1, cl1, cd1, res, iters, resnorm, converged
+
+    def _step_fn_df(self, g: Grid, ops: Ops, at_t0: State, t0, dt):
+        """The double-float step: one exact split of each field on entry, the
+        state DF inside, one exact hi + lo reconstruction on exit (a DF ↔
+        float64 round trip is lossless).  Same sweeps, correctors and
+        boundary semantics as :meth:`step_fn`."""
+        if ops.sharded:
+            raise ValueError(
+                "precision='df' runs on a local or batched ops provider, not on a sharded "
+                f"one ({type(ops).__name__}); use precision='mixed' with mixed_df=True there"
+            )
+        ftype = at_t0.T.dtype
+        if ftype != torch.float64:
+            raise ValueError("precision='df' requires a float64 state (the DF pairs are split "
+                             "from and reconstructed to float64 at the step boundary)")
+        t0 = torch.as_tensor(t0, dtype=ftype, device=at_t0.T.device)
+        t1 = t0 + dt
+        s0 = State(*(dfm.df_split(x) for x in at_t0))
+
+        def y_and_preds(s_, t0_, dt_):
+            field = self.semi_discrete_field
+            YT0 = dt_ * field.FT(g, ops, s_, t0_) + 2.0 * s_.T
+            Ycl0 = dt_ * field.Fcl(g, ops, s_, t0_) + 2.0 * s_.cl
+            Ycd0 = dt_ * field.Fcd(g, ops, s_, t0_) + 2.0 * s_.cd
+            cp1 = self.initial_cp_pred(g, ops, s_, t0_, dt=dt_)
+            cs1 = self.initial_cs_pred(g, ops, s_, t0_, dt=dt_)
+            return YT0, Ycl0, Ycd0, cp1, cs1
+
+        def correctors(T1_, cl1_, cd1_, s0_, t0_, dt_):
+            cp_n = self.corrector_cp_step(g, ops, T1_, cl1_, cd1_, at_t0=s0_, t0=t0_, dt=dt_)
+            cs_n, ok = self.corrector_cs_step(g, ops, T1_, cl1_, cd1_, at_t0=s0_, t0=t0_, dt=dt_)
+            return cp_n, cs_n, ok
+
+        YT0, Ycl0, Ycd0, cp1, cs1 = df_call_df(y_and_preds, s0, t0, dt)
+        Y = (YT0, Ycl0, Ycd0)
+        T1, cl1, cd1 = s0.T, s0.cl, s0.cd
+        device = at_t0.T.device
+        res = (torch.zeros_like(at_t0.T),) * 3
+        total_iters = torch.zeros((), dtype=torch.int32, device=device)
+        worst_resnorm = torch.zeros((), dtype=ftype, device=device)
+        all_converged = torch.ones((), dtype=torch.bool, device=device)
+        hcs_ok = torch.ones((), dtype=torch.bool, device=device)
+        for _pc in range(self.num_pc_steps):
+            for _newton in range(self.num_newton_steps):
+                s_df = State(cp=cp1, T=T1, cl=cl1, cd=cd1, cs=cs1)
+                T1, cl1, cd1, res, iters, resnorm, converged = self._newton_sweep_df(
+                    g, ops, s_df, t1, dt, Y
+                )
+                total_iters = total_iters + iters
+                worst_resnorm = torch.maximum(worst_resnorm, resnorm)
+                all_converged = all_converged & converged
+            cp1, cs1, ok = df_call_df(correctors, T1, cl1, cd1, s0, t0, dt)
+            hcs_ok = hcs_ok & ok
+
+        new_state = State(*(dfm.df_to(x, ftype) for x in (cp1, T1, cl1, cd1, cs1)))
+        diag = StepDiagnostics(
+            residual_T=res[0],
+            residual_cl=res[1],
+            residual_cd=res[2],
+            krylov_iters=total_iters,
+            krylov_resnorm_sq=worst_resnorm,
+            krylov_converged=all_converged,
+            hcs_denominator_ok=hcs_ok,
+        )
+        return new_state, diag
+
     def step_fn(self, g: Grid, ops: Ops, at_t0: State, t0, dt):
         """One PC step from ``at_t0`` at time ``t0`` (a 0-d tensor or float)
         with step ``dt`` (a float).  Returns (State, StepDiagnostics); every
         diagnostic stays a device tensor."""
+        if self.precision == "df":
+            return self._step_fn_df(g, ops, at_t0, t0, dt)
         field = self.semi_discrete_field
         t0 = torch.as_tensor(t0, dtype=at_t0.T.dtype, device=at_t0.T.device)
         t1 = t0 + dt

@@ -13,7 +13,8 @@ Runs on the CUDA card unless ``--device cpu``; with no card and no
 ``--results-dir``), never under ``studies/results/``.
 
 The JAX CLI's environment switches are flags here: ``NA_DD_TPU_PRECISION``
-is ``--precision``, ``NA_DD_TPU_X64=0`` is ``--dtype float32`` and
+is ``--precision`` (``full``, ``mixed`` or ``df``), ``NA_DD_TPU_MIXED_DF=1``
+is ``--mixed-df``, ``NA_DD_TPU_X64=0`` is ``--dtype float32`` and
 ``NA_DD_TPU_COUPLING`` is ``--coupling-source``.
 """
 
@@ -70,9 +71,13 @@ def parser() -> argparse.ArgumentParser:
                         "as one batch (harness/batched_ladder.py)")
     p.add_argument("--measure-steady", action="store_true",
                    help="re-run each level for a second, warm time")
-    p.add_argument("--precision", choices=["full", "mixed"], default="full",
-                   help="mixed: float32 Krylov under float64 refinement "
-                        "(the JAX CLI's NA_DD_TPU_PRECISION)")
+    p.add_argument("--precision", choices=["full", "mixed", "df"], default="full",
+                   help="mixed: float32 Krylov under float64 refinement; df: the "
+                        "double-float step around the float32 kernels (the JAX CLI's "
+                        "NA_DD_TPU_PRECISION)")
+    p.add_argument("--mixed-df", action="store_true",
+                   help="with --precision mixed: the refinement's residuals in "
+                        "double-float (the JAX CLI's NA_DD_TPU_MIXED_DF=1)")
     p.add_argument("--dtype", choices=sorted(DTYPES), default="float64",
                    help="float32 is the JAX CLI's NA_DD_TPU_X64=0")
     p.add_argument("--coupling-source", choices=["jvp", "analytic"], default="jvp",
@@ -90,7 +95,7 @@ def run_one(args, study: str, kind: str, levels, device) -> dict:
     print(f"\n===== {study} / {kind} =====")
     kernels.reset_launch_counts()
     route = dict(precision=args.precision, coupling_source=args.coupling_source,
-                 dtype=DTYPES[args.dtype], device=device)
+                 mixed_df=args.mixed_df, dtype=DTYPES[args.dtype], device=device)
     if kind == "spatial":
         runner = run_spatial_ladder_batched if args.batched else run_spatial_study
         res = runner(study, levels=levels or 8, measure_steady=args.measure_steady, **route)

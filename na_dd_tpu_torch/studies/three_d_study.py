@@ -91,9 +91,10 @@ def parser() -> argparse.ArgumentParser:
                          "grid's spatial error cancels; the rate gate then runs on "
                          "these errors")
     ap.add_argument("--eta", type=float, default=THREE_D_ETA)
-    ap.add_argument("--precision", choices=["full", "mixed"], default="full",
-                    help="mixed: float32 Krylov under float64 refinement "
-                         "(the JAX script's NA_DD_TPU_PRECISION)")
+    ap.add_argument("--precision", choices=["full", "mixed", "df"], default="full",
+                    help="mixed: float32 Krylov under float64 refinement; df: the "
+                         "double-float step around the float32 K5 (the JAX script's "
+                         "NA_DD_TPU_PRECISION)")
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="float64",
                     help="float32 is the JAX script's NA_DD_TPU_X64=0")
     ap.add_argument("--device", default=None,
@@ -195,7 +196,8 @@ def run_batched(args, device, dtype, tol, _out_path):
     res = run_spatial_ladder3_batched(
         MMSCaseExpSin3, model=model3(), levels=args.levels, base_N=args.n0, dt0=args.dt0,
         Tf=args.tf, eta=args.eta, measure_steady=True,
-        precision="mixed" if args.precision == "mixed" else None, dtype=dtype, device=device,
+        precision=None if args.precision == "full" else args.precision, dtype=dtype,
+        device=device,
     )
     # the pairwise log2 rates (levels-1 of them), as the serial path gates:
     # the 3-point res["rates"] would leave a 3-level run ungated
@@ -226,8 +228,8 @@ def run_ladder(args, device, dtype, tol, out_path):
     """The serial spatial or temporal ladder, each level dumped as it ends."""
     model = model3()
     integrator_params = dict(num_newton_steps=2)
-    if args.precision == "mixed":
-        integrator_params["precision"] = "mixed"
+    if args.precision != "full":
+        integrator_params["precision"] = args.precision
     kind = "temporal" if args.temporal else "spatial"
     header = dict(backend=device.type, x64=dtype == torch.float64, variant=args.variant,
                   kind=kind, precision=args.precision, Tf=args.tf, eta=args.eta)
@@ -339,7 +341,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.batched and args.variant != "reghcs":
         ap.error("--batched supports the reghcs variant only")
-    if args.eta_sweep and args.precision == "mixed":
+    if args.eta_sweep and args.precision != "full":
         ap.error("--eta-sweep runs in full precision only")
     if args.self_reference and not args.temporal:
         ap.error("--self-reference requires --temporal")

@@ -241,26 +241,36 @@ def run_eta_sweep3(
     ``case_cls`` on the uniform N³ grid from 0 to ``Tf`` in steps of ``dt``,
     η an (E, 1, 1, 1) tensor through field, forcing and corrector.  Raises
     :class:`HCsCorrectorPositivityError` naming each η whose corrector lost
-    positivity.  Returns ``{"etas", "errors", "converged"}``.  On the card
+    positivity.  Returns ``{"etas", "errors", "converged"}``.  More than
+    :data:`~na_dd_tpu_torch.ops.kernels.MAX_BATCH` η run as consecutive
+    batches of at most that many (the kernels' limit a launch).  On the card
     unless ``device="cpu"``.  The JAX function's ``krylov_scanned`` (an XLA
     compile-time option) has no counterpart here."""
+    from na_dd_tpu_torch.ops import kernels
+
     g = make_uniform_grid3(N, N, N, dtype=dtype, device=device)
     case = case_cls(g, model)
     etas = [float(e) for e in etas]
-    eta = torch.tensor(etas, dtype=g.dtype, device=g.device).reshape(-1, 1, 1, 1)
-    forcing = MMSForcingRegHCsTriple3(mms_case=case, model=model, regularization_factor=eta)
-    field = FieldRegHCsTriple3(grid=g, model=model, forcing=forcing, regularization_factor=eta)
-    integ = PCTrapezoidalRegHCsTriple3(
-        field, regularization_factor=eta, track_residuals=False, krylov_unroll=krylov_unroll
-    )
-    run, s0 = build_runner3(g, case, integ, Tf=Tf, dt=dt, ops=BATCHED_OPS3)
-    _s, worst, ok, hcs_ok, _per_var = run(
-        State(*(v.expand(len(etas), *v.shape).contiguous() for v in s0))
-    )
-    # the sweep's only host transfer
-    packed = torch.stack(
-        [v.to(torch.float64).reshape(-1).expand(len(etas)) for v in (worst, ok, hcs_ok)]
-    ).cpu()
+
+    def run_part(members):
+        eta = torch.tensor(members, dtype=g.dtype, device=g.device).reshape(-1, 1, 1, 1)
+        forcing = MMSForcingRegHCsTriple3(mms_case=case, model=model, regularization_factor=eta)
+        field = FieldRegHCsTriple3(grid=g, model=model, forcing=forcing,
+                                   regularization_factor=eta)
+        integ = PCTrapezoidalRegHCsTriple3(
+            field, regularization_factor=eta, track_residuals=False, krylov_unroll=krylov_unroll
+        )
+        run, s0 = build_runner3(g, case, integ, Tf=Tf, dt=dt, ops=BATCHED_OPS3)
+        _s, worst, ok, hcs_ok, _per_var = run(
+            State(*(v.expand(len(members), *v.shape).contiguous() for v in s0))
+        )
+        # the part's only host transfer
+        return torch.stack(
+            [v.to(torch.float64).reshape(-1).expand(len(members)) for v in (worst, ok, hcs_ok)]
+        ).cpu()
+
+    step = kernels.MAX_BATCH
+    packed = torch.cat([run_part(etas[i:i + step]) for i in range(0, len(etas), step)], dim=1)
     bad = [e for e, h in zip(etas, packed[2].tolist()) if h < 0.5]
     if bad:
         raise HCsCorrectorPositivityError(

@@ -8,7 +8,9 @@ reductions, a stencil with ``.apply``/``.c0``), so the 3-D integrators
 override only how the Newton planes are made (closed form or 7-colour
 probes) and the eager ``step``'s ops provider.  Their solves reach the
 7-point kernels and the 3-D direct solve through the solver backend, which
-picks them by the stencil's type.  Forward Euler only
+picks them by the stencil's type, and so does the double-float step
+(``precision="df"``) and ``mixed_df``, whose float32 inner solves are K5 on
+the hi volumes.  Forward Euler only
 evaluates ``field.all_fields``, so its 3-D class changes nothing but the
 ops provider.
 """

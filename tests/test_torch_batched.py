@@ -505,3 +505,64 @@ def test_fused_eta_study_batched_matches_jax(precision, monkeypatch):
                                     coupling_source="analytic", **FUSED_ETA_KW)
         for e_p, e_f in zip(port["errors"], f64["errors"]):
             assert _rel(e_p, e_f) <= 1e-12
+
+
+def test_eta_study_batched_splits_past_the_batch_limit(monkeypatch):
+    """More η than one launch takes (33 > ``kernels.MAX_BATCH``): the fused
+    analytic sweep runs them as consecutive batches of at most 32, each η
+    within 1e-10 of the JAX sweep (one vmap of all 33).  The wrapper still
+    refuses 33 systems in one launch
+    (``test_triple_solve_takes_a_stack_up_to_the_batch_limit``)."""
+    etas = [float(e) for e in np.geomspace(10.0, 1000.0, 33)]
+    kw = dict(N=8, dt=5e-3, Tf=0.01, etas=etas)
+    _jax_fused_env(monkeypatch)
+    jax_res = j_run_eta_study_batched("pol", verbose=False, **kw)
+    sweep_kw = dict(coupling_source="analytic", device="cpu", **kw)
+    port = run_eta_study_batched("pol", verbose=False, **sweep_kw)
+    assert port["etas"] == jax_res["etas"] == etas
+    for e_p, e_j in zip(port["errors"], jax_res["errors"]):
+        assert _rel(e_p, e_j) <= 1e-10
+    from na_dd_tpu_torch.harness.studies import build_eta_study_batched
+
+    sweep = build_eta_study_batched("pol", **sweep_kw)
+    assert [len(p["etas"]) for p in sweep["parts"]] == [kernels.MAX_BATCH, 1]
+    assert sweep["state"].T.shape[0] == kernels.MAX_BATCH
+
+
+# ---------------------------------------------------------------------------
+# precision="df" on the batch axis: the double-float step of every system in
+# one batch, its solves one batched launch
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("coupling_source", ["jvp", "analytic"])
+def test_spatial_ladder_batched_df_matches_serial_df(coupling_source):
+    """The 2-D ladder with ``precision="df"`` (df always takes the analytic
+    couplings; "analytic" is the fused batched K4 route, "jvp" the per-solve
+    batched K1 one) against the port's serial df levels, ≤1e-12."""
+    port = run_spatial_ladder_batched("pol", levels=3, verbose=False, device="cpu",
+                                      precision="df", coupling_source=coupling_source)
+    serial = run_spatial_study("pol", levels=3, verbose=False, device="cpu", precision="df")
+    assert port["Ns"] == serial["Ns"] == [2, 4, 8]
+    for e_p, e_s in zip(port["errors"], serial["errors"]):
+        assert _rel(e_p, e_s) <= 1e-12
+
+
+def test_eta_study_batched_df_matches_serial_df():
+    port = run_eta_study_batched("pol", verbose=False, device="cpu", precision="df",
+                                 coupling_source="analytic", **ETA_KW)
+    serial = run_eta_study("pol", verbose=False, device="cpu", precision="df", **ETA_KW)
+    for e_p, e_s in zip(port["errors"], serial["errors"]):
+        assert _rel(e_p, e_s) <= 1e-12
+
+
+def test_spatial_ladder3_batched_df_matches_serial_df(model3):
+    """The 3-D ladder with ``precision="df"`` (batched K5 a solve; Tf = 0.01,
+    one and two steps) against the port's serial 3-D df levels, ≤1e-12."""
+    _, t_model = model3
+    port = run_spatial_ladder3_batched(MMSCaseExpSin3, model=t_model, levels=2, base_N=4,
+                                       Tf=0.01, verbose=False, precision="df", device="cpu")
+    assert port["Ns"] == [4, 8] and all(port["converged"])
+    for k, (N, e_p) in enumerate(zip(port["Ns"], port["errors"])):
+        e_s = mms_error3(MMSCaseExpSin3, N=N, model=t_model, Tf=0.01, dt=1e-2 / 2**k,
+                         integrator_params=dict(num_newton_steps=2, precision="df"),
+                         device="cpu")
+        assert _rel(e_p, e_s) <= 1e-12

@@ -19,7 +19,21 @@ twins of ``tests/test_mixed_precision.py`` (all but the ``mixed_df`` ones):
   Krylov iteration total;
 * the validation, the iteration count over every pass, the rhs noise floor
   of a second Newton sweep and ``mixed_final_check=False`` (the same state
-  bit for bit, the same iterations) on the port.
+  bit for bit, the same iterations) on the port;
+* ``mixed_df=True`` (the refinement's residuals in double-float): one step
+  at N=8, per-solve and fused, against the JAX package's ``mixed_df`` step
+  (≤1e-12), and the DF refinement of a random system against the float64
+  one;
+* ``precision="df"`` (the double-float step), the twins of
+  ``tests/test_df_mode.py``: one step at N=8 (dt=1e-3, budget 8,
+  ``mixed_refine=1``, no final check) on the fused (K4) and the per-solve
+  (K1) route against the JAX package's float64 step, each field ≤1e-13
+  relative to its max-norm, boundary rows included; the JAX package's
+  refusals; the df ladder N=8, 16 against the JAX package's eager CPU-x64
+  df record ``studies/results/df_cpu_x64.json`` (≤1e-8) and the df level
+  with the time tables and the float32 tail on the port's float64 level
+  (≤1e-8).  No JAX df step runs here: the JAX package's lifted step takes
+  seconds a step even eagerly.
 """
 
 import warnings
@@ -182,8 +196,7 @@ def test_mixed_step_diagnostics_and_route(mixed_step):
 def test_precision_is_validated():
     with pytest.raises(ValueError, match="precision"):
         _port_trial(8, precision="half")
-    with pytest.raises(ValueError, match="precision"):
-        _port_trial(8, precision="df")
+    assert _port_trial(8, precision="df").integrator.precision == "df"
     with pytest.raises(ValueError, match="mixed_refine"):
         _port_trial(8, precision="mixed", mixed_refine=-1)
     integ = _port_trial(8).integrator
@@ -247,3 +260,204 @@ def test_mixed_backend_refines_to_the_f64_tolerance():
     assert float(torch.sum(r1 * r1)) > (1e-13) ** 2 * float(torch.sum(b * b))
     assert float(torch.sum(r1 * r1)) <= (10 * MIXED_INNER_TOL) ** 2 * float(torch.sum(b * b))
     assert int(info["iters"]) > int(info1["iters"]) > 0
+
+
+# ---------------------------------------------------------------------------
+# precision="df" and mixed_df
+# ---------------------------------------------------------------------------
+import json  # noqa: E402
+import os  # noqa: E402
+
+from na_dd_tpu_torch.ops import doublefloat as dfm  # noqa: E402
+
+DF_KW = dict(precision="df", mixed_refine=1, mixed_final_check=False)
+DF_RECORD = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "studies", "results", "df_cpu_x64.json")
+
+
+@pytest.fixture(scope="module")
+def jax_f64_step():
+    """The JAX package's float64 step at N=8, dt=1e-3, budget 8 (the
+    reference of tests/test_df_mode.py), and its initial state on the port."""
+    jt = _jax_trial(8)
+    j_state, _ = jax.jit(jt.integrator.step_fn, static_argnums=1)(
+        jt.grid, J_OPS, jt.initial_state, 0.0, 1e-3
+    )
+    s0 = state_from_numpy({k: np.asarray(v) for k, v in jt.initial_state._asdict().items()},
+                          device="cpu")
+    return j_state, s0
+
+
+def _counting(integ):
+    """Count the backend calls of each route of the df sweep."""
+    calls = {"solve_df": 0, "solve_triple_df": 0}
+    solver = integ.solver
+    for name in calls:
+        def wrapped(*args, _name=name, _fn=getattr(solver, name)):
+            calls[_name] += 1
+            return _fn(*args)
+        setattr(solver, name, wrapped)
+    return calls
+
+
+@pytest.fixture(scope="module", params=["fused", "per_solve"])
+def df_step(request, jax_f64_step):
+    extra = {} if request.param == "fused" else dict(fused_triple=False)
+    tt = _port_trial(8, **DF_KW, **extra)
+    calls = _counting(tt.integrator)
+    t_state, t_diag = tt.integrator.step_fn(tt.grid, LOCAL_OPS, jax_f64_step[1], 0.0, 1e-3)
+    return request.param, jax_f64_step[0], t_state, t_diag, calls
+
+
+@pytest.mark.parametrize("field", FIELDS)
+def test_df_step_field_matches_jax_f64(df_step, field):
+    """Each field of the df step within 1e-13 of the JAX float64 step,
+    relative to its max-norm; the boundary rows at the same gate (not bit
+    for bit: the corrector's boundary zeros are exact, but cl/cd keep their
+    boundary through a DF add)."""
+    _, j_state, t_state, _, _ = df_step
+    ref = np.asarray(getattr(j_state, field))
+    got = getattr(t_state, field)
+    assert got.dtype == torch.float64
+    scale = np.max(np.abs(ref))
+    assert np.max(np.abs(got.numpy() - ref)) <= 1e-13 * scale
+    for row in (0, -1):
+        assert np.max(np.abs(got.numpy()[row] - ref[row])) <= 1e-13 * scale
+
+
+def test_df_step_diagnostics_and_route(df_step):
+    form, _, _, t_diag, calls = df_step
+    assert bool(t_diag.krylov_converged) and int(t_diag.krylov_iters) > 0
+    assert bool(t_diag.hcs_denominator_ok)
+    assert calls == ({"solve_df": 0, "solve_triple_df": 1} if form == "fused"
+                     else {"solve_df": 3, "solve_triple_df": 0})
+
+
+@pytest.mark.parametrize("form", [{}, dict(fused_triple=False)], ids=["fused", "per_solve"])
+def test_df_converged_under_a_second_newton_sweep(form):
+    """The second sweep's rhs has mostly cancelled; its DF true residual sits
+    at the DF rounding floor of the Newton rhs, which the verdict accepts
+    (the JAX package's df verdict takes the cancelled rhs's own floor and
+    reports this step unconverged)."""
+    _, diag = _step(precision="df", krylov_unroll=16, num_newton_steps=2, **form)
+    assert bool(diag.krylov_converged), float(diag.krylov_resnorm_sq)
+
+
+def test_df_validation_and_requirements():
+    """The JAX package's refusals (tests/test_df_mode.py): assembled
+    analytic planes, no adjoint; its "requires x64" is the port's "requires
+    a float64 grid"; a sharded ops provider is refused at the step."""
+    with pytest.raises(ValueError, match="assemble_stencil"):
+        _port_trial(8, precision="df", assemble_stencil=False)
+    with pytest.raises(ValueError, match="analytic"):
+        _port_trial(8, precision="df", stencil_source="probe")
+    with pytest.raises(ValueError, match="differentiable"):
+        _port_trial(8, precision="df", differentiable=True)
+    with pytest.raises(ValueError, match="float64"):
+        _port_trial(8, precision="df", dtype=torch.float32)
+    trial = _port_trial(8, precision="df")
+    assert isinstance(trial.integrator.solver, MixedBackend)
+
+    class Sharded(type(LOCAL_OPS)):
+        sharded = True
+
+    with pytest.raises(ValueError, match="sharded"):
+        trial.integrator.step_fn(trial.grid, Sharded(), _s0(trial), 0.0, 1e-3)
+
+
+@pytest.fixture(scope="module", params=["per_solve", "fused"])
+def mixed_df_step(request):
+    extra = dict(precision="mixed", mixed_df=True, track_residuals=True)
+    j_extra = dict(extra)
+    if request.param == "fused":
+        extra["coupling_source"] = j_extra["coupling_source"] = "analytic"
+        j_extra["stencil_backend"] = "pallas"
+    jt = _jax_trial(8, **j_extra)
+    j_state, j_diag = jax.jit(jt.integrator.step_fn, static_argnums=1)(
+        jt.grid, J_OPS, jt.initial_state, 0.0, 1e-3
+    )
+    tt = _port_trial(8, **extra)
+    assert tt.integrator.solver.df
+    s0 = state_from_numpy({k: np.asarray(v) for k, v in jt.initial_state._asdict().items()},
+                          device="cpu")
+    t_state, t_diag = tt.integrator.step_fn(tt.grid, LOCAL_OPS, s0, 0.0, 1e-3)
+    return j_state, j_diag, t_state, t_diag
+
+
+@pytest.mark.parametrize("field", FIELDS)
+def test_mixed_df_step_field_matches_jax(mixed_df_step, field):
+    j_state, j_diag, t_state, t_diag = mixed_df_step
+    ref = np.asarray(getattr(j_state, field))
+    assert np.max(np.abs(getattr(t_state, field).numpy() - ref)) <= 1e-12 * np.max(np.abs(ref))
+    assert int(t_diag.krylov_iters) == int(j_diag.krylov_iters) > 0
+    assert bool(t_diag.krylov_converged)
+
+
+def _df_record():
+    with open(DF_RECORD) as f:
+        return json.load(f)
+
+
+@pytest.mark.parametrize("N", [8, 16])
+def test_df_ladder_matches_the_cpu_x64_record(N):
+    """The df pol spatial level (Tf = 0.01, dt = h^1.5, the study's budget,
+    refine 1, no final check, float64 norms) against the JAX package's
+    eager CPU-x64 df record, ≤1e-8."""
+    from na_dd_tpu_torch.harness.studies import STUDIES, _study_unroll
+
+    rec = _df_record()["df"][str(N)]
+    dt = (1.0 / N) ** 1.5
+    mc = study_consts("pol")
+    trial = _port_trial(N, krylov_unroll=_study_unroll(STUDIES["pol"], N, dt, mc), **DF_KW)
+    err = trial.run_for_errors(Tf=0.01, dt=dt).overall_combined_error
+    assert abs(err - rec["error"]) <= 1e-8 * rec["error"]
+
+
+def test_df_fast_sits_on_the_f64_level(port_f64):
+    """The df level with bench.py's df_fast knobs (time tables, float32
+    error tail) on the port's float64 level (1e-8), every solve converged."""
+    _, summary, krylov_warnings = _port_run(dict(DF_KW, coupling_source="analytic"), FAST_RUN)
+    assert abs(summary.overall_combined_error - port_f64) <= 1e-8 * port_f64
+    assert not krylov_warnings and summary.series.krylov_converged.all()
+
+
+def test_mixed_df_backend_solve_matches_the_f64_refinement():
+    """A random diagonally dominant system: the DF-residual refinement
+    reaches the same float64 tolerance as the float64-residual one, its
+    residual apply the DF one (the float64 apply unused)."""
+    rng = np.random.default_rng(5)
+    n = 33
+    mask = torch.zeros((n, n), dtype=torch.float64)
+    mask[1:-1, 1:-1] = 1.0
+    off = [torch.as_tensor(rng.uniform(-1.0, 0.0, (n, n))) * mask for _ in range(4)]
+    st = Stencil5(4.5 * mask + (1.0 - mask), *off)
+    b = torch.as_tensor(rng.standard_normal((n, n))) * mask
+    x_df, info_df = MixedBackend(iters=40, df=True).solve(st, b, mask)
+    x, info = MixedBackend(iters=40).solve(st, b, mask)
+    r = (b - st.apply(LOCAL_OPS, x_df)) * mask
+    assert float(torch.sum(r * r)) <= (1e-13) ** 2 * float(torch.sum(b * b))
+    assert bool(info_df["converged"]) and int(info_df["iters"]) == int(info["iters"])
+    assert float(torch.max(torch.abs(x_df - x))) <= 1e-13 * float(torch.max(torch.abs(x)))
+    # the DF refinement on DF planes (precision="df"): the same solve
+    st_df = Stencil5(*(dfm.df_split(p) for p in st))
+    z, info_z = MixedBackend(iters=40, final_check=True).solve_df(st_df, dfm.df_split(b), mask)
+    assert float(torch.max(torch.abs(dfm.df_to(z, torch.float64) - x))) <= (
+        1e-13 * float(torch.max(torch.abs(x))))
+    assert bool(info_z["converged"])
+
+
+@pytest.mark.parametrize("argv", [["--precision", "df"], ["--precision", "mixed", "--mixed-df"]],
+                         ids=["df", "mixed_df"])
+def test_run_study_cli_takes_the_double_float_modes(tmp_path, argv):
+    """The study CLI's ``--precision df`` and ``--mixed-df`` (the JAX CLI's
+    NA_DD_TPU_PRECISION=df and NA_DD_TPU_MIXED_DF=1) on the pol ladder
+    N=2..16: N=8 and 16 on the JAX package's CPU-x64 df record (≤1e-8; the
+    record is of refine 1, the CLI runs the integrator's default refine 2)."""
+    from na_dd_tpu_torch.studies import run_study
+
+    (res,) = run_study.main(["--study", "pol", "--kind", "spatial", "--levels", "4",
+                             "--device", "cpu", "--results-dir", str(tmp_path), *argv])
+    rec = _df_record()["df"]
+    assert res["Ns"] == [2, 4, 8, 16]
+    for N, err in zip(res["Ns"][2:], res["errors"][2:]):
+        assert abs(err - rec[str(N)]["error"]) <= 1e-8 * rec[str(N)]["error"]

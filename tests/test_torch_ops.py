@@ -12,6 +12,7 @@ solve (≤1e-12; the while form is bit for bit the port's unrolled solve
 with a budget it exits inside)."""
 
 import dataclasses
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -327,3 +328,335 @@ def test_newton_inner_solve_matches_jax():
     assert_close(td, jd, RTOL_SOLVE)
     assert int(tinfo["iters"]) == int(jinfo["iters"])
     assert float(td.abs().mul(1 - tg.interior_mask).max()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# double-float arithmetic (ops/doublefloat.py) and the lift (ops/df_lift.py):
+# the twins of tests/test_doublefloat.py and tests/test_df_lift.py at their
+# tolerances, on seeded numpy inputs, and each DF function against the JAX
+# package's on the same inputs
+# ---------------------------------------------------------------------------
+from na_dd_tpu.ops import doublefloat as j_dfm  # noqa: E402
+from na_dd_tpu_torch.ops import doublefloat as dfm  # noqa: E402
+from na_dd_tpu_torch.ops.df_lift import df_call, df_lift_report  # noqa: E402
+
+F64, F32 = torch.float64, torch.float32
+
+
+def _t(a, dtype=F64):
+    return torch.as_tensor(np.asarray(a), dtype=dtype)
+
+
+def _to64(d):
+    return dfm.df_to(d, F64)
+
+
+def _split(x):
+    return dfm.df_split(_t(x))
+
+
+def test_two_sum_exact():
+    rng = np.random.default_rng(0)
+    a = _t(rng.standard_normal(4096), F32)
+    b = _t(rng.standard_normal(4096) * 1e-6, F32)
+    s, e = dfm.two_sum(a, b)
+    assert torch.equal(s.double() + e.double(), a.double() + b.double())
+
+
+def test_two_prod_exact():
+    rng = np.random.default_rng(1)
+    a = _t(rng.standard_normal(4096), F32)
+    b = _t(rng.standard_normal(4096), F32)
+    p, e = dfm.two_prod(a, b)
+    assert torch.equal(p.double() + e.double(), a.double() * b.double())
+
+
+def test_split_roundtrip_and_accuracy():
+    x = _t(np.random.default_rng(2).standard_normal((64, 64)))
+    d = dfm.df_split(x)
+    assert float(torch.max(torch.abs(_to64(d) - x) / torch.abs(x).max())) < 2e-14
+    assert bool(torch.all(torch.abs(d.lo) <= torch.abs(d.hi) * 2.0 ** -23))
+
+
+def test_df_add_cancellation():
+    x = _t(np.random.default_rng(3).standard_normal(128))
+    y = x * (1.0 + 1e-6) + 1e-9
+    d = dfm.df_sub(dfm.df_split(y), dfm.df_split(x))
+    assert float(torch.max(torch.abs(_to64(d) - (y - x)))) < 1e-13 * float(torch.abs(x).max())
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_df_stencil_residual_matches_f64(dim):
+    """r = b − A·x in DF agrees with the float64 residual to ~2^-47·‖b‖ when
+    r is 1e-6·‖b‖ (the refinement regime), in 2-D and in 3-D."""
+    from na_dd_tpu_torch.three_d.diffusion import Stencil7
+    from na_dd_tpu_torch.three_d.shifts import LOCAL_OPS3
+
+    rng = np.random.default_rng(4)
+    cls, ops, shape = (
+        (t_ls.Stencil5, T_OPS, (96, 96)) if dim == 2 else (Stencil7, LOCAL_OPS3, (20, 21, 22))
+    )
+    planes = [_t(rng.standard_normal(shape)) for _ in cls._fields]
+    planes[0] = planes[0] + 4.0
+    st = cls(*planes)
+    x = _t(rng.standard_normal(shape))
+    ax = st.apply(ops, x)
+    b = ax * (1.0 + 1e-6)
+    r64 = b - ax
+    st_hi, st_lo = dfm.df_split_stencil(st)
+    r_df = dfm.df_sub(dfm.df_split(b), dfm.df_stencil_apply(st_hi, st_lo, ops, dfm.df_split(x)))
+    scale = float(torch.abs(b).max())
+    assert float(torch.max(torch.abs(_to64(r_df) - r64))) < 1e-13 * scale
+    hi_err = float(torch.max(torch.abs(r_df.hi.double() - r64)))
+    assert hi_err < 1e-6 * float(torch.abs(r64).max()) + 1e-14 * scale
+
+
+def test_df_mul_and_scale():
+    rng = np.random.default_rng(5)
+    a, b = _t(rng.standard_normal(256)), _t(rng.standard_normal(256))
+    prod = _to64(dfm.df_mul(dfm.df_split(a), dfm.df_split(b)))
+    assert float(torch.max(torch.abs(prod - a * b))) < 1e-13 * float(torch.abs(a * b).max())
+
+
+def test_df_add_f32_accumulation():
+    z = dfm.df_zeros_like(torch.zeros(64))
+    ref = torch.zeros(64, dtype=F64)
+    rng = np.random.default_rng(7)
+    for i in range(8):
+        e = _t(rng.standard_normal(64) * 10.0 ** (-i), F32)
+        z = dfm.df_add_f32(z, e)
+        ref = ref + e.double()
+    assert float(torch.max(torch.abs(_to64(z) - ref))) < 1e-13
+
+
+def test_df_exp_accuracy_wide_range():
+    x = _t(np.concatenate([
+        np.linspace(-87.0, 88.0, 4001), np.linspace(-2.0, 2.0, 4001),
+        [0.0, 1.0, -1.0, 1e-8, -1e-8, 700.0, -1e6],
+    ]))
+    got = dfm.df_exp(dfm.df_split(x))
+    ref = torch.exp(x)
+    rel = torch.abs(_to64(got) - ref) / ref
+    # full DF accuracy down to results of ~1e-24 (the port keeps float32
+    # subnormals, which XLA flushes), float32-level below; the input pair
+    # carries x to 2^-49 relative, |x|·2^-49 relative in exp
+    inside = (ref > 1e-24) & (x < 88.0)
+    gate = 3e-14 + torch.abs(x) * 2.0 ** -48
+    assert float(torch.max(torch.where(inside, rel - gate, 0.0))) <= 0.0
+    tiny = (x > -87.0) & ~inside & (x < 88.0)
+    assert float(torch.max(torch.where(tiny, rel, 0.0))) < 5e-7
+    assert float(_to64(got)[-1]) == 0.0 and float(_to64(got)[-2]) == math.inf
+    i0 = int(torch.argmin(torch.abs(x)))
+    assert float(got.hi[i0]) == 1.0 and float(got.lo[i0]) == 0.0
+
+
+def test_df_logistic_accuracy():
+    x = _t(np.linspace(-80.0, 80.0, 8001))
+    got = _to64(dfm.df_logistic(dfm.df_split(x)))
+    ref = torch.sigmoid(x)
+    gate = torch.where(ref > 1e-24, 3e-14 + torch.abs(x) * 2.0 ** -48, 5e-7)
+    assert float(torch.max(torch.abs(got - ref) / ref - gate)) <= 0.0
+    cs = _t(np.linspace(-0.05, 0.05, 2001) * 1000.0)
+    got = _to64(dfm.df_logistic(dfm.df_split(cs)))
+    assert float(torch.max(torch.abs(got - torch.sigmoid(cs)) / torch.sigmoid(cs))) < 3e-14
+
+
+def test_df_log_accuracy_and_domain():
+    x = _t(np.concatenate([np.logspace(-30, 30, 4001), np.linspace(0.5, 1.5, 2001)]))
+    err = torch.abs(_to64(dfm.df_log(dfm.df_split(x))) - torch.log(x))
+    gate = 3e-14 * torch.clamp_min(torch.abs(torch.log(x)), 1.0) + 2e-38 / x
+    assert float(torch.max(err - gate)) <= 0.0
+    assert float(dfm.df_log(_split([0.0])).hi[0]) == -math.inf
+    assert bool(torch.isnan(dfm.df_log(_split([-1.0])).hi[0]))
+
+
+def test_df_pow_matches_f64_fractional_gammas():
+    base = _t(np.abs(np.linspace(-0.4, 0.6, 2001)))
+    for gamma in (1.1, 2.1, 3.1, 4.1):
+        got = _to64(dfm.df_pow(dfm.df_split(base), dfm.df_split(torch.full_like(base, gamma))))
+        ref = base ** gamma
+        gate = (1.0 + torch.abs(gamma * torch.log(torch.clamp_min(base, 1e-300)))) * 2e-14
+        assert float(torch.max(torch.abs(got - ref) - ref * gate - 1e-37)) <= 0.0
+    z = dfm.df_pow(_split(np.zeros(3)), _split(np.full(3, 2.1)))
+    assert bool(torch.all(z.hi == 0.0)) and bool(torch.all(z.lo == 0.0))
+
+
+def test_df_sin_cos_accuracy():
+    x = _t(np.concatenate([np.linspace(-20.0, 20.0, 8001), np.pi * np.linspace(0.0, 1.0, 257)]))
+    d = dfm.df_split(x)
+    assert float(torch.max(torch.abs(_to64(dfm.df_sin(d)) - torch.sin(x)))) < 1e-13
+    assert float(torch.max(torch.abs(_to64(dfm.df_cos(d)) - torch.cos(x)))) < 1e-13
+
+
+def test_df_tanh_and_sqrt_and_rsqrt():
+    x = _t(np.linspace(-20.0, 20.0, 4001))
+    assert float(torch.max(torch.abs(_to64(dfm.df_tanh(dfm.df_split(x))) - torch.tanh(x)))) < 3e-14
+    y = _t(np.concatenate([np.zeros(4), np.logspace(-20, 20, 2001)]))
+    got = dfm.df_sqrt(dfm.df_split(y))
+    assert bool(torch.all(got.hi[:4] == 0.0)) and not bool(torch.any(torch.isnan(got.hi)))
+    rel = torch.abs(_to64(dfm.DF(got.hi[4:], got.lo[4:])) - torch.sqrt(y[4:])) / torch.sqrt(y[4:])
+    assert float(torch.max(rel)) < 3e-14
+    r = _to64(dfm.df_rsqrt(dfm.df_split(y[4:])))
+    assert float(torch.max(torch.abs(r - 1.0 / torch.sqrt(y[4:])) * torch.sqrt(y[4:]))) < 5e-14
+
+
+def test_df_exp_through_the_lift():
+    """exp reached through df_call (the lifted graph's entry point) is the
+    DF exp: 3e-14 relative, no float64 passthrough."""
+    x = _t(np.linspace(-5.0, 5.0, 101))
+    df_lift_report(reset=True)
+    got = df_call(torch.exp, x)
+    assert got.dtype == F64
+    assert float(torch.max(torch.abs(got - torch.exp(x)) / torch.exp(x))) < 3e-14
+    assert df_lift_report() == {}
+
+
+def _j(d):
+    return j_dfm.df_to(d, jnp.float64)
+
+
+def _both(fn_name, *xs):
+    """The port's and the JAX package's DF function on the same float64
+    inputs (split in each package), each reconstructed to float64."""
+    port = getattr(dfm, fn_name)(*(dfm.df_split(_t(x)) for x in xs))
+    ref = getattr(j_dfm, fn_name)(*(j_dfm.df_split(jnp.asarray(x)) for x in xs))
+    return _to64(port).numpy(), np.asarray(_j(ref))
+
+
+_DF_INPUTS = {
+    "df_add": (lambda r: (r.standard_normal(512), r.standard_normal(512) * 1e-3), 4),
+    "df_sub": (lambda r: (r.standard_normal(512), r.standard_normal(512)), 4),
+    "df_mul": (lambda r: (r.standard_normal(512), r.standard_normal(512)), 4),
+    "df_div": (lambda r: (r.standard_normal(512), r.uniform(0.5, 2.0, 512)), 4),
+    "df_exp": (lambda r: (r.uniform(-40.0, 40.0, 512),), 8),
+    "df_logistic": (lambda r: (r.uniform(-30.0, 30.0, 512),), 8),
+    "df_log": (lambda r: (r.uniform(1e-3, 1e3, 512),), 8),
+    "df_pow": (lambda r: (r.uniform(0.05, 2.0, 512), r.uniform(0.5, 4.5, 512)), 16),
+    "df_sqrt": (lambda r: (r.uniform(0.0, 10.0, 512),), 4),
+    "df_rsqrt": (lambda r: (r.uniform(0.01, 10.0, 512),), 4),
+    "df_sin": (lambda r: (r.uniform(-20.0, 20.0, 512),), 8),
+    "df_cos": (lambda r: (r.uniform(-20.0, 20.0, 512),), 8),
+    "df_tanh": (lambda r: (r.uniform(-10.0, 10.0, 512),), 8),
+}
+
+
+@pytest.mark.parametrize("fn_name", list(_DF_INPUTS))
+def test_df_function_matches_jax(fn_name):
+    """Each DF function against ``na_dd_tpu.ops.doublefloat``'s on the same
+    seeded inputs, away from the float32 subnormal range: within ``k`` DF
+    ulps (2^-48) of the value's magnitude (at least 1)."""
+    make, k = _DF_INPUTS[fn_name]
+    port, ref = _both(fn_name, *make(np.random.default_rng(len(fn_name))))
+    assert np.all(np.isfinite(port))
+    assert np.max(np.abs(port - ref) / np.maximum(np.abs(ref), 1.0)) <= k * 2.0 ** -48
+
+
+@pytest.mark.parametrize("fn_name", ["two_sum", "fast_two_sum", "two_prod"])
+def test_eft_matches_jax_bit_for_bit(fn_name):
+    """The error-free transformations give the JAX package's pairs exactly
+    (one IEEE float32 operation a step in both)."""
+    rng = np.random.default_rng(3)
+    a = rng.standard_normal(4096).astype(np.float32)
+    b = (rng.standard_normal(4096) * 1e-3).astype(np.float32)
+    port = getattr(dfm, fn_name)(_t(a, F32), _t(b, F32))
+    ref = getattr(j_dfm, fn_name)(jnp.asarray(a), jnp.asarray(b))
+    for p, r in zip(port, ref):
+        np.testing.assert_array_equal(p.numpy(), np.asarray(r))
+
+
+def test_df_stencil_apply_and_split_match_jax():
+    """df_split_stencil and df_stencil_apply against the JAX package's on
+    one random Stencil5 and DF operand: ≤4 DF ulps of the apply's scale."""
+    rng = np.random.default_rng(8)
+    planes = [rng.standard_normal((17, 15)) for _ in range(5)]
+    z = rng.standard_normal((17, 15))
+    p_hi, p_lo = dfm.df_split_stencil(t_ls.Stencil5(*(_t(p) for p in planes)))
+    j_hi, j_lo = j_dfm.df_split_stencil(j_ls.Stencil5(*(jnp.asarray(p) for p in planes)))
+    for a, b in zip((*p_hi, *p_lo), (*j_hi, *j_lo)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    port = _to64(dfm.df_stencil_apply(p_hi, p_lo, T_OPS, dfm.df_split(_t(z)))).numpy()
+    ref = np.asarray(_j(j_dfm.df_stencil_apply(j_hi, j_lo, J_OPS, j_dfm.df_split(jnp.asarray(z)))))
+    assert np.max(np.abs(port - ref)) <= 4 * 2.0 ** -48 * np.max(np.abs(ref))
+
+
+@pytest.fixture(scope="module")
+def pol24():
+    """The pol N=24 setup of tests/test_df_lift.py in both packages, the
+    state the exact solution at t = 0.011."""
+    from na_dd_tpu.harness.studies import _make_trial as j_make_trial
+    from na_dd_tpu.harness.studies import study_consts as j_study_consts
+    from na_dd_tpu.mms import cases as j_cases
+    from na_dd_tpu.mms.engine import state_from_mms_when as j_state_from_mms_when
+    from na_dd_tpu_torch.harness.studies import _make_trial, study_consts
+    from na_dd_tpu_torch.mms import cases
+    from na_dd_tpu_torch.mms.engine import state_from_mms_when
+
+    jt = j_make_trial(j_cases.MMSCasePol, 24, 50.0, mc=j_study_consts("pol"), krylov_unroll=8)
+    tt = _make_trial(cases.MMSCasePol, 24, 50.0, mc=study_consts("pol"), krylov_unroll=8,
+                     device="cpu")
+    js0 = j_state_from_mms_when(mms_case=jt.mms_case, t=0.011, grid=jt.grid)
+    ts0 = state_from_mms_when(mms_case=tt.mms_case, t=0.011, grid=tt.grid)
+    return (jt.grid, jt.integrator.semi_discrete_field, js0), (
+        tt.grid, tt.integrator.semi_discrete_field, ts0)
+
+
+def _gate(got, ref, tol=3e-13):
+    # the JAX test's floor of the scale at 1e-20 (a noise-level plane)
+    ref = np.asarray(ref)
+    got = got.numpy()
+    assert np.max(np.abs(got - ref)) <= tol * max(float(np.max(np.abs(ref))), 1e-20)
+
+
+def test_df_lift_all_fields_matches_jax_f64(pol24):
+    (jg, jfield, js0), (tg, tfield, ts0) = pol24
+    ref = jfield.all_fields(jg, J_OPS, js0, 0.011)
+    df_lift_report(reset=True)
+    got = df_call(lambda s, t: tfield.all_fields(tg, T_OPS, s, t), ts0, 0.011)
+    for name in ("cp", "T", "cl", "cd", "cs"):
+        _gate(getattr(got, name), getattr(ref, name))
+    assert df_lift_report() == {}
+
+
+def test_df_lift_newton_planes_match_jax_f64(pol24):
+    (jg, jfield, js0), (tg, tfield, ts0) = pol24
+
+    def planes(field, g, ops, s):
+        return (
+            field.stencil_dFT_dT(g, ops, s), field.stencil_dFcl_dcl(g, ops, s),
+            field.stencil_dFcd_dcd(g, ops, s), field.stencil_dFcl_dT(g, ops, s),
+            field.stencil_dFcd_dT(g, ops, s), (field.diag_dFcd_dcl(g, s),),
+        )
+
+    ref = planes(jfield, jg, J_OPS, js0)
+    got = df_call(lambda s: planes(tfield, tg, T_OPS, s), ts0)
+    for st_ref, st_got in zip(ref, got):
+        for p_ref, p_got in zip(st_ref, st_got):
+            _gate(p_got, p_ref)
+
+
+def test_df_lift_runs_without_passthrough(pol24):
+    """The lifted field evaluation runs every operation by a DF rule: an
+    empty report (the JAX test also jits the lift; the port has no trace)."""
+    (_, _, _), (tg, tfield, ts0) = pol24
+    df_lift_report(reset=True)
+    got = df_call(lambda s, t: tfield.all_fields(tg, T_OPS, s, t), ts0, 0.011)
+    ref = tfield.all_fields(tg, T_OPS, ts0, 0.011)
+    assert got.T.dtype == F64
+    _gate(got.T, ref.T.numpy())
+    assert df_lift_report() == {}
+
+
+def test_df_lift_sqrt_with_zeros_and_minmax_nan():
+    x = _t(np.concatenate([np.zeros(3), np.linspace(0.5, 4.0, 61)]))
+
+    def f(v):
+        return torch.sqrt(v) + torch.maximum(v, _t(0.25)) - torch.minimum(v, _t(3.0))
+
+    got = df_call(f, x)
+    assert not bool(torch.any(torch.isnan(got)))
+    _gate(got, f(x).numpy())
+    xn = _t([1.0, math.nan, 2.0])
+    got_max = df_call(lambda v: torch.maximum(v, _t(1.5)), xn)
+    ref_max = torch.maximum(xn, _t(1.5))
+    assert bool(torch.isnan(got_max[1])) and bool(torch.isnan(ref_max[1]))
+    assert torch.allclose(got_max[::2], ref_max[::2])

@@ -771,3 +771,91 @@ def test_three_d_study_level_off_its_record_fails(tmp_path, monkeypatch):
     rc, res = _study(tmp_path, "--levels", "1", "--tf", "0.01")
     assert rc == 0 and res["adjudication"]["passed"] is None
     assert len(res["adjudication"]["skipped_no_record"]) == 1
+
+
+# ---------------------------------------------------------------------------
+# precision="df" and mixed_df in 3-D (through K5's plain twin here)
+# ---------------------------------------------------------------------------
+DF3 = dict(krylov_unroll=8, precision="df", mixed_refine=1, mixed_final_check=False)
+_STEP3 = {}  # the 3-D mixed_df steps, made once for the module
+
+
+def _step3(jparams, tparams, N=4, dt=1e-3):
+    """One step of each package's 3-D RegHCs integrator on MMSCaseExpSin3
+    from the exact state at t = 0 (the JAX step jitted), and the port's
+    backend calls by kind."""
+    jm, tm = _models()
+    jg, jcase, _, jinteg = j_make_setup3(JCase, N=N, model=jm, eta=ETA, integrator_params=jparams)
+    tg, _, _, tinteg = t_make_setup3(TCase, N=N, model=tm, eta=ETA, integrator_params=tparams,
+                                     device="cpu")
+    from na_dd_tpu.three_d.mms import state_from_mms_when3
+
+    js0 = state_from_mms_when3(mms_case=jcase, t=0.0, grid=jg)
+    j_state, j_diag = jax.jit(jinteg.step_fn, static_argnums=1)(jg, J_OPS, js0, 0.0, dt)
+    calls = []
+    for name in ("solve", "solve_df", "solve_triple_df"):
+        if hasattr(tinteg.solver, name):
+            fn = getattr(tinteg.solver, name)
+            setattr(tinteg.solver, name,
+                    lambda *a, _n=name, _f=fn: (calls.append(_n), _f(*a))[1])
+    ts0 = state_from_numpy({k: np.asarray(v) for k, v in js0._asdict().items()}, device="cpu")
+    t_state, t_diag = tinteg.step_fn(tg, T_OPS, ts0, 0.0, dt)
+    return j_state, j_diag, t_state, t_diag, calls
+
+
+@pytest.fixture(scope="module")
+def df_step3():
+    """The 3-D df step (N=4, dt=1e-3, budget 8, refine 1, no final check)
+    and the JAX package's 3-D float64 step."""
+    return _step3(dict(krylov_unroll=8), DF3)
+
+
+@pytest.mark.parametrize("field", FIELDS)
+def test_df_step3_field_matches_jax_f64(df_step3, field):
+    j_state, _, t_state, _, _ = df_step3
+    assert getattr(t_state, field).dtype == torch.float64
+    assert_close(getattr(t_state, field), getattr(j_state, field), 1e-13)
+
+
+def test_df_step3_route_and_record(df_step3):
+    """Three DF refinements a sweep through the 7-point solve (K5 on the
+    card), every solve converged; the state's norms on the JAX package's
+    eager CPU-x64 df record (``studies/results/df_cpu_x64.json``, ≤1e-12)."""
+    import os
+
+    _, _, t_state, t_diag, calls = df_step3
+    assert calls == ["solve_df"] * 3
+    assert bool(t_diag.krylov_converged) and bool(t_diag.hcs_denominator_ok)
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "studies", "results", "df_cpu_x64.json")
+    with open(path) as f:
+        rec = json.load(f)["df3"]["df"]
+    for name in FIELDS:
+        v = getattr(t_state, name)
+        assert abs(float(torch.linalg.vector_norm(v)) - rec["norm2"][name]) <= (
+            1e-12 * rec["norm2"][name])
+        assert abs(float(v.abs().max()) - rec["max"][name]) <= 1e-12 * rec["max"][name]
+
+
+@pytest.mark.parametrize("field", FIELDS)
+def test_mixed_df_step3_matches_jax(field):
+    """mixed_df in 3-D (DF residuals around the float32 7-point solves)
+    against the JAX package's 3-D mixed_df step, ≤1e-12."""
+    kw = dict(krylov_unroll=8, precision="mixed", mixed_df=True)
+    key = "mixed_df3"
+    if key not in _STEP3:
+        _STEP3[key] = _step3(kw, kw)
+    j_state, j_diag, t_state, t_diag, calls = _STEP3[key]
+    assert_close(getattr(t_state, field), getattr(j_state, field), RTOL_PHYSICS)
+    assert int(t_diag.krylov_iters) == int(j_diag.krylov_iters) > 0 and calls == ["solve"] * 3
+
+
+
+def test_three_d_study_takes_precision_df(tmp_path):
+    """``three_d_study --precision df`` (the JAX script's
+    NA_DD_TPU_PRECISION=df): the N=4 level through the 3-D df step (two
+    Newton sweeps a step, every solve converged) on the JAX package's CPU-x64
+    float64 record at the parity gate."""
+    rc, res = _study(tmp_path, "--levels", "1", "--n0", "4", "--precision", "df")
+    assert rc == 0 and res["precision"] == "df" and res["levels"][0]["converged"]
+    _assert_adjudicated(res, 1)
