@@ -1,28 +1,12 @@
-"""Test configuration: run on CPU with 8 virtual devices, and bound each test.
+"""Test configuration: run on CPU with 8 virtual devices.
 
 f64 is native on CPU (fast, exact) and the virtual 8-device mesh lets the
 sharding/halo tests validate the multi-chip path without TPU hardware, per the
 standard JAX practice of forcing host platform device count.  Must run before
 any jax array is created.
-
-Every test's setup and call phases each run under a time limit
-(:data:`TIME_LIMIT_S`, or ``@pytest.mark.time_limit(seconds)``): a test that
-runs past it fails and names itself instead of eating the whole run's clock.
-Under ``--dist loadfile`` the longest files go to the workers first
-(:data:`FILE_SECONDS`).
 """
 
-import faulthandler
-import hashlib
-import os
-import signal
-import tempfile
-import threading
-import time
-from contextlib import contextmanager
-
 import jax
-import pytest
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_num_cpu_devices", 8)
@@ -34,157 +18,3 @@ jax.config.update("jax_enable_x64", True)
 from na_dd_tpu.config import enable_persistent_compilation_cache  # noqa: E402
 
 enable_persistent_compilation_cache()
-
-#: Seconds each of a test's setup and call phases may take: over three times
-#: the slowest test of the tier-1 run, cold (140 s; CHANGES.md).
-TIME_LIMIT_S = 450.0
-#: A Python signal handler cannot run while the main thread is inside C++
-#: (an XLA compile): this long past the limit, every thread's stack is
-#: dumped to stderr and the process ends (under xdist: the worker, which
-#: xdist reports as crashed on this test and replaces).
-TIME_LIMIT_GRACE_S = 60.0
-
-#: Seconds of the test files that take a minute or more in the tier-1 run
-#: (``-n 6 --dist loadfile``, cold, 8 cores; CHANGES.md).  The files are
-#: handed to the workers longest first, the rest after them in collection
-#: order, so no long file starts late and holds up the run's end; xdist's
-#: own order, by number of tests, put the long files of few tests last.
-FILE_SECONDS = {
-    "test_three_d_drivers.py": 559,
-    "test_gradients.py": 539,
-    "test_torch_simulate.py": 498,
-    "test_three_d_model.py": 457,
-    "test_torch_three_d.py": 447,
-    "test_torch_slice.py": 439,
-    "test_mixed_precision.py": 348,
-    "test_newton_residuals.py": 288,
-    "test_parallel.py": 269,
-    "test_torch_batched.py": 265,
-    "test_torch_parallel.py": 214,
-    "test_torch_mixed.py": 180,
-    "test_studies_and_plotting.py": 143,
-    "test_parity_golden.py": 136,
-    "test_three_d_direct_solve.py": 133,
-    "test_simulate.py": 124,
-    "test_torch_golden.py": 116,
-    "test_torch_kernels.py": 104,
-    "test_reghcs_eta_sweep.py": 91,
-    "test_integration_orders.py": 82,
-    "test_pallas_kernels.py": 80,
-    "test_fe_and_h1_accuracy.py": 76,
-    "test_direct_solve.py": 70,
-    "test_adaptive.py": 68,
-    "test_three_d.py": 64,
-    "test_harness.py": 61,
-}
-
-_stderr_fd = None
-
-
-def pytest_collection_modifyitems(config, items):
-    # stable: each file's tests stay together and in their order
-    items.sort(key=lambda item: -FILE_SECONDS.get(item.path.name, 0))
-
-
-@pytest.hookimpl(optionalhook=True)
-def pytest_xdist_make_scheduler(config, log):
-    """xdist's loadfile scheduler, handing files out in collection order
-    (longest first, :data:`FILE_SECONDS`) instead of by number of tests."""
-    if config.getoption("dist") != "loadfile":
-        return None
-    from xdist.scheduler import LoadFileScheduling
-
-    config.option.loadscopereorder = False
-    return LoadFileScheduling(config, log)
-
-
-def pytest_configure(config):
-    # Capture is suspended here, so fd 2 is the real stderr; during a test it
-    # is redirected to a capture file that a dying process never reads back.
-    global _stderr_fd
-    _stderr_fd = os.dup(2)
-
-
-def pytest_unconfigure(config):
-    global _stderr_fd
-    if _stderr_fd is not None:
-        os.close(_stderr_fd)
-        _stderr_fd = None
-
-
-@contextmanager
-def time_limit(what, seconds):
-    """Fail ``what`` with :func:`pytest.fail` once ``seconds`` have passed,
-    and end the process ``TIME_LIMIT_GRACE_S`` later; restore the previous
-    SIGALRM handler and ITIMER_REAL timer on exit.  A no-op where SIGALRM
-    does not exist or off the main thread."""
-    if not hasattr(signal, "SIGALRM") or threading.current_thread() is not threading.main_thread():
-        yield
-        return
-
-    def expire(signum, frame):
-        pytest.fail(f"{what} ran past its time limit of {seconds:g} s")
-
-    previous = signal.signal(signal.SIGALRM, expire)
-    prev_delay, prev_interval = signal.setitimer(signal.ITIMER_REAL, seconds)
-    start = time.monotonic()
-    faulthandler.dump_traceback_later(
-        seconds + TIME_LIMIT_GRACE_S, exit=True,
-        file=_stderr_fd if _stderr_fd is not None else 2,
-    )
-    try:
-        yield
-    finally:
-        faulthandler.cancel_dump_traceback_later()
-        signal.setitimer(signal.ITIMER_REAL, 0)
-        signal.signal(signal.SIGALRM, signal.SIG_DFL if previous is None else previous)
-        if prev_delay:
-            left = prev_delay - (time.monotonic() - start)
-            signal.setitimer(signal.ITIMER_REAL, max(left, 1e-3), prev_interval)
-
-
-def _crash_marker(item):
-    """A file that exists while ``item`` runs under its limit in an xdist
-    worker.  xdist's loadfile scheduler hands a crashed worker's file to a
-    new worker with the crashed test still pending, so a test that ended its
-    worker would end every worker that takes the file up; a marker left
-    behind by a dead worker stops that.  None outside xdist, where the
-    process that ends is the whole run."""
-    run = os.environ.get("PYTEST_XDIST_TESTRUNUID")
-    if run is None:
-        return None
-    name = hashlib.sha1(item.nodeid.encode()).hexdigest()[:16]
-    return os.path.join(tempfile.gettempdir(), f"pytest-time-limit-{run}-{name}")
-
-
-@contextmanager
-def _limited_phase(item, what):
-    marker = _crash_marker(item)
-    if marker is not None:
-        if os.path.exists(marker):
-            os.remove(marker)
-            pytest.fail(f"{what} ended an earlier worker (time limit or crash); not run again")
-        open(marker, "w").close()
-    try:
-        with time_limit(what, _limit_of(item)):
-            yield
-    finally:
-        if marker is not None:
-            os.remove(marker)
-
-
-def _limit_of(item):
-    marker = item.get_closest_marker("time_limit")
-    return float(marker.args[0]) if marker else TIME_LIMIT_S
-
-
-@pytest.hookimpl(wrapper=True)
-def pytest_runtest_setup(item):
-    with _limited_phase(item, f"{item.nodeid} (setup)"):
-        return (yield)
-
-
-@pytest.hookimpl(wrapper=True)
-def pytest_runtest_call(item):
-    with _limited_phase(item, item.nodeid):
-        return (yield)

@@ -74,19 +74,11 @@ def test_df_lift_newton_planes_match_f64(pol_setup):
             _gate(p_got, p_ref, label="plane")
 
 
-@pytest.mark.slow
-@pytest.mark.time_limit(3600)
 def test_df_lift_is_jittable_and_no_passthrough(pol_setup):
     """The lifted evaluation must trace into ONE jittable XLA program with
     ZERO f64 passthroughs: since round 5 the transcendentals (exp, logistic,
     pow, sin, cos, log, tanh) have native-f32 DF rules, so anything in the
-    report means a hot primitive silently fell off the native-f32 path.
-
-    Slow: XLA:CPU takes about half an hour on 8 cores to compile the whole
-    lifted five-field program, longer than the whole tier-1 run may take;
-    run it with ``-m slow``.  It then fails its T gate (2.03e-10 against
-    1.8e-14): the jitted lift is inexact on XLA:CPU where the eager lift
-    passes (ROADMAP, open items)."""
+    report means a hot primitive silently fell off the native-f32 path."""
     g, field, s0 = pol_setup
     df_lift_report(reset=True)  # earlier lifts in the process don't leak in
     fn = jax.jit(

@@ -16,14 +16,10 @@ from na_dd_tpu.harness.studies import _make_trial, study_consts
 from na_dd_tpu.mms import cases as mms_cases
 
 
-def _pol_trial():
-    return _make_trial(
+def _run_pol_level():
+    trial = _make_trial(
         mms_cases.MMSCasePol, 16, 50.0, mc=study_consts("pol"), krylov_unroll=8
     )
-
-
-def _run_pol_level():
-    trial = _pol_trial()
     summary = trial.run_for_errors(Tf=0.01, dt=5e-4)
     return trial, summary
 
@@ -67,5 +63,5 @@ def test_f32_mode_krylov_tol_is_dtype_aware_and_warning_clean():
         assert not krylov_warnings, [str(w.message) for w in krylov_warnings]
 
     # back in f64 the same construction path resolves to the strict target
-    trial64 = _pol_trial()
+    trial64, _ = _run_pol_level()
     assert trial64.integrator.krylov_tol == 1e-13

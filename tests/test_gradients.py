@@ -95,25 +95,14 @@ def test_differentiable_forward_is_identical(setup):
 _H_REL = {"Dd_max": 1e-3}
 
 
-@pytest.fixture(scope="module")
-def base_grads(loss):
-    """One reverse pass gives the gradient in every key at once."""
-    return jax.grad(loss)({k: jnp.asarray(v) for k, v in BASE.items()})
-
-
-@pytest.fixture(scope="module")
-def loss_jit(loss):
-    """The loss compiled once for the central differences of every key."""
-    return jax.jit(loss)
-
-
 @pytest.mark.parametrize("key", sorted(BASE))
-def test_parameter_gradient_matches_fd(loss_jit, base_grads, key):
+def test_parameter_gradient_matches_fd(loss, key):
+    grads = jax.grad(loss)({k: jnp.asarray(v) for k, v in BASE.items()})
     val = BASE[key]
     h = abs(val) * _H_REL.get(key, 1e-5)
-    fd = (float(loss_jit(dict(BASE, **{key: val + h})))
-          - float(loss_jit(dict(BASE, **{key: val - h})))) / (2 * h)
-    ad = float(base_grads[key])
+    fd = (float(loss(dict(BASE, **{key: val + h})))
+          - float(loss(dict(BASE, **{key: val - h})))) / (2 * h)
+    ad = float(grads[key])
     assert ad == pytest.approx(fd, rel=1e-3), (key, ad, fd)
 
 
@@ -124,7 +113,6 @@ def test_initial_state_gradient_matches_fd(setup):
     )
     params = {"Dl_max": jnp.asarray(8.01e-4)}
 
-    @jax.jit
     def loss_state(s):
         return energy(g, sim(params, s))
 
@@ -205,7 +193,7 @@ def test_parameter_gradient_matches_fd_across_solver_configs(setup, config):
     sim = build_simulator(
         g, dt=DT, num_steps=2, base_consts=MC, **_SOLVER_CONFIGS[config]
     )
-    loss = jax.jit(lambda p: energy(g, sim(p, s0)))
+    loss = lambda p: energy(g, sim(p, s0))  # noqa: E731
     key, val = "Kd", BASE["Kd"]
     ad = float(jax.grad(loss)({key: jnp.asarray(val)})[key])
     h = abs(val) * 1e-5

@@ -1,14 +1,6 @@
 """Harness tests (port of tests/test_mms_trial_utils.py): combined error norm
 against hand-computed values from synthetic series, per-variable summary
-semantics, dt adjustment, and the rate-status taxonomy.  Also the test
-harness itself: the per-test time limit of tests/conftest.py."""
-
-import os
-import pathlib
-import signal
-import subprocess
-import sys
-import textwrap
+semantics, dt adjustment, and the rate-status taxonomy."""
 
 import numpy as np
 import pytest
@@ -197,93 +189,3 @@ def test_collect_precompute_matches_default():
         ).overall_combined_error
     )
     assert abs(e_both - e_ref) / e_ref < 1e-7, (e_both, e_ref)
-
-
-_HERE = pathlib.Path(__file__).resolve().parent
-_no_alarm = pytest.mark.skipif(
-    not hasattr(signal, "SIGALRM"), reason="the time limit needs SIGALRM"
-)
-
-
-def _run_inner_suite(tmp_path, conftest_text, test_text, *args):
-    """Run one test file under a copy of tests/conftest.py in a fresh
-    pytest process, bounded by its own timeout."""
-    (tmp_path / "conftest.py").write_text(conftest_text)
-    (tmp_path / "test_inner.py").write_text(textwrap.dedent(test_text))
-    env = dict(os.environ, PYTHONPATH=str(_HERE.parent))
-    return subprocess.run(
-        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
-         "-p", "no:randomly", "-W", "ignore::pytest.PytestUnknownMarkWarning",
-         *args, "test_inner.py"],
-        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120,
-    )
-
-
-@_no_alarm
-def test_time_limit_fails_a_test_that_runs_past_it(tmp_path):
-    proc = _run_inner_suite(tmp_path, (_HERE / "conftest.py").read_text(), """
-        import time
-        import pytest
-
-        @pytest.mark.time_limit(1)
-        def test_sleeps():
-            time.sleep(3)
-
-        def test_after_it_runs():
-            pass
-    """)
-    assert proc.returncode == 1, proc.stdout + proc.stderr
-    assert "test_inner.py::test_sleeps ran past its time limit of 1 s" in proc.stdout, proc.stdout
-    assert "1 failed, 1 passed" in proc.stdout, proc.stdout
-
-
-@_no_alarm
-def test_time_limit_ends_a_test_stuck_where_no_handler_runs(tmp_path):
-    """With SIGALRM blocked (as if the main thread sat in C++), the
-    faulthandler backstop dumps the stack, naming the test, and ends the
-    xdist worker once the grace period has passed too.  The new worker that
-    takes the file up refuses the stuck test instead of running it again,
-    and runs the rest of the file."""
-    conftest_text = (_HERE / "conftest.py").read_text()
-    short = conftest_text.replace("TIME_LIMIT_GRACE_S = 60.0", "TIME_LIMIT_GRACE_S = 1.0")
-    assert short != conftest_text
-    proc = _run_inner_suite(tmp_path, short, """
-        import signal
-        import time
-        import pytest
-
-        @pytest.mark.time_limit(1)
-        def test_stuck():
-            signal.pthread_sigmask(signal.SIG_BLOCK, [signal.SIGALRM])
-            time.sleep(30)
-
-        def test_after_it_runs():
-            pass
-    """, "-p", "xdist", "-n", "1", "--dist", "loadfile")
-    out = proc.stdout + proc.stderr
-    assert proc.returncode == 1, out
-    assert "Timeout (0:00:02)!" in proc.stderr, out
-    assert "in test_stuck" in proc.stderr, out
-    assert "crashed while running 'test_inner.py::test_stuck'" in proc.stdout, out
-    assert "test_inner.py::test_stuck (setup) ended an earlier worker" in proc.stdout, out
-    assert "1 passed" in proc.stdout, out
-
-
-@_no_alarm
-def test_time_limit_restores_the_previous_alarm():
-    import conftest
-
-    def mine(signum, frame):
-        pass
-
-    outer_handler = signal.signal(signal.SIGALRM, mine)
-    outer_timer = signal.setitimer(signal.ITIMER_REAL, 1000.0)
-    try:
-        with conftest.time_limit("inner", 5.0):
-            assert signal.getsignal(signal.SIGALRM) is not mine
-            assert 0.0 < signal.getitimer(signal.ITIMER_REAL)[0] <= 5.0
-        assert signal.getsignal(signal.SIGALRM) is mine
-        assert 990.0 < signal.getitimer(signal.ITIMER_REAL)[0] <= 1000.0
-    finally:
-        signal.setitimer(signal.ITIMER_REAL, *outer_timer)
-        signal.signal(signal.SIGALRM, outer_handler)

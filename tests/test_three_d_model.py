@@ -5,21 +5,23 @@ Covers: the analytic Stencil7 Jacobian/coupling planes against the exact
 ``jax.linearize``/``jax.jvp`` of the 3-D fields, 3-D dual-cell quadrature
 exactness, MMS convergence of the inherited PC machinery (spatial order 2
 with CFL-scaled dt; temporal order 2 by self-convergence), forward Euler,
-all three reaction variants, mixed-precision, pallas and f32 parity.  The
-production drivers and the sharded (2-D device mesh) parity are in
-tests/test_three_d_drivers.py.
+all three reaction variants, mixed-precision parity and sharded (2-D device
+mesh) parity of a full PC step.
 """
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
+from jax.sharding import NamedSharding, PartitionSpec as P
 
 from na_dd_tpu.core.state import State
 from na_dd_tpu.models import Model02, default_model_consts
+from na_dd_tpu.parallel import make_mesh
 from na_dd_tpu.three_d import (
     LOCAL_OPS3,
     ForwardEulerIntegrator3,
+    HaloOps3,
     MMSCaseExpSin3,
     MMSCasePol3,
     avg_int3,
@@ -280,24 +282,16 @@ def test_pc3_mixed_precision_matches_full(model):
     assert abs(e_mixed - e_full) <= 1e-8 * max(e_full, 1e-30), (e_full, e_mixed)
 
 
-@pytest.fixture(scope="module")
-def e_unroll24(model):
-    """The jnp backend's N=5 error with a Krylov budget of 24, which the
-    pallas runs below are held to."""
-    return mms_error3(
-        MMSCaseExpSin3, N=5, model=model, Tf=0.01, dt=2.5e-3,
-        integrator_params=dict(krylov_unroll=24),
-    )
-
-
-def test_pc3_pallas_backend_matches_jnp(model, e_unroll24):
+def test_pc3_pallas_backend_matches_jnp(model):
     """stencil_backend='pallas' in 3-D (interpret mode on CPU): the fused
     whole-BiCGStab-solve Stencil7 kernel inside the PC step must reproduce
     the jnp backend essentially exactly (the kernel shares bicgstab_unrolled's
     masked early-exit update), and the scanned-Krylov variant must engage the
     apply-only kernel path (the fused solve requires the unrolled shape)."""
     common = dict(N=5, model=model, Tf=0.01, dt=2.5e-3)
-    e_jnp = e_unroll24
+    e_jnp = mms_error3(
+        MMSCaseExpSin3, **common, integrator_params=dict(krylov_unroll=24)
+    )
     e_pal = mms_error3(
         MMSCaseExpSin3,
         **common,
@@ -315,13 +309,15 @@ def test_pc3_pallas_backend_matches_jnp(model, e_unroll24):
     assert abs(e_pal_scan - e_jnp) <= 1e-9 * abs(e_jnp), (e_jnp, e_pal_scan)
 
 
-def test_pc3_mixed_with_pallas_matches_full(model, e_unroll24):
+def test_pc3_mixed_with_pallas_matches_full(model):
     """precision='mixed' + stencil_backend='pallas' in 3-D: the f32-only
     Mosaic kernels run the inner solves of an f64-accurate refinement run
     (2-D twin: tests/test_mixed_precision.py::test_mixed_with_pallas_kernels
     _matches_f64)."""
     common = dict(N=5, model=model, Tf=0.01, dt=2.5e-3)
-    e_full = e_unroll24
+    e_full = mms_error3(
+        MMSCaseExpSin3, **common, integrator_params=dict(krylov_unroll=24)
+    )
     e_mp = mms_error3(
         MMSCaseExpSin3,
         **common,
@@ -383,6 +379,140 @@ def test_probe_and_matrix_free_match_analytic_3d(model):
         for v in State._fields:
             d = np.max(np.abs(np.asarray(getattr(s_g, v)) - np.asarray(getattr(s_an, v))))
             assert d < 1e-11, (kw, v, d)
+
+
+def test_production_drivers_in_3d(model):
+    """The production drivers (simulate, simulate_adaptive,
+    released_drug_fraction — harness/simulate.py) are dimension-agnostic:
+    they must run UNCHANGED on a 3-D grid/integrator with ops=LOCAL_OPS3."""
+    from na_dd_tpu.harness.simulate import (
+        released_drug_fraction,
+        simulate,
+        simulate_adaptive,
+    )
+    from na_dd_tpu.three_d import make_integrator3
+
+    g = make_uniform_grid3(6, 6, 6)
+    integ = make_integrator3(g, model)
+    # physical-style initial condition: loaded solid drug in the interior
+    bump = (
+        jnp.sin(jnp.pi * g.xx) * jnp.sin(jnp.pi * g.yy) * jnp.sin(jnp.pi * g.zz)
+    ) * g.interior_mask
+    s0 = State(cp=0.2 * bump, T=0.1 * bump, cl=0.0 * bump, cd=0.05 * bump, cs=bump)
+
+    s_fin, times, snaps = simulate(
+        integ, g, s0, dt=1e-3, num_steps=4, snapshot_every=2, ops=OPS
+    )
+    assert snaps.T.shape == (2,) + g.full_shape
+    assert np.isfinite(np.asarray(s_fin.cs)).all()
+
+    frac = released_drug_fraction(OPS, g, s_fin, s0)
+    assert 0.0 <= float(frac) < 1.0
+
+    s_ad, info = simulate_adaptive(
+        integ, g, s0, Tf=5e-3, dt0=1e-3, tol=1e-5, ops=OPS
+    )
+    assert info["steps"] >= 1 and info["t"] >= 5e-3 - 1e-12
+    assert np.isfinite(np.asarray(s_ad.T)).all()
+
+
+def test_eta_vmapped_sweep_in_3d(model):
+    """Batched η sweeps work in 3-D exactly as in 2-D: the regularization
+    factor may be a TRACED scalar through field + forcing + corrector, so one
+    vmapped program evaluates every η at once — must match per-η runs to
+    roundoff."""
+    from na_dd_tpu.three_d import (
+        FieldRegHCsTriple3,
+        MMSForcingRegHCsTriple3,
+        PCTrapezoidalRegHCsTriple3,
+    )
+    from na_dd_tpu.three_d.harness import build_runner3
+    from na_dd_tpu.three_d.mms import MMSCaseExpSin3
+
+    g = make_uniform_grid3(4, 4, 4)
+    case = MMSCaseExpSin3(g, model)
+    etas = [10.0, 100.0]
+
+    def run_eta(eta):
+        forcing = MMSForcingRegHCsTriple3(
+            mms_case=case, model=model, regularization_factor=eta
+        )
+        field = FieldRegHCsTriple3(
+            grid=g, model=model, forcing=forcing, regularization_factor=eta
+        )
+        integ = PCTrapezoidalRegHCsTriple3(
+            field, regularization_factor=eta, krylov_unroll=16
+        )
+        run, s0 = build_runner3(g, case, integ, Tf=5e-3, dt=2.5e-3)
+        _s, worst, _ok, _hcs, _pv = run(s0)
+        return jnp.sqrt(worst)
+
+    serial = np.asarray([float(run_eta(e)) for e in etas])
+    batched = np.asarray(jax.vmap(run_eta)(jnp.asarray(etas)))
+    np.testing.assert_allclose(batched, serial, rtol=1e-13)
+
+
+def test_checkpointed_run_in_3d(model, tmp_path):
+    """run_checkpointed (harness/checkpoint.py) is dimension-agnostic: a 3-D
+    checkpointed run must equal the straight 3-D simulate() result exactly,
+    and resuming from the last checkpoint must reproduce it."""
+    from na_dd_tpu.harness.checkpoint import run_checkpointed
+    from na_dd_tpu.harness.simulate import simulate
+    from na_dd_tpu.three_d import make_integrator3
+
+    g = make_uniform_grid3(5, 5, 5)
+    integ = make_integrator3(g, model)
+    bump = (
+        jnp.sin(jnp.pi * g.xx) * jnp.sin(jnp.pi * g.yy) * jnp.sin(jnp.pi * g.zz)
+    ) * g.interior_mask
+    s0 = State(cp=0.2 * bump, T=0.1 * bump, cl=0.0 * bump, cd=0.05 * bump, cs=bump)
+    dt = 1e-3
+
+    step_fn = lambda s, t, dts: integ.step_fn(g, OPS, s, t, dts)[0]  # noqa: E731
+    d = str(tmp_path / "ck3")
+    s_ck, t_fin = run_checkpointed(
+        step_fn, s0, t0=0.0, dt=dt, num_steps=4, directory=d, every=2
+    )
+    s_straight, _, _ = simulate(integ, g, s0, dt=dt, num_steps=4, ops=OPS)
+    assert abs(t_fin - 4 * dt) < 1e-15
+    for v in State._fields:
+        np.testing.assert_array_equal(
+            np.asarray(getattr(s_ck, v)), np.asarray(getattr(s_straight, v))
+        )
+
+    # resume: drop back to the step-2 checkpoint and integrate to step 4
+    s_res, _ = run_checkpointed(
+        step_fn, s0, t0=0.0, dt=dt, num_steps=4, directory=d, every=2, resume=True
+    )
+    for v in State._fields:
+        np.testing.assert_array_equal(
+            np.asarray(getattr(s_res, v)), np.asarray(getattr(s_ck, v))
+        )
+
+
+def test_batched_ladder3_matches_serial(model):
+    """The pad-to-max + vmap 3-D ladder (ONE compile for all levels) must
+    reproduce the per-level serial runner: zero padding is exactly inert
+    (0-sentinel metrics, masked weights incl. w_g*, recomputed colorings)."""
+    from na_dd_tpu.three_d.batched_ladder import run_spatial_ladder3_batched
+
+    res = run_spatial_ladder3_batched(
+        MMSCaseExpSin3, model=model, levels=2, base_N=4, verbose=False
+    )
+    assert all(res["converged"]), res["converged"]
+    for i, N in enumerate(res["Ns"]):
+        e_serial = mms_error3(
+            MMSCaseExpSin3,
+            N=N,
+            model=model,
+            Tf=0.02,
+            dt=1e-2 / 2**i,
+            integrator_params=dict(
+                num_newton_steps=2, krylov_unroll=24, krylov_scanned=True
+            ),
+        )
+        d = abs(res["errors"][i] - e_serial) / e_serial
+        assert d < 1e-12, (N, res["errors"][i], e_serial, d)
 
 
 def test_stencil7_pallas_apply_interpret(model):
@@ -460,3 +590,113 @@ def test_f32_mode_in_3d(model):
 
     assert np.isfinite(e32)
     assert abs(e32 - e64) / e64 < 0.1, (e32, e64)
+
+
+# ----------------------------------------------------------------------
+# sharded parity: the full PC step on a 2-D device mesh
+# ----------------------------------------------------------------------
+@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 (virtual) devices")
+def test_sharded_pc3_step_matches_local(model):
+    """One full 3-D PC step (Newton sweeps, Krylov solves with psum dots,
+    MMS forcing incl. the 27-point quadrature via halo shifts, RegHCs
+    pointwise-Newton corrector with pmax early exit) on a (4, 2) mesh must
+    reproduce the local step to roundoff."""
+    g, case, field, integ = make_setup3(
+        MMSCaseExpSin3,
+        model=model,
+        grid=make_uniform_grid3(7, 7, 6),  # 8 x 8 x 7 arrays: 4 x 2 shards
+        integrator_params=dict(krylov_unroll=24),
+    )
+    s0 = state_from_mms_when3(mms_case=case, t=0.0, grid=g)
+    t0, dt = 0.0, 1e-3
+
+    s1_local, diag_local = integ.step_fn(g, OPS, s0, t0, dt)
+
+    mesh = make_mesh((4, 2), ("x", "y"))
+    hops = HaloOps3(axis_x="x", nx=4, axis_y="y", ny=2)
+    spec = P("x", "y")
+
+    def raw(g_sh, s_sh):
+        s1, diag = integ.step_fn(g_sh, hops, s_sh, t0, dt)
+        # split per-node residual arrays (sharded) from the psum/pmax-built
+        # scalars (mesh-invariant, so P() passes the check_vma net)
+        return (
+            s1,
+            (diag.residual_T, diag.residual_cl, diag.residual_cd),
+            (diag.krylov_iters, diag.krylov_converged),
+        )
+
+    sharded = jax.jit(
+        jax.shard_map(
+            raw,
+            mesh=mesh,
+            in_specs=(spec, spec),
+            out_specs=(spec, (spec, spec, spec), P()),
+            check_vma=True,
+        )
+    )
+    put = lambda a: jax.device_put(a, NamedSharding(mesh, P("x", "y", None)))
+    s1_sh, res_sh, (iters_sh, conv_sh) = sharded(jax.tree.map(put, g), jax.tree.map(put, s0))
+
+    assert bool(conv_sh)
+    for v in State._fields:
+        d = np.max(np.abs(np.asarray(getattr(s1_sh, v)) - np.asarray(getattr(s1_local, v))))
+        assert d < 1e-12, (v, d)
+    d_res = np.max(np.abs(np.asarray(res_sh[0]) - np.asarray(diag_local.residual_T)))
+    assert d_res < 1e-12, d_res
+    # psum reduction order can flip a tolerance comparison at the boundary
+    assert abs(int(iters_sh) - int(diag_local.krylov_iters)) <= 3
+
+
+@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 (virtual) devices")
+def test_sharded_pc3_whole_simulation_matches_local(model):
+    """WHOLE-simulation 3-D parity on the 4×2 mesh: multiple PC steps plus
+    the in-scan combined-norm accumulation (H reductions, staggered-gradient
+    p-norms, trapezoid integral) under shard_map must reproduce the local
+    runner — a y-axis halo or weight-partition bug that only compounds over
+    steps would be caught here (the single-step gate above would miss it)."""
+    from na_dd_tpu.three_d.harness import build_runner3
+
+    g, case, _field, integ = make_setup3(
+        MMSCaseExpSin3,
+        model=model,
+        grid=make_uniform_grid3(7, 7, 6),
+        integrator_params=dict(krylov_unroll=24),
+    )
+    Tf, dt = 4e-3, 1e-3
+
+    run_local, s0 = build_runner3(g, case, integ, Tf=Tf, dt=dt)
+    sf_l, worst_l, ok_l, _hcs_l, per_l = run_local(s0)
+    assert bool(ok_l)
+
+    mesh = make_mesh((4, 2), ("x", "y"))
+    hops = HaloOps3(axis_x="x", nx=4, axis_y="y", ny=2)
+    spec = P("x", "y")
+
+    def raw(g_sh, s_sh):
+        run, _s0_sh = build_runner3(g_sh, case, integ, Tf=Tf, dt=dt, ops=hops)
+        s_fin, worst, ok, hcs_ok, per_var = run(s_sh)
+        return s_fin, (worst, ok, hcs_ok, per_var)
+
+    sharded = jax.jit(
+        jax.shard_map(
+            raw,
+            mesh=mesh,
+            in_specs=(spec, spec),
+            out_specs=(spec, P()),
+            check_vma=True,
+        )
+    )
+    put = lambda a: jax.device_put(a, NamedSharding(mesh, P("x", "y", None)))  # noqa: E731
+    sf_s, (worst_s, ok_s, _hcs_s, per_s) = sharded(
+        jax.tree.map(put, g), jax.tree.map(put, s0)
+    )
+    assert bool(ok_s)
+    for v in State._fields:
+        d = np.max(np.abs(np.asarray(getattr(sf_s, v)) - np.asarray(getattr(sf_l, v))))
+        assert d < 1e-12, (v, d)
+        # per-var final H errors: psum-of-partials vs one global sum
+        np.testing.assert_allclose(
+            float(per_s[v]), float(per_l[v]), rtol=1e-8, atol=1e-22
+        )
+    np.testing.assert_allclose(float(worst_s), float(worst_l), rtol=1e-8)
